@@ -1,0 +1,24 @@
+"""PyTorch + CUDA port of the APack reproduction (``repro``), for an NVIDIA
+H100.
+
+It serves qwen3-1.7b from the paged APack-compressed KV cache
+(``serve.ServeEngine``) with three hand-written CUDA kernels for sm_90a:
+APack decode, APack encode and the fused paged gather-decode attention
+(``kernels/``).  The JAX package ``repro`` is the reference it is held
+against; this package imports neither it nor JAX.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import _build
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, per kernel (each wrapper counts where it
+    launches its kernel; CPU tensors take the plain versions and count
+    nothing)."""
+    return dict(_build.LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _build.LAUNCHES:
+        _build.LAUNCHES[name] = 0

@@ -1,0 +1,190 @@
+"""Fused paged gather-decode + attention: the CUDA kernel's wrapper and its
+plain version.
+
+Port of ``repro/kernels/fused_page_attention.py`` (``_page_tile`` :67,
+``_fused_kernel`` :101, ``fused_page_attention_pallas`` :169,
+``fused_page_attention_ref`` :293).  For each job (one batch slot of one
+attention layer) the page table is walked page by page; each page's K/V
+tile is built by lifecycle state — HOT int8 x per-token scale, COLD int8 x
+per-(page, head) scale, PACKED APack-decoded — scored with the causal mask
+on absolute position (``t0 + i < qpos``), the rolling window
+(``> qpos - window`` when ``window > 0``) and the optional softcap, and
+folded into an online softmax.  The result is the *unnormalized*
+``(acc, m, l)``; the caller merges the current token and divides
+(``models.modules.paged_attention_step``).
+
+Head tensor-parallelism is not part of this slice: a PACKED page decodes
+all of its heads, which are exactly the dense planes' heads, so the
+reference's ``h0`` slice is the identity and ``jobmeta`` carries
+``(qpos, window)`` only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, ref
+
+F32 = torch.float32
+I32 = torch.int32
+PAGE_FREE, PAGE_HOT, PAGE_COLD, PAGE_PACKED = 0, 1, 2, 3
+NEG_INF = -1e30          # the reference's mask value
+# the pool planes the kernel reads, in the launcher's argument order
+PLANE_KEYS = ("tok_k", "tok_sk", "tok_v", "tok_sv", "cold_k", "cold_v",
+              "pscale_k", "pscale_v", "sym_k", "ofs_k", "stored_k",
+              "sym_v", "ofs_v", "stored_v", "vm", "ol", "cum")
+
+_ARGTYPES = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 13
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def _page_tiles(planes: dict, page_idx, table_idx, state, n_steps: int,
+                bits: int):
+    """f32 K and V tiles [J, P, ps, H, dh] of every (job, page slot) by
+    lifecycle state (``_page_tile`` / ``dequant_page``); all PACKED pages
+    of both kinds decode in one batched call.  Slots in no lifecycle state
+    (FREE) stay zero: they are fully masked, and a zero tile folds in
+    exactly as the reference's tile of whatever page the slot names."""
+    ps, h, dh = planes["tok_k"].shape[1:]
+    pid = page_idx.long()
+    tiles = torch.zeros(2, *pid.shape, ps, h, dh, dtype=F32,
+                        device=planes["tok_k"].device)
+    for i, kind in enumerate("kv"):
+        for st, src, sc in ((PAGE_HOT, f"tok_{kind}", f"tok_s{kind}"),
+                            (PAGE_COLD, f"cold_{kind}", f"pscale_{kind}")):
+            sel = state == st
+            if sel.any():
+                p = pid[sel]
+                s = planes[sc][p].to(F32)
+                s = s[..., None] if st == PAGE_HOT else s[:, None, :, None]
+                tiles[i][sel] = planes[src][p].to(F32) * s
+    packed = state == PAGE_PACKED
+    if packed.any():
+        p = pid[packed]
+        row = table_idx.long()[packed]
+        rows = torch.cat([row, row + 1])          # K rows, then V rows
+        u = ref.decode(torch.cat([planes["sym_k"][p], planes["sym_v"][p]]),
+                       torch.cat([planes["ofs_k"][p], planes["ofs_v"][p]]),
+                       torch.cat([planes["stored_k"][p],
+                                  planes["stored_v"][p]]),
+                       planes["vm"][rows], planes["ol"][rows],
+                       planes["cum"][rows], n_steps, bits)
+        sgn = torch.where(u >= 128, u - 256, u).to(F32).reshape(
+            2, -1, ps, h, dh)
+        for i, kind in enumerate("kv"):
+            tiles[i][packed] = (sgn[i] * planes[f"pscale_{kind}"][p]
+                                .to(F32)[:, None, :, None])
+    return tiles[0], tiles[1]
+
+
+def fused_page_attention_plain(q, page_idx, table_idx, meta, jobmeta,
+                               planes: dict, *, n_steps: int,
+                               softcap: float = 0.0, bits: int = 8):
+    """Plain PyTorch version (``fused_page_attention_ref``): the same
+    page-by-page online-softmax update order, jobs as a batch axis."""
+    jn, hq, dh = q.shape
+    n_pages = page_idx.shape[1]
+    ps, hkv = planes["tok_k"].shape[1:3]
+    g = hq // hkv
+    q3 = q.to(F32).reshape(jn, hkv, g, dh)
+    acc = torch.zeros(jn, hkv, g, dh, dtype=F32, device=q.device)
+    m_run = torch.full((jn, hkv, g), NEG_INF, dtype=F32, device=q.device)
+    l_run = torch.zeros(jn, hkv, g, dtype=F32, device=q.device)
+    qpos = jobmeta[:, 0:1].to(I32)
+    window = jobmeta[:, 1:2].to(I32)
+    offs = torch.arange(ps, dtype=I32, device=q.device)
+    kt_all, vt_all = _page_tiles(planes, page_idx, table_idx, meta[..., 0],
+                                 n_steps, bits)
+    for p in range(n_pages):
+        state = meta[:, p, 0]
+        kt, vt = kt_all[:, p], vt_all[:, p]
+        scores = torch.einsum("jkgd,jskd->jkgs", q3, kt) * (dh ** -0.5)
+        pos = meta[:, p, 1:2].to(I32) + offs
+        valid = (pos < qpos) & (state != PAGE_FREE)[:, None]
+        valid &= torch.where(window > 0, pos > qpos - window, True)
+        vmask = valid[:, None, None, :]
+        scores = torch.where(vmask, scores, NEG_INF)
+        if softcap > 0:
+            scores = softcap * torch.tanh(scores / softcap)
+        m_new = torch.maximum(m_run, scores.amax(-1))
+        # explicit * valid: a fully masked page keeps m at NEG_INF and
+        # exp(NEG_INF - NEG_INF) == 1 would otherwise pollute l
+        w = torch.exp(scores - m_new[..., None]) * vmask
+        alpha = torch.exp(m_run - m_new)
+        l_run = l_run * alpha + w.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("jkgs,jskd->jkgd", w, vt)
+        m_run = m_new
+    return (acc.reshape(jn, hq, dh), m_run.reshape(jn, hq),
+            l_run.reshape(jn, hq))
+
+
+def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
+                         table_idx: torch.Tensor, meta: torch.Tensor,
+                         jobmeta: torch.Tensor, planes: dict, *,
+                         n_steps: int, softcap: float = 0.0, bits: int = 8):
+    """Fused paged attention over a job batch.
+
+    Args:
+      q:         f32 [J, Hq, dh] rope'd, unscaled queries.
+      page_idx:  int32 [J, P] pool page per (job, page slot).
+      table_idx: int32 [J, P] K row of the stacked tables (V row = +1).
+      meta:      int32 [J, P, 2] (lifecycle state, first token position).
+      jobmeta:   int32 [J, 2] (qpos, window); window 0 means global.
+      planes:    the ``model.DevicePoolPlanes`` dict (``PLANE_KEYS``).
+
+    Returns ``(acc f32 [J, Hq, dh], m f32 [J, Hq], l f32 [J, Hq])``.  A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    if q.device.type == "cpu":
+        return fused_page_attention_plain(q, page_idx, table_idx, meta,
+                                          jobmeta, planes, n_steps=n_steps,
+                                          softcap=softcap, bits=bits)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_page_attention: unsupported device "
+                         f"{q.device}")
+    if bits != 8:
+        raise ValueError("fused_page_attention decodes 8-bit KV pages only")
+    dev = q.device
+    jn, hq, dh = q.shape
+    n_pages = page_idx.shape[1]
+    pp, ps, h, _ = planes["tok_k"].shape
+    ws, s = planes["sym_k"].shape[1:]
+    wo = planes["ofs_k"].shape[1]
+    t_rows = planes["vm"].shape[0]
+    if hq % h or s * n_steps != ps * h * dh or (ps * h * dh) % 16:
+        raise ValueError(
+            f"fused_page_attention: Hq={hq}, H={h}, S={s}, n_steps={n_steps}"
+            f", page [{ps}, {h}, {dh}] do not fit together")
+    if hq * dh > 16 * 256 or t_rows < 2:
+        raise ValueError("fused_page_attention: Hq*dh above 4096 or fewer "
+                         "than two table rows")
+    shapes = {"tok_k": (pp, ps, h, dh), "tok_v": (pp, ps, h, dh),
+              "cold_k": (pp, ps, h, dh), "cold_v": (pp, ps, h, dh),
+              "tok_sk": (pp, ps, h), "tok_sv": (pp, ps, h),
+              "pscale_k": (pp, h), "pscale_v": (pp, h),
+              "sym_k": (pp, ws, s), "sym_v": (pp, ws, s),
+              "ofs_k": (pp, wo, s), "ofs_v": (pp, wo, s),
+              "stored_k": (pp, s), "stored_v": (pp, s),
+              "vm": (t_rows, 17), "ol": (t_rows, 16), "cum": (t_rows, 17)}
+    dtypes = {"tok_k": torch.int8, "tok_v": torch.int8,
+              "cold_k": torch.int8, "cold_v": torch.int8,
+              "tok_sk": F32, "tok_sv": F32, "pscale_k": F32, "pscale_v": F32}
+    plane_ptrs = [_build.require(planes[k], dtypes.get(k, I32), shapes[k], k,
+                                 dev) for k in PLANE_KEYS]
+    acc = torch.empty(jn, hq, dh, dtype=F32, device=dev)
+    m_out = torch.empty(jn, hq, dtype=F32, device=dev)
+    l_out = torch.empty(jn, hq, dtype=F32, device=dev)
+    ptrs = [_build.require(q, F32, (jn, hq, dh), "q", dev),
+            _build.require(page_idx, I32, (jn, n_pages), "page_idx", dev),
+            _build.require(table_idx, I32, (jn, n_pages), "table_idx", dev),
+            _build.require(meta, I32, (jn, n_pages, 2), "meta", dev),
+            _build.require(jobmeta, I32, (jn, 2), "jobmeta", dev),
+            *plane_ptrs, acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr()]
+    fn = _build.load("fused_page_attention").fused_page_attention_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    rc = fn(*ptrs, jn, n_pages, pp, t_rows, hq, h, dh, ps, s, ws, wo,
+            n_steps, bits, dh ** -0.5, float(softcap), _build.stream_of(q))
+    _build.check(rc, "fused_page_attention")
+    _build.LAUNCHES["fused_page_attention"] += 1
+    return acc, m_out, l_out

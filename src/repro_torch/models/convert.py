@@ -1,0 +1,42 @@
+"""Parameter conversion from the JAX package's trees.
+
+``params_from_numpy(cfg, tree, device)`` takes the JAX package's params as
+a numpy pytree (the caller runs ``jax.tree.map(np.asarray, params)``; this
+module imports no JAX) and returns the port's layout: the scanned
+``params["blocks"]`` stacks, one per cycle position with a leading
+``n_cycles`` axis, become one param dict per layer, in layer order
+``j * len(cycle) + c``.  Both packages then compute with the same numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+from .config import ModelConfig
+from .model import check_supported
+
+
+def _to_torch(x, device):
+    if isinstance(x, dict):
+        return {k: _to_torch(v, device) for k, v in x.items()}
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _index(x, j: int):
+    if isinstance(x, dict):
+        return {k: _index(v, j) for k, v in x.items()}
+    return x[j]
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
+    check_supported(cfg)
+    dev = resolve(device)
+    stacks = tree["blocks"]
+    n_cycle = len(cfg.cycle)
+    blocks = [_to_torch(_index(stacks[layer % n_cycle], layer // n_cycle),
+                        dev) for layer in range(cfg.num_layers)]
+    return {"embed": _to_torch(tree["embed"], dev),
+            "final_norm": _to_torch(tree["final_norm"], dev),
+            "blocks": blocks}

@@ -1,0 +1,268 @@
+"""Batched serving engine over the paged APack KV cache.
+
+Port of the single-device, fused, ``scheduler="sync"`` path of
+``repro/serve/engine.py``: ``prefill_bucket`` :52, ``Request`` :76,
+``ServeEngine.__init__`` :210, ``submit`` :398, ``_try_reserve``/
+``_admit`` :468/:514, ``_prefill_forward`` :646, ``_prefill_into_slot``
+:680, ``_retire`` :800, ``latency_stats`` :831, ``step`` :895, the fused
+branch of ``_step_decode`` :951-969, ``run_until_drained`` :1283 and
+``kv_stats`` :1333.
+
+Continuous batching over ``max_batch`` decode slots: finished sequences
+retire, waiting requests reserve their worst-case pages and are admitted
+with a bucketed single-request prefill whose KV is chopped into pool pages
+on the device.  Each decode step reads every page through the fused
+gather-decode attention kernel, appends the new token's K/V on the device,
+and seals (and APack-encodes) the pages that filled.  The step's only
+device-to-host reads are the greedy token ids and, at page seals, the
+calibration histograms or coded bit counts.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+def prefill_bucket(s: int, max_len: int) -> int:
+    """Power-of-two prefill length for a prompt of ``s`` tokens, capped at
+    the context window.  The JAX package buckets to bound its jit
+    compiles; the port keeps the same padded shapes so both packages
+    compute the same prefill."""
+    b = 1
+    while b < s:
+        b *= 2
+    return min(b, max_len)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # [S] int32
+    max_new_tokens: int = 32
+    eos_id: int | None = None
+    tokens: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # time.perf_counter() stamps (monotonic)
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_done: float = 0.0
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params: dict, *, max_batch: int = 8,
+                 max_len: int = 256, eos_id: int | None = None,
+                 kv_pages: int | None = None, kv_page_size: int = 16,
+                 kv_calib_pages: int = 4, kv_fused: bool | None = None,
+                 kv_refresh: bool = False, scheduler: str = "sync",
+                 mesh=None, weights: str | None = None, device=None):
+        if kv_refresh:
+            _refuse("kv_refresh (table refresh and re-pack)",
+                    "open item 1.8, serving robustness")
+        if mesh is not None:
+            _refuse("mesh= (multi-device serving)",
+                    "open item 1.10, multi-device serving")
+        if scheduler != "sync":
+            _refuse(f"scheduler={scheduler!r}",
+                    "open item 1.8, serving robustness (async scheduler)")
+        if weights is not None:
+            _refuse(f"weights={weights!r} (packed weights)",
+                    "open item 1.6, packed weights")
+        if kv_fused is False:
+            _refuse("kv_fused=False (the materialize oracle)",
+                    "open item 1.7, oracle path")
+        if cfg.kv_cache_dtype != "apack-int8":
+            _refuse(f"kv_cache_dtype={cfg.kv_cache_dtype!r} (the dense "
+                    "cache engine)", "open item 1.3, dense model path")
+        M.check_supported(cfg)
+        self.device = resolve(device)
+        self.cfg = cfg
+        for t in (params["embed"], params["final_norm"]):
+            if t.device != self.device:
+                raise ValueError(f"params on {t.device}, engine on "
+                                 f"{self.device}")
+        self.params = M.serving_params(params)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.queue: deque[Request] = deque()
+        self.active: list[Request | None] = [None] * max_batch
+        self.positions = np.zeros(max_batch, np.int64)
+        self.last_tokens = np.zeros((max_batch, 1), np.int64)
+        self.last_logits = None
+        self.stats = {"steps": 0, "generated": 0, "completed": 0,
+                      "kv_admission_blocked": 0}
+        if kv_pages is None:
+            # every slot at full context
+            kv_pages = max_batch * M.PagedKVCache.pages_for_config(
+                cfg, max_len, kv_page_size)
+        self.kv = M.PagedKVCache(cfg, kv_pages, page_size=kv_page_size,
+                                 calib_pages=kv_calib_pages,
+                                 device=self.device)
+        self.kv.enable_device_pool()
+        self._reserved: dict[int, int] = {}
+        self._reserved_total = 0
+        self._lat_wait: list[float] = []
+        self._lat_e2e: list[float] = []
+
+    # -------------------------------------------------------- scheduling
+    def submit(self, req: Request) -> None:
+        need = self._pages_for(req)
+        if need > self.kv.pool.num_pages:
+            raise ValueError(
+                f"request {req.rid} needs {need} pages worst-case but the "
+                f"pool only has {self.kv.pool.num_pages}; shorten the "
+                "request or grow kv_pages")
+        req.t_submit = time.perf_counter()
+        self.queue.append(req)
+
+    def preempt(self, slot: int, **_):
+        _refuse("preempt (state snapshots and the spill tier)",
+                "open item 1.7/1.8")
+
+    def _pages_for(self, req: Request) -> int:
+        """Worst-case page reservation: prompt + generated tokens, capped
+        at the context window."""
+        toks = min(self.max_len, len(req.prompt) + req.max_new_tokens)
+        return self.kv.pages_needed(toks)
+
+    def _try_reserve(self, req: Request) -> int | None:
+        """Pages to reserve for the queue head, or None while the pool's
+        unreserved headroom is too small (the head then waits, FIFO)."""
+        need = self._pages_for(req)
+        if self._reserved_total + need <= self.kv.pool.num_pages:
+            return need
+        self.stats["kv_admission_blocked"] += 1
+        return None
+
+    def _admit(self) -> None:
+        for slot in range(self.max_batch):
+            if self.active[slot] is not None or not self.queue:
+                continue
+            head = self.queue[0]
+            need = self._try_reserve(head)
+            if need is None:
+                break
+            self.queue.popleft()
+            self._prefill_into_slot(slot, head, need)
+
+    def _prefill_forward(self, prompt):
+        """Single-request prefill at the prompt's power-of-two bucket; a
+        prompt shorter than its bucket is zero-padded and its logits are
+        taken at the true last position."""
+        s = len(prompt)
+        bucket = prefill_bucket(s, self.max_len)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :s] = np.asarray(prompt)
+        tokens = torch.as_tensor(toks, device=self.device)
+        return M.forward(self.cfg, self.params, tokens, last_only=True,
+                         true_len=None if s == bucket else s)
+
+    def _prefill_into_slot(self, slot: int, req: Request, need: int) -> None:
+        s = len(req.prompt)
+        req.t_admit = time.perf_counter()
+        logits, caches = self._prefill_forward(req.prompt)
+        self.kv.add_request(req.rid)
+        self._reserved[req.rid] = need
+        self._reserved_total += need
+        self.kv.ingest_prefill(req.rid, caches, s)
+        next_tok = int(logits[0, -1].argmax())   # admission event
+        req.tokens.append(next_tok)
+        self.active[slot] = req
+        self.positions[slot] = s
+        self.last_tokens[slot, 0] = next_tok
+
+    def _retire(self) -> None:
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            eos = self.eos_id if req.eos_id is None else req.eos_id
+            if (len(req.tokens) >= req.max_new_tokens
+                    or (eos is not None and req.tokens
+                        and req.tokens[-1] == eos)
+                    or self.positions[slot] >= self.max_len - 1):
+                req.done = True
+                req.t_done = time.perf_counter()
+                self._log_latency(req)
+                self.stats["completed"] += 1
+                self.active[slot] = None
+                self.kv.release(req.rid)
+                self._reserved_total -= self._reserved.pop(req.rid)
+
+    def _log_latency(self, req: Request) -> None:
+        if req.t_submit <= 0.0:
+            return
+        t_admit = req.t_admit if req.t_admit > 0.0 else req.t_done
+        self._lat_wait.append(max(t_admit - req.t_submit, 0.0))
+        self._lat_e2e.append(max(req.t_done - req.t_submit, 0.0))
+
+    def latency_stats(self) -> dict:
+        """Queue-wait and end-to-end latency percentiles (seconds) over
+        every completed request."""
+        out: dict = {"n": len(self._lat_e2e)}
+        for name, vals in (("queue_wait", self._lat_wait),
+                           ("e2e", self._lat_e2e)):
+            if vals:
+                out[f"{name}_p50"] = float(np.percentile(vals, 50))
+                out[f"{name}_p99"] = float(np.percentile(vals, 99))
+                out[f"{name}_mean"] = float(np.mean(vals))
+        return out
+
+    # ------------------------------------------------------------- step
+    def step(self) -> int:
+        """One engine iteration.  Returns the number of active sequences."""
+        self._retire()
+        self._admit()
+        n_active = sum(r is not None for r in self.active)
+        if n_active == 0:
+            return 0
+        slot_rids = [r.rid if r is not None else None for r in self.active]
+        kv = self.kv
+        meta = kv.step_meta(slot_rids, self.max_len)
+        logits, new_kv = M.decode_step_paged(
+            self.cfg, self.params, kv.dev.planes, meta,
+            torch.as_tensor(self.last_tokens, device=self.device),
+            torch.as_tensor(self.positions, device=self.device))
+        targets = kv.claim_append_targets(slot_rids)
+        M.device_append(kv.dev.planes, new_kv, targets)
+        kv.note_appended(slot_rids)
+        # the step's one sanctioned pull: token ids for EOS/retire
+        toks = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        self.last_logits = logits
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            req.tokens.append(int(toks[slot]))
+            self.last_tokens[slot, 0] = toks[slot]
+            self.positions[slot] += 1
+            self.stats["generated"] += 1
+        self.stats["steps"] += 1
+        return n_active
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.queue:
+                break
+
+    def kv_stats(self) -> dict:
+        """Raw-vs-compressed KV traffic and pool occupancy."""
+        out = dict(self.kv.traffic)
+        out["kv_ratio"] = self.kv.kv_ratio()
+        out["kv_streams"] = self.kv.stream_stats()
+        out["kv_pool_pages"] = self.kv.pool.num_pages
+        out["kv_pages_allocated"] = self.kv.pool.alloc_count
+        out["kv_pages_high_water"] = self.kv.pool.high_water
+        out["kv_fused"] = True
+        out["transfers"] = dict(self.kv.transfers)
+        return out
