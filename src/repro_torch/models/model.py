@@ -3,8 +3,9 @@
 Port of the serving parts of ``repro/models/model.py``: ``init_params``
 :77, ``block_full`` :130, ``forward`` :273 (``true_len``/``last_only``),
 ``_head`` :310, ``block_step_paged`` :202, ``decode_step_paged`` :408,
-``device_append`` :488, ``DevicePoolPlanes`` :867 and ``PagedKVCache``
-:944 for stacks of global attention layers.
+``device_append`` :488, ``_pack_quantize``/``pack_weights`` :544/:562,
+``DevicePoolPlanes`` :867 and ``PagedKVCache`` :944 for stacks of global
+attention layers.
 
 Layers are a Python list of per-layer param dicts where JAX scans a
 stacked tree.  The page pool's payload lives on the device (see
@@ -25,6 +26,7 @@ from repro_torch.core import quant
 from repro_torch.core.tables import TABLE_OVERHEAD_BITS, find_table
 from repro_torch.device import resolve
 from repro_torch.kernels import apack_decode, apack_encode
+from repro_torch.kernels import decompress_matmul as dm
 from repro_torch.kernels.paged_decode import page_bucket, table_row
 
 from . import modules as m
@@ -87,17 +89,87 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def serving_params(params: dict) -> dict:
-    """A copy for serving with every matrix in bf16, made once.  The JAX
-    package casts each f32 weight to bf16 at its use (``modules.py:145``)
-    and the embedding rows after the lookup; holding the bf16 copy gives
-    the same values.  Norm scales stay f32."""
+    """A copy for serving with every dense matrix in bf16, made once.  The
+    JAX package casts each f32 weight to bf16 at its use
+    (``modules.py:145``) and the embedding rows after the lookup; holding
+    the bf16 copy gives the same values.  Norm scales stay f32, and packed
+    weights (``pack_weights``) pass through as they are."""
     def conv(k, v):
         if isinstance(v, dict):
             return {kk: conv(kk, vv) for kk, vv in v.items()}
-        return v if "norm" in k else v.to(BF16)
+        if isinstance(v, m.PackedWeight) or "norm" in k:
+            return v
+        return v.to(BF16)
     return {"embed": params["embed"].to(BF16),
             "final_norm": params["final_norm"],
             "blocks": [conv("", b) for b in params["blocks"]]}
+
+
+# --------------------------------------------------------- packed weights
+def _pack_quantize(arr: torch.Tensor, n_contract: int):
+    """Quantize a dense >= 2-D tensor with the serving convention
+    (``quantize_symmetric(..., axis=-1)`` on the original shape, in f32),
+    then fold it to the 2-D [K, N_flat] matmul view (``_pack_quantize``
+    :544).  The per-last-axis scale is constant along every contracted
+    (leading) axis, so tiling it across the flattened output axes is exact."""
+    shape = tuple(arr.shape)
+    q, qp = quant.quantize_symmetric(arr.to(F32), axis=-1)
+    k = int(np.prod(shape[:n_contract]))
+    nf = int(np.prod(shape[n_contract:]))
+    sc = qp.scale.expand(shape).reshape(k, nf)[0].contiguous()
+    return q.reshape(k, nf), sc
+
+
+def pack_weights(cfg: ModelConfig, params: dict, *,
+                 min_size: int | None = None,
+                 tile_k: int | None = None) -> tuple[dict, dict]:
+    """Convert each layer's large projection and FFN matrices to APack
+    planes on the params' device (``modules.PackedWeight``), the live weight
+    store for serving (``pack_weights`` :562).
+
+    Packed sites: wq/wk/wv (contract d) and wo (contract h, dh), w_up/
+    w_gate/w_down, each when it holds at least ``min_size`` elements;
+    ``tile_k = min(512, K)`` unless given.  The tied head and the embedding
+    stay dense.  Each layer gets its own weight-mode table.  ``params``
+    must be the original (f32) tree, not ``serving_params``' bf16 copy: the
+    quantization reads the original values and ``native_bytes`` counts
+    their element size.
+
+    Returns ``(packed_params, stats)`` with the JAX package's byte
+    accounting.  It counts one packed tensor per scanned stack there, that
+    is one per (site, cycle position), summed over the stack's layers."""
+    if min_size is None:
+        min_size = dm.DEFAULT_WEIGHT_MIN_SIZE
+    stats = {"packed_tensors": 0, "native_bytes": 0, "int8_bytes": 0,
+             "payload_bytes": 0, "slotted_bytes": 0, "scale_bytes": 0}
+
+    def pack(w: torch.Tensor, n_contract: int, first: bool):
+        q2, sc = _pack_quantize(w, n_contract)
+        cw = dm.compress_quantized(q2, sc, tile_k or min(dm.DEFAULT_TILE_K,
+                                                         q2.shape[0]))
+        stats["packed_tensors"] += int(first)
+        stats["native_bytes"] += w.numel() * w.element_size()
+        stats["int8_bytes"] += w.numel()
+        stats["payload_bytes"] += -(-cw.payload_bits // 8)
+        stats["slotted_bytes"] += 4 * (cw.sym_plane.numel()
+                                       + cw.ofs_plane.numel()
+                                       + cw.stored.numel())
+        stats["scale_bytes"] += 4 * cw.scale.numel()
+        return m.PackedWeight(cw, tuple(w.shape), n_contract,
+                              str(w.dtype).removeprefix("torch."))
+
+    blocks = []
+    for layer, blk in enumerate(params["blocks"]):
+        first = layer < len(cfg.cycle)
+        inner, ffn = dict(blk["inner"]), dict(blk["ffn"])
+        for name, nc in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 2)):
+            if inner[name].numel() >= min_size:
+                inner[name] = pack(inner[name], nc, first)
+        for name in ("w_up", "w_gate", "w_down"):
+            if ffn[name].numel() >= min_size:
+                ffn[name] = pack(ffn[name], 1, first)
+        blocks.append({**blk, "inner": inner, "ffn": ffn})
+    return {**params, "blocks": blocks}, stats
 
 
 # ------------------------------------------------------------------ block

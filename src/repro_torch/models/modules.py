@@ -3,7 +3,8 @@ dicts of tensors, plus the KV page pool.
 
 Port of the parts of ``repro/models/modules.py`` that serving qwen3-1.7b
 from the paged APack KV cache runs: ``rms_norm`` :25, ``rope`` :31,
-``_kv_quantize``/``_kv_dequantize`` :44/:54, ``attention_full`` :175
+``_kv_quantize``/``_kv_dequantize`` :44/:54, ``PackedWeight`` :69,
+``packed_proj`` :100 (single device), ``proj`` :139, ``attention_full`` :175
 (global layers), ``paged_attention_step`` :326 (single device), ``mlp``
 :461 (swiglu), the page lifecycle ``PAGE_*``/``PAGE_TRANSITIONS`` :916-950
 and ``KVPagePool`` :1077 (no spill tier, one shard).
@@ -14,9 +15,12 @@ its product), norms, rope, attention scores and softmax in f32.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.kernels import decompress_matmul as dm
 from repro_torch.kernels.fused_page_attention import fused_page_attention
 from repro_torch.kernels.ref import ofs_capacity_words, sym_capacity_words
 
@@ -71,10 +75,50 @@ def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(F32) * scale[..., None].to(F32)
 
 
-def proj(x: torch.Tensor, w: torch.Tensor, n_contract: int = 1) -> torch.Tensor:
-    """Dense projection contracting x's last ``n_contract`` axes with w's
-    leading ones, in x's dtype (the weight is cast first, as the JAX
-    package's ``proj`` does; a weight already in x's dtype is not copied)."""
+@dataclasses.dataclass
+class PackedWeight:
+    """An APack-compressed projection weight in the param tree
+    (``PackedWeight`` :69): the 2-D [K, N] ``CompressedLinear``, the
+    original dense ``shape``, how many leading axes contract into K
+    (``n_contract``: 1 for wq/wk/wv and the FFN, 2 for wo) and the dense
+    dtype's name."""
+
+    cw: dm.CompressedLinear
+    shape: tuple
+    n_contract: int
+    dtype: str
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """f32 [M, K] @ the packed [K, N] weight -> f32 [M, N], through the
+        fused decompress-matmul.  A subclass may compute the same product
+        another way (a check's dense oracle) without touching this module."""
+        return dm.compressed_matmul(x, self.cw)
+
+
+def packed_proj(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
+    """Packed projection (``packed_proj`` :100, single device): flatten x's
+    trailing contraction axes into K, run the fused decompress-matmul in
+    f32, restore the output axes and cast back to x's dtype."""
+    nc = pw.n_contract
+    lead = x.shape[:x.dim() - nc]
+    kdim = 1
+    for s in x.shape[x.dim() - nc:]:
+        kdim *= s
+    y = pw.matmul(x.reshape(-1, kdim).to(F32))
+    return y.reshape(*lead, *pw.shape[nc:]).to(x.dtype)
+
+
+def proj(x: torch.Tensor, w, n_contract: int = 1) -> torch.Tensor:
+    """Projection contracting x's last ``n_contract`` axes with w's leading
+    ones (``proj`` :139): the fused APack path when the param tree holds a
+    ``PackedWeight`` at this site, else a dense product in x's dtype (the
+    weight is cast first, as the JAX package's ``proj`` does; a weight
+    already in x's dtype is not copied)."""
+    if isinstance(w, PackedWeight):
+        if w.n_contract != n_contract:
+            raise ValueError(f"packed weight contracts {w.n_contract} axes, "
+                             f"the site {n_contract}")
+        return packed_proj(x, w)
     k = 1
     for s in w.shape[:n_contract]:
         k *= s

@@ -2,11 +2,12 @@
 
 Port of the single-device, fused, ``scheduler="sync"`` path of
 ``repro/serve/engine.py``: ``prefill_bucket`` :52, ``Request`` :76,
-``ServeEngine.__init__`` :210, ``submit`` :398, ``_try_reserve``/
-``_admit`` :468/:514, ``_prefill_forward`` :646, ``_prefill_into_slot``
-:680, ``_retire`` :800, ``latency_stats`` :831, ``step`` :895, the fused
-branch of ``_step_decode`` :951-969, ``run_until_drained`` :1283 and
-``kv_stats`` :1333.
+``ServeEngine.__init__`` :210 (with the packed weight store,
+``weights="apack-int8"``), ``submit`` :398, ``_try_reserve``/``_admit``
+:468/:514, ``_prefill_forward`` :646, ``_prefill_into_slot`` :680,
+``_retire`` :800, ``latency_stats`` :831, ``step`` :895, the fused branch
+of ``_step_decode`` :951-969, ``run_until_drained`` :1283,
+``weight_stats`` :1308 and ``kv_stats`` :1333.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
@@ -66,7 +67,9 @@ class ServeEngine:
                  kv_pages: int | None = None, kv_page_size: int = 16,
                  kv_calib_pages: int = 4, kv_fused: bool | None = None,
                  kv_refresh: bool = False, scheduler: str = "sync",
-                 mesh=None, weights: str | None = None, device=None):
+                 mesh=None, weights: str | None = None,
+                 weight_min_size: int | None = None,
+                 weight_tile_k: int | None = None, device=None):
         if kv_refresh:
             _refuse("kv_refresh (table refresh and re-pack)",
                     "open item 1.8, serving robustness")
@@ -76,9 +79,9 @@ class ServeEngine:
         if scheduler != "sync":
             _refuse(f"scheduler={scheduler!r}",
                     "open item 1.8, serving robustness (async scheduler)")
-        if weights is not None:
-            _refuse(f"weights={weights!r} (packed weights)",
-                    "open item 1.6, packed weights")
+        if weights not in (None, "apack-int8"):
+            raise ValueError(f"unknown weights mode {weights!r}; "
+                             "expected 'apack-int8' or None")
         if kv_fused is False:
             _refuse("kv_fused=False (the materialize oracle)",
                     "open item 1.7, oracle path")
@@ -92,6 +95,17 @@ class ServeEngine:
             if t.device != self.device:
                 raise ValueError(f"params on {t.device}, engine on "
                                  f"{self.device}")
+        # packed weight store: ``weights="apack-int8"`` turns every large
+        # projection/FFN matrix into APack planes on the device
+        # (``model.pack_weights``, from the original f32 values) and the
+        # forward routes those sites through the decompress-matmul kernel
+        self._weight_stats: dict | None = None
+        self.weight_pack_s = 0.0
+        if weights is not None:
+            t0 = time.perf_counter()
+            params, self._weight_stats = M.pack_weights(
+                cfg, params, min_size=weight_min_size, tile_k=weight_tile_k)
+            self.weight_pack_s = time.perf_counter() - t0
         self.params = M.serving_params(params)
         self.max_batch = max_batch
         self.max_len = max_len
@@ -254,6 +268,27 @@ class ServeEngine:
         for _ in range(max_steps):
             if self.step() == 0 and not self.queue:
                 break
+
+    def weight_stats(self) -> dict:
+        """Weight-store accounting of the packed serving path
+        (``weight_stats`` :1308).  Every decode step reads the compressed
+        planes (APack payload + per-channel dequant scale) where the dense
+        engine reads the full matrices: ``weight_ratio`` is that per-step
+        read ratio against the int8 dense store, ``native_ratio`` against
+        the original dtype.  Totals scale with ``stats["steps"]``."""
+        if self._weight_stats is None:
+            return {"weights": "dense"}
+        s = dict(self._weight_stats)
+        comp = s["payload_bytes"] + s["scale_bytes"]
+        s["weights"] = "apack-int8"
+        s["compressed_read_bytes_per_step"] = comp
+        s["dense_read_bytes_per_step"] = s["int8_bytes"]
+        s["weight_ratio"] = comp / max(s["int8_bytes"], 1)
+        s["native_ratio"] = comp / max(s["native_bytes"], 1)
+        steps = self.stats["steps"]
+        s["compressed_read_bytes_total"] = comp * steps
+        s["dense_read_bytes_total"] = s["int8_bytes"] * steps
+        return s
 
     def kv_stats(self) -> dict:
         """Raw-vs-compressed KV traffic and pool occupancy."""

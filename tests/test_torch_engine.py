@@ -121,12 +121,17 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("kw", [{"kv_refresh": True}, {"mesh": object()},
                                 {"scheduler": "async"},
-                                {"weights": "apack-int8"},
+                                {"weights": "int4"},
                                 {"kv_fused": False}])
 def test_unported_features_are_refused(kw):
+    """Unported features raise NotImplementedError naming their ROADMAP
+    item; an unknown weights mode (packed ``apack-int8`` is served) raises
+    ValueError naming the one that exists."""
     cfg = _cfg()
     params = PM.init_params(cfg, torch.Generator(), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = ((ValueError, "apack-int8") if "weights" in kw
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(exc, match=match):
         ServeEngine(cfg, params, device="cpu", **KW, **kw)
     eng = ServeEngine(cfg, params, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

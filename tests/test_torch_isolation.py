@@ -1,5 +1,6 @@
-"""The port stands alone: ``src/repro_torch`` imports neither JAX nor
-anything of the JAX package ``repro`` — not even its JAX-free modules."""
+"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package ``repro`` — not even its
+JAX-free modules — and the chip script refuses to run outside a checkout."""
 import ast
 import pathlib
 import subprocess
@@ -20,7 +21,8 @@ def _imports(path: pathlib.Path):
 
 
 def test_no_jax_or_repro_imports_in_the_source():
-    files = sorted(PKG.rglob("*.py"))
+    """The package and the port's chip script (``chip_smoke.py``)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
@@ -45,3 +47,16 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def test_chip_smoke_alone_fails_without_a_result(tmp_path):
+    """Copied into a directory that holds nothing else of the repository
+    (and, here, without a card), the chip script exits non-zero and prints
+    no result line."""
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env={"PATH": "/usr/bin:/bin"}, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
