@@ -5,21 +5,23 @@
 
 Phases (any failure exits non-zero):
 
-1. print the card's name and power limit; build the four CUDA kernels
+1. print the card's name and power limit; build the five CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc (one process each, all
    started together);
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it: APack decode and encode bit-exact (bits
+   shapes the paths give it: APack decode and encode bit-exact (bits
    4/8/16, stored streams included), fused paged attention within an f32
    tolerance on a mixed HOT/COLD/PACKED/FREE pool at the full-width page
-   shape, and the decompress-matmul at qwen3-1.7b's w_up and w_down shapes
+   shape, the decompress-matmul at qwen3-1.7b's w_up and w_down shapes
    (plus a tensor of stored streams) at M = 4 and a prefill M, there also
-   bit-exact on integer inputs and against an f64 product; time kernel,
-   plain version, bound and the PyTorch library yardstick where one exists;
-3. serve qwen3-1.7b from dense weights and the paged APack KV cache at full
-   width and depth (28 layers, seeded random weights; 8 requests, prompts
-   of 64-96 tokens, 48 new tokens each), launch counts reset just before
-   and read just after;
+   bit-exact on integer inputs and against an f64 product, and the gather
+   decode bit-exact at a materialize step's 1024 gathered pages; time
+   kernel, plain version, bound and the PyTorch library yardstick where one
+   exists;
+3. serve qwen3-1.7b from dense weights through the fused paged APack KV
+   path at full width and depth (28 layers, seeded random weights; 8
+   requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
+   reset just before and read just after;
 4. serve the same requests from APack-packed weights
    (``weights="apack-int8"``) and the paged APack KV cache, the main path,
    with its own launch counts; after the serve, build the oracle stores
@@ -28,11 +30,24 @@ Phases (any failure exits non-zero):
    sequences teacher-forced under the packed store, its f32 and f64
    oracles and the dense store dequantized from the same int8 codes;
    profile steady steps of both engines;
-5. check SMOKE-width engines, dense and packed, on the card against the
-   same engines on the CPU;
-6. decode every PACKED KV page captured mid-serve with the decode kernel
-   and with the plain decoder, and re-encode a sample with the plain encoder;
-7. print the ``kernels`` JSON line, then the result line.
+5. serve the same requests through the materialize oracle
+   (``kv_fused=False``), whose launch counts give the gather decode's;
+   between steps, while the pages are HOT and COLD and again while they
+   are HOT and PACKED, hold ``materialize`` through the kernel bit-exact
+   against the plain decode and the fused attention kernel at the first
+   and last layer against dense attention over the materialized cache;
+   print token agreement with the fused serve; profile steady steps;
+6. serve them on the fused path with slot 0 preempted after ten decode
+   steps and resumed: the tokens must equal phase 3's;
+7. serve them from a dense int8 KV cache, the uncompressed baseline, and
+   profile steady steps;
+8. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
+   caches) on the card against the same engines on the CPU, and the
+   oracle's tokens against the fused engine's on the card;
+9. after each paged serve, decode every PACKED KV page captured mid-serve
+   with the decode kernel and with the plain decoder, and re-encode a
+   sample with the plain encoder;
+10. print the ``kernels`` JSON line, then the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when it is
 not run from a checkout of the repository.
@@ -315,6 +330,64 @@ def check_attention(device, records):
         library_ms=lib, shape=[j, p, ps, h, dh])
 
 
+def check_gather(device, records):
+    """The gather-decode kernel against its plain version on the card at a
+    materialize step's full-width shape: G = 1024 gathered pages of 128
+    streams x 128 values out of a pool of 1024 KV-like pages coded under
+    four table rows (stored streams included), 1000 random page ids with
+    duplicates, edge-padded to the bucket.  Bit-exact; timed against the
+    bytes a gather must move: the coded words of each distinct page read
+    once, its stored flags, the table rows and ids, and the int32 output."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tables import find_table, histogram
+    from repro_torch.kernels import apack_encode, paged_decode
+    torch.manual_seed(5)
+    n_pages, s, e = 1024, 128, 128
+    vals = kv_like_values(n_pages, s, e, device)
+    vals[:, :8] = torch.randint(0, 256, (n_pages, 8, e), device=device,
+                                dtype=torch.int32)
+    rows = torch.arange(n_pages, device=device) % 4
+    tabs = [find_table(histogram(vals[rows == r].cpu().numpy(), 8), 8,
+                       is_activation=True).as_arrays() for r in range(4)]
+    vm, ol, cm = (torch.as_tensor(np.stack([t[i] for t in tabs]),
+                                  dtype=torch.int32, device=device)
+                  for i in range(3))
+    sym, ofs, sb, ob, st = apack_encode.encode(vals, vm[rows], ol[rows],
+                                               cm[rows], n_steps=e, bits=8)
+    g = paged_decode.gather_bucket(1000)
+    idx = torch.randint(0, n_pages, (1000,), device=device)
+    idx = torch.cat([idx, idx[-1:].expand(g - 1000)]).to(torch.int32)
+    tid = rows[idx.long()].to(torch.int32)
+    kw = dict(n_steps=e, bits=8, table_idx=tid)
+    got = paged_decode.gather_decode(sym, ofs, st, idx, vm, ol, cm, **kw)
+    want = paged_decode.gather_decode_plain(sym, ofs, st, idx, vm, ol, cm,
+                                            **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(got, vals[idx.long()])):
+        raise AssertionError("gather_decode: not bit-exact")
+    n_stored = int(st[idx.long()].sum())
+    if not 0 < n_stored < st[idx.long()].numel():
+        raise AssertionError("gather_decode: the pages must mix stored and "
+                             "coded streams")
+    ms = cuda_ms(lambda: paged_decode.gather_decode(
+        sym, ofs, st, idx, vm, ol, cm, **kw), 20)
+    plain = cuda_ms(lambda: paged_decode.gather_decode_plain(
+        sym, ofs, st, idx, vm, ol, cm, **kw), 1)
+    distinct = torch.unique(idx.long())
+    read = 4 * int(coded_words(sb[distinct], ob[distinct], sym.shape[1],
+                               ofs.shape[1]).sum())
+    read += nbytes(st[distinct], vm, ol, cm, idx, tid, got)
+    records["gather_decode"] = dict(
+        ms=ms, plain_ms=plain, max_abs_err=0,
+        bound_ms=read / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, shape=[g, s, e])
+    print(f"gather_decode: G={g} ({distinct.numel()} distinct pages of "
+          f"{n_pages}, 4 table rows, {n_stored} stored streams gathered) "
+          f"bit-exact; {ms:.4f} ms, plain {plain:.1f} ms, bound "
+          f"{records['gather_decode']['bound_ms']:.5f} ms")
+
+
 def weight_cases(device):
     """int8 codes and scales at the main path's largest matmul shapes
     (qwen3-1.7b w_up [2048, 6144] and w_down [6144, 2048], quantized from
@@ -510,15 +583,20 @@ def oracle_stores(packed_params, host_weights):
     return stores
 
 
-def serve_full_width(device, *, layers, weights=None):
+def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
+                     fused=True, calib_pages=4, hook=None):
     """Serve the 8 requests at qwen3-1.7b's published widths and ``layers``
-    layers, from dense or packed weights, with the launch counts reset just
-    before the serve and read just after.  Returns a dict with the summary,
-    the counts, a snapshot of the PACKED KV pages, the engine, the requests
-    and (packed weights only) a host copy of the original f32 weight of
-    every packed site, from which the checks after the serve build their
-    oracle stores; nothing but the engine is on the card while it serves,
-    so ``max_memory_gb`` is the engine's."""
+    layers, from dense or packed weights, through the fused paged KV path,
+    the materialize oracle (``fused=False``) or a dense cache (``kv`` of
+    "int8"), with the launch counts reset just before the serve and read
+    just after.  ``hook(eng, i)``, when given, runs after step ``i``; its
+    time is not serving time, its kernel launches (checks) are taken out
+    of the counts and its memory out of the peak.  Returns a dict with the summary, the counts, a snapshot
+    of the PACKED KV pages, the first step's logits, the engine, the
+    requests and (packed weights only) a host copy of the original f32
+    weight of every packed site, from which the checks after the serve
+    build their oracle stores; nothing but the engine is on the card while
+    it serves, so ``max_memory_gb`` is the engine's."""
     import dataclasses
     import numpy as np
     import torch
@@ -526,15 +604,16 @@ def serve_full_width(device, *, layers, weights=None):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
-    tag = f"serve[{weights or 'dense'}, {layers} layers]"
+    mode = ("fused" if fused else "oracle") if kv == "apack-int8" else kv
+    tag = f"serve[{mode} KV, {weights or 'dense'} weights, {layers} layers]"
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=layers,
-                              kv_cache_dtype="apack-int8")
+                              kv_cache_dtype=kv)
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
     params = M.init_params(cfg, gen, device)
     eng = ServeEngine(cfg, params, max_batch=4, max_len=160,
-                      kv_page_size=16, kv_calib_pages=4, weights=weights,
-                      device=device)
+                      kv_page_size=16, kv_calib_pages=calib_pages,
+                      kv_fused=fused, weights=weights, device=device)
     host_weights = {(i, grp, name): params["blocks"][i][grp][name].cpu()
                     for i, grp, name, _ in packed_sites(eng.params)}
     del params
@@ -548,9 +627,11 @@ def serve_full_width(device, *, layers, weights=None):
         eng.submit(r)
     repro_torch.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    snapshot = None
+    snapshot = first_logits = None
+    checks = dict.fromkeys(repro_torch.launch_counts(), 0)
+    peak = 0                        # the engine's, checks left out
     step_s = []
-    paused = 0.0                    # the snapshot copy is not serving time
+    paused = 0.0                    # snapshot copies and checks
     t0 = time.perf_counter()
     while True:
         ts = time.perf_counter()
@@ -559,42 +640,60 @@ def serve_full_width(device, *, layers, weights=None):
         step_s.append(time.perf_counter() - ts)
         if n == 0 and not eng.queue:
             break
-        if snapshot is None and not eng.queue:
-            tc = time.perf_counter()
+        tc = time.perf_counter()
+        if first_logits is None:
+            first_logits = eng.last_logits.float().cpu()
+        if eng.paged and snapshot is None and not eng.queue:
             snapshot = capture_packed(eng)
+        if hook is not None:
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            before = repro_torch.launch_counts()
+            hook(eng, len(step_s) - 1)
+            for k, v in repro_torch.launch_counts().items():
+                checks[k] += v - before[k]
             torch.cuda.synchronize()
-            paused += time.perf_counter() - tc
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        paused += time.perf_counter() - tc
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - paused
-    launches = repro_torch.launch_counts()
-    stats = eng.kv_stats()
+    launches = {k: v - checks[k]
+                for k, v in repro_torch.launch_counts().items()}
     gen_tokens = sum(len(r.tokens) for r in reqs)
     if not all(r.done and len(r.tokens) == 48 for r in reqs):
         raise AssertionError(f"{tag}: not every request completed")
-    if stats["kv_pages_packed"] <= 0:
-        raise AssertionError(f"{tag}: no PACKED pages")
-    path = [k for k in launches if weights or k != "decompress_matmul"]
+    path = ["decompress_matmul"] if weights else []
+    if eng.paged:
+        path += ["apack_decode", "apack_encode",
+                 "fused_page_attention" if fused else "gather_decode"]
     if any(launches[k] <= 0 for k in path):
         raise AssertionError(f"{tag}: a kernel was not launched: {launches}")
-    if not stats["kv_ratio"] or stats["kv_ratio"] >= 1:
-        raise AssertionError(f"{tag}: kv_ratio {stats['kv_ratio']} not < 1")
     if not torch.isfinite(eng.last_logits).all():
         raise AssertionError(f"{tag}: non-finite logits")
     decode_steps = step_s[1:]                     # step 0 admits + calibrates
     summary = {"layers": layers, "weights": weights or "dense",
-               "requests": len(reqs), "generated_tokens": gen_tokens,
+               "kv": mode, "requests": len(reqs),
+               "generated_tokens": gen_tokens,
                "wall_s": wall, "tokens_per_s": gen_tokens / wall,
                "steps": eng.stats["steps"],
                "median_step_ms": float(np.median(decode_steps) * 1e3),
                "first_step_s": step_s[0],
-               "weight_pack_s": eng.weight_pack_s,
-               "kv_ratio": stats["kv_ratio"],
-               "kv_pages_packed": stats["kv_pages_packed"],
-               "kv_pages_high_water": stats["kv_pages_high_water"],
-               "transfers": stats["transfers"], "launches": launches,
+               "weight_pack_s": eng.weight_pack_s, "launches": launches,
                "launches_per_step": {k: v / eng.stats["steps"]
                                      for k, v in launches.items()},
-               "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+               "check_launches": checks,
+               "max_memory_gb": max(peak, torch.cuda.max_memory_allocated())
+               / 1e9}
+    if eng.paged:
+        stats = eng.kv_stats()
+        if stats["kv_pages_packed"] <= 0:
+            raise AssertionError(f"{tag}: no PACKED pages")
+        if not stats["kv_ratio"] or stats["kv_ratio"] >= 1:
+            raise AssertionError(f"{tag}: kv_ratio {stats['kv_ratio']} "
+                                 "not < 1")
+        summary.update({k: stats[k] for k in (
+            "kv_ratio", "kv_pages_packed", "kv_pages_high_water",
+            "transfers")})
     if weights is not None:
         ws = eng.weight_stats()
         summary["weight_stats"] = {k: ws[k] for k in (
@@ -607,7 +706,7 @@ def serve_full_width(device, *, layers, weights=None):
     print(f"{tag}: " + json.dumps(summary))
     return dict(cfg=cfg, eng=eng, reqs=reqs, rng=rng, launches=launches,
                 snapshot=snapshot, host_weights=host_weights,
-                summary=summary)
+                first_logits=first_logits, summary=summary)
 
 
 def check_packed_sites(eng, stores):
@@ -766,7 +865,7 @@ def capture_packed(eng):
             "cum": torch.as_tensor(cm[rows], device=dev)}
 
 
-def smoke_vs_cpu(device, weights=None):
+def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True):
     """A SMOKE-width engine on the card against the same engine on the CPU
     (plain versions): greedy tokens must be identical, and the prefill
     logits of the first request may differ by at most one bf16 step at
@@ -774,7 +873,9 @@ def smoke_vs_cpu(device, weights=None):
     differently, and the decompress-matmul kernel sums inside a K tile in
     another order than the CPU's f32 GEMM).  ``weights="apack-int8"`` packs
     every projection (``weight_min_size=1024``: SMOKE's matrices are under
-    the default)."""
+    the default); ``fused=False`` serves the paged cache through the
+    materialize oracle; ``kv`` "int8" or "bfloat16" serves a dense cache.
+    Returns the card's tokens."""
     import dataclasses
     import numpy as np
     import torch
@@ -782,7 +883,7 @@ def smoke_vs_cpu(device, weights=None):
     from repro_torch.models.model import init_params
     from repro_torch.serve import Request, ServeEngine
     cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
-                              kv_cache_dtype="apack-int8")
+                              kv_cache_dtype=kv)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 512, n) for n in (20, 33, 9)]
@@ -794,7 +895,7 @@ def smoke_vs_cpu(device, weights=None):
                              if isinstance(v, dict) else v.to(dev))
                          for k, v in b.items()} for b in params["blocks"]]}
         eng = ServeEngine(cfg, p, max_batch=2, max_len=64, kv_page_size=4,
-                          kv_calib_pages=2, weights=weights,
+                          kv_calib_pages=2, kv_fused=fused, weights=weights,
                           weight_min_size=1024, device=dev)
         reqs = [Request(i, x, max_new_tokens=12) for i, x in enumerate(prompts)]
         for r in reqs:
@@ -808,15 +909,132 @@ def smoke_vs_cpu(device, weights=None):
             * out["cpu"][1].abs().max().item())
     same = out["cpu"][0] == out[device][0]
     same_ws = out["cpu"][2] == out[device][2]
-    print(f"smoke engine [{weights or 'dense'}] card vs cpu: prefill logit "
+    tag = (f"{weights or 'dense'} weights, "
+           + (("fused" if fused else "oracle") if kv == "apack-int8" else kv)
+           + " KV")
+    print(f"smoke engine [{tag}] card vs cpu: prefill logit "
           f"max diff {diff:.3g} (bound {step:.3g}), greedy tokens identical "
           f"{same}, weight_stats equal {same_ws}")
     if diff > step or not same or not same_ws:
-        raise AssertionError(f"SMOKE engine [{weights or 'dense'}] on the "
-                             "card disagrees with the CPU")
+        raise AssertionError(f"SMOKE engine [{tag}] on the card disagrees "
+                             "with the CPU")
+    return out[device][0]
 
 
-# ----------------------------------------------------------------- phase 4
+# ----------------------------------------------------------------- phase 5
+def live_page_states(eng) -> set:
+    """Lifecycle states of every page of the active requests."""
+    kv = eng.kv
+    return {int(kv.pool.state[pid]) for r in eng.active if r is not None
+            for pids in kv.page_tables[r.rid] for pid in pids}
+
+
+def oracle_gates(eng, what: str) -> dict:
+    """Gates on the oracle engine's pool as it stands between two steps:
+
+    (a) ``materialize`` through the gather-decode kernel equals, bit for
+        bit, a ``materialize`` whose PACKED pages the plain version decodes;
+    (b) at the first and the last layer, the fused attention kernel's
+        normalized output over the same pages equals dense attention over
+        the materialized cache (computed in f64) within the existing
+        attention check's tolerance, rtol 1e-5 and atol 1e-6, the relative
+        part taken against sum(w |v|), the magnitude at which the f32 sums
+        of the online softmax run (the reference's
+        ``test_mixed_page_states_match_materialize_oracle`` at full width).
+
+    The checks' reads are not serving traffic: the KV counters are put
+    back as they were."""
+    import torch
+    from repro_torch.kernels.fused_page_attention import fused_page_attention
+    from repro_torch.kernels.paged_decode import gather_decode_plain
+    from repro_torch.models.modules import kv_dequantize
+    kv, cfg = eng.kv, eng.cfg
+    saved = dict(kv.traffic), dict(kv.transfers)
+    rids = [r.rid if r is not None else None for r in eng.active]
+    got = kv.materialize(rids, eng.max_len)
+    want = kv.materialize(rids, eng.max_len, decode=gather_decode_plain)
+    if not all(torch.equal(a[f], b[f]) for a, b in zip(got, want)
+               for f in a):
+        raise AssertionError(f"oracle [{what}]: materialize through the "
+                             "kernel != through the plain version")
+    meta = kv.step_meta(rids, eng.max_len)
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    act = [s for s, r in enumerate(rids) if r is not None]
+    qpos = torch.tensor([kv.seq_len[rids[s]] for s in act],
+                        device=eng.device)
+    g = torch.Generator(device=eng.device).manual_seed(6)
+    worst = 0.0
+    for layer in (0, cfg.num_layers - 1):
+        q = torch.randn(len(rids), h, dh, generator=g, device=eng.device)
+        acc, _, l = fused_page_attention(
+            q, meta["pid"][layer], meta["tid"][layer], meta["kmeta"][layer],
+            meta["qw"][layer], kv.dev.planes,
+            n_steps=kv.pool.elems_per_stream,
+            softcap=float(cfg.logit_softcap))
+        out = (acc / l[..., None])[act].double()
+        c = got[layer]
+        kd = kv_dequantize(c["k"], c["k_scale"])[act].double()
+        vd = kv_dequantize(c["v"], c["v_scale"])[act].double()
+        q3 = q[act].double().reshape(len(act), hkv, h // hkv, dh)
+        sc = torch.einsum("akgd,askd->akgs", q3, kd) * dh ** -0.5
+        if cfg.logit_softcap > 0:
+            sc = cfg.logit_softcap * torch.tanh(sc / cfg.logit_softcap)
+        valid = torch.arange(sc.shape[-1], device=eng.device) < qpos[:, None]
+        w = torch.softmax(torch.where(valid[:, None, None], sc,
+                                      -float("inf")), dim=-1)
+        dense = torch.einsum("akgs,askd->akgd", w, vd).reshape(out.shape)
+        mag = torch.einsum("akgs,askd->akgd", w, vd.abs()).reshape(out.shape)
+        ratio = ((out - dense).abs() / (1e-5 * mag + 1e-6)).max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"oracle [{what}] layer {layer}: fused "
+                                 f"attention off dense attention over the "
+                                 f"materialized cache ({ratio:.3g}x the "
+                                 "tolerance)")
+        worst = max(worst, ratio)
+    kv.traffic.clear()
+    kv.traffic.update(saved[0])
+    kv.transfers.clear()
+    kv.transfers.update(saved[1])
+    res = {"states": what, "step": eng.stats["steps"],
+           "materialize_bit_exact": True,
+           "attention_worst_of_tolerance": worst,
+           "packed_pages": int(sum(len(p) for p in kv._packed))}
+    print("oracle gates: " + json.dumps(res))
+    return res
+
+
+def oracle_hook(done: dict):
+    """Run ``oracle_gates`` once while the active requests' pages are HOT
+    and COLD (before calibration), and once after ten decode steps while
+    they are HOT and PACKED.  A calibrated global-only stack packs every
+    page at its seal, so COLD and PACKED never coexist between steps."""
+    from repro_torch.models.modules import PAGE_COLD, PAGE_HOT, PAGE_PACKED
+
+    def hook(eng, i):
+        st = live_page_states(eng)
+        if "cold" not in done and st == {PAGE_HOT, PAGE_COLD}:
+            done["cold"] = oracle_gates(eng, "HOT+COLD")
+        elif "packed" not in done and i >= 10 and st == {PAGE_HOT,
+                                                          PAGE_PACKED}:
+            done["packed"] = oracle_gates(eng, "HOT+PACKED")
+    return hook
+
+
+def preempt_hook(eng, i):
+    """Preempt slot 0 after ten decode steps (step 0 admits and decodes
+    the first), requeued at the head: it resumes in the next step."""
+    if i == 9:
+        eng.preempt(0, requeue="head")
+
+
+def token_agreement(a: list, b: list) -> float:
+    """Share of generated positions where two serves chose the same
+    token."""
+    pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
+    return sum(x == y for x, y in pairs) / len(pairs)
+
+
+# ----------------------------------------------------------------- checks
 def verify_packed(snapshot):
     import torch
     from repro_torch.kernels import apack_decode, apack_encode
@@ -876,8 +1094,11 @@ def main() -> int:
     check_codec(device, records)
     check_attention(device, records)
     check_decompress_matmul(device, records)
-    # phase 3: dense weights, the three KV-path kernels
+    check_gather(device, records)
+    # phase 3: dense weights, the fused KV path's three kernels
     dense = serve_full_width(device, layers=28)
+    fused_tokens = [r.tokens for r in dense["reqs"]]
+    fused_first = dense["first_logits"]
     profile_steady_steps(dense["eng"], dense["cfg"], dense["rng"], "dense")
     verify_packed(dense["snapshot"])
     del dense
@@ -895,8 +1116,53 @@ def main() -> int:
     launches = packed["launches"]
     del packed
     torch.cuda.empty_cache()
-    smoke_vs_cpu(device)
+    # phase 5: the materialize oracle, calibrated from 20 pages so that
+    # its first decode steps read HOT and COLD pages, its later ones HOT
+    # and PACKED pages through the gather-decode kernel
+    done: dict = {}
+    oracle = serve_full_width(device, layers=28, fused=False, calib_pages=20,
+                              hook=oracle_hook(done))
+    if set(done) != {"cold", "packed"}:
+        raise AssertionError(f"oracle gates ran only at {sorted(done)}")
+    print("oracle vs fused serve: " + json.dumps({
+        "token_agreement": token_agreement(
+            [r.tokens for r in oracle["reqs"]], fused_tokens),
+        "requests_identical": sum(r.tokens == t for r, t in
+                                  zip(oracle["reqs"], fused_tokens)),
+        "first_step_max_logit_diff": (oracle["first_logits"]
+                                      - fused_first).abs().max().item()}))
+    profile_steady_steps(oracle["eng"], oracle["cfg"], oracle["rng"],
+                         "oracle")
+    verify_packed(oracle["snapshot"])
+    launches["gather_decode"] = oracle["launches"]["gather_decode"]
+    del oracle
+    torch.cuda.empty_cache()
+    # phase 6: preempt and resume on the fused path
+    pre = serve_full_width(device, layers=28, hook=preempt_hook)
+    st = pre["eng"].stats
+    print(f"preempt serve: preempted {st['preempted']} resumed "
+          f"{st['resumed']}")
+    if st["preempted"] != 1 or st["resumed"] != 1:
+        raise AssertionError("preempt serve: slot 0 was not preempted and "
+                             "resumed once")
+    if [r.tokens for r in pre["reqs"]] != fused_tokens:
+        raise AssertionError("preempt serve: tokens differ from the "
+                             "uninterrupted fused serve")
+    del pre
+    torch.cuda.empty_cache()
+    # phase 7: the uncompressed baseline, a dense int8 KV cache
+    dense8 = serve_full_width(device, layers=28, kv="int8")
+    profile_steady_steps(dense8["eng"], dense8["cfg"], dense8["rng"],
+                         "int8 KV")
+    del dense8
+    torch.cuda.empty_cache()
+    fused_smoke = smoke_vs_cpu(device)
     smoke_vs_cpu(device, weights="apack-int8")
+    if smoke_vs_cpu(device, fused=False) != fused_smoke:
+        raise AssertionError("SMOKE oracle engine on the card disagrees with "
+                             "the fused engine on the card")
+    smoke_vs_cpu(device, kv="int8")
+    smoke_vs_cpu(device, kv="bfloat16")
     sources = {"apack_decode": ("src/repro_torch/kernels/csrc/apack_decode.cu",
                                 "src/repro/kernels/apack_decode.py:34"),
                "apack_encode": ("src/repro_torch/kernels/csrc/apack_encode.cu",
@@ -906,7 +1172,10 @@ def main() -> int:
                    "src/repro/kernels/fused_page_attention.py:101"),
                "decompress_matmul": (
                    "src/repro_torch/kernels/csrc/decompress_matmul.cu",
-                   "src/repro/kernels/decompress_matmul.py:170")}
+                   "src/repro/kernels/decompress_matmul.py:170"),
+               "gather_decode": (
+                   "src/repro_torch/kernels/csrc/gather_decode.cu",
+                   "src/repro/kernels/paged_decode.py:150")}
     kernels = []
     for name in _build.KERNELS:
         r = records[name]

@@ -1,11 +1,32 @@
-"""Page-table helpers of the paged APack KV read path.
+"""Paged APack KV read helpers and the gather-decode kernel's wrapper.
 
-Port of two helpers of ``repro/kernels/paged_decode.py``: ``table_row``
-(:68) and ``page_bucket`` (:113).  The gather-decode kernel of that module
-(``gather_decode_pallas``) serves only the materialize oracle and preempt,
-which this package does not port yet.
+Port of ``repro/kernels/paged_decode.py``: ``GATHER_BUCKETS`` :57,
+``table_row`` :68, ``gather_bucket`` :80, ``page_bucket`` :113,
+``_as_table_stack`` :136, ``gather_decode_pallas`` :162 (the CUDA kernel
+``csrc/gather_decode.cu``) and ``gather_decode_ref`` :215 (the plain
+version).
+
+The gather decode turns an arbitrary list of pool pages, duplicates
+allowed, each with its own row of the stacked table pool, into decoded
+values in one launch; ``PagedKVCache.materialize`` (the ``kv_fused=False``
+oracle) issues one per K/V kind and step, across every layer.  The JAX
+package pads the page list to a bucket to bound its jit compiles and warns
+when the set of buckets keeps growing; a CUDA launch compiles nothing per
+size, so the port keeps the buckets (both packages then decode the same
+padded list) and has no recompile-storm warning.
 """
 from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, ref
+
+# Bucket sizes for the gathered page count: the page-index vector is padded
+# up to the next bucket by repeating its last entry; past the table the
+# bucket keeps doubling.
+GATHER_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 # Per-job page-count buckets for the fused attention call: the engine sizes
 # the page axis to the next power of two above the busiest active slot's
@@ -13,6 +34,8 @@ from __future__ import annotations
 # slots leave the online-softmax state exactly unchanged, so any bucket at
 # or above the true count gives the same result.
 PAGE_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def table_row(gen: int, layer: int, kind: int, n_layers: int) -> int:
@@ -23,12 +46,109 @@ def table_row(gen: int, layer: int, kind: int, n_layers: int) -> int:
     return (gen * n_layers + layer) * 2 + kind
 
 
-def page_bucket(n: int) -> int:
-    n = max(int(n), 1)
-    for b in PAGE_BUCKETS:
+def _bucket(n: int, buckets: tuple) -> int:
+    for b in buckets:
         if n <= b:
             return b
-    bucket = PAGE_BUCKETS[-1]
+    bucket = buckets[-1]
     while bucket < n:
         bucket *= 2
     return bucket
+
+
+def gather_bucket(n: int) -> int:
+    return _bucket(n, GATHER_BUCKETS)
+
+
+def page_bucket(n: int) -> int:
+    return _bucket(max(int(n), 1), PAGE_BUCKETS)
+
+
+def _as_table_stack(v_min, ol, cum, page_idx, table_idx):
+    """Table arrays in stacked ``[T, ...]`` form plus a per-page row id:
+    1-D tables (the single-table call) become a one-row stack with every
+    page at row 0."""
+    if v_min.dim() == 1:
+        v_min, ol, cum = v_min[None], ol[None], cum[None]
+    if table_idx is None:
+        table_idx = torch.zeros_like(page_idx)
+    return v_min, ol, cum, table_idx
+
+
+def gather_decode_plain(sym, ofs, stored, page_idx, v_min, ol, cum, *,
+                        n_steps: int, bits: int = 8,
+                        table_idx=None) -> torch.Tensor:
+    """Plain PyTorch gather decode (``gather_decode_ref``): gather the pages
+    and their table rows, then ``ref.decode``.  Same arguments and result
+    as :func:`gather_decode`."""
+    v_min, ol, cum, table_idx = _as_table_stack(v_min, ol, cum, page_idx,
+                                                table_idx)
+    p, t = page_idx.long(), table_idx.long()
+    return ref.decode(sym[p], ofs[p], stored[p], v_min[t], ol[t], cum[t],
+                      n_steps, bits)
+
+
+def _check_ids(page_idx: torch.Tensor, n_pages: int,
+               table_idx: torch.Tensor, n_tables: int) -> None:
+    """Raise unless every page id lies in [0, n_pages) and every table id
+    in [0, n_tables): one small pull of the id ranges, before any decode."""
+    if page_idx.numel() == 0:
+        return
+    lo_p, hi_p, lo_t, hi_t = torch.stack(
+        [x.long() for x in (page_idx.min(), page_idx.max(), table_idx.min(),
+                            table_idx.max())]).cpu().tolist()
+    for name, lo, hi, n in (("page", lo_p, hi_p, n_pages),
+                            ("table", lo_t, hi_t, n_tables)):
+        if lo < 0 or hi >= n:
+            raise IndexError(f"gather_decode: {name} ids span [{lo}, {hi}],"
+                             f" outside [0, {n})")
+
+
+def gather_decode(sym: torch.Tensor, ofs: torch.Tensor, stored: torch.Tensor,
+                  page_idx: torch.Tensor, v_min: torch.Tensor,
+                  ol: torch.Tensor, cum: torch.Tensor, *, n_steps: int,
+                  bits: int = 8, table_idx=None) -> torch.Tensor:
+    """Decode pages ``page_idx`` out of a pooled plane stack.
+
+    sym int32 [P, Ws, S] and ofs int32 [P, Wo, S] hold the u32 words,
+    stored [P, S]; page_idx int32 [G] (duplicates allowed); tables either
+    one table ([17]/[16]/[17]) or a stack ([T, 17]/[T, 16]/[T, 17]) indexed
+    per page by table_idx int32 [G].  Returns int32 [G, S, n_steps] in
+    gather order.  Page and table ids outside the pool or the stack raise
+    before any decode.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if not 1 <= bits <= 16:
+        raise ValueError(f"gather_decode: bits={bits} outside [1, 16]")
+    vm, olt, cm, tid = _as_table_stack(v_min, ol, cum, page_idx, table_idx)
+    _check_ids(page_idx, sym.shape[0], tid, vm.shape[0])
+    if sym.device.type == "cpu":
+        return gather_decode_plain(sym, ofs, stored, page_idx, vm, olt, cm,
+                                   n_steps=n_steps, bits=bits,
+                                   table_idx=tid)
+    if sym.device.type != "cuda":
+        raise ValueError(f"gather_decode: unsupported device {sym.device}")
+    p, ws, s = sym.shape
+    wo = ofs.shape[1]
+    g = page_idx.shape[0]
+    t = vm.shape[0]
+    dev = sym.device
+    idx = page_idx.to(torch.int32).contiguous()
+    tid = tid.to(torch.int32).contiguous()
+    st = stored.to(torch.int32).contiguous()
+    vm, olt, cm = (x.to(torch.int32).contiguous() for x in (vm, olt, cm))
+    out = torch.empty(g, s, n_steps, dtype=torch.int32, device=dev)
+    ptrs = [_build.require(sym, torch.int32, (p, ws, s), "sym", dev),
+            _build.require(ofs, torch.int32, (p, wo, s), "ofs", dev),
+            _build.require(st, torch.int32, (p, s), "stored", dev),
+            _build.require(idx, torch.int32, (g,), "page_idx", dev),
+            _build.require(tid, torch.int32, (g,), "table_idx", dev),
+            _build.require(vm, torch.int32, (t, 17), "v_min", dev),
+            _build.require(olt, torch.int32, (t, 16), "ol", dev),
+            _build.require(cm, torch.int32, (t, 17), "cum", dev),
+            out.data_ptr()]
+    fn = _build.load("gather_decode").gather_decode_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    rc = fn(*ptrs, g, ws, wo, s, n_steps, bits, _build.stream_of(sym))
+    _build.check(rc, "gather_decode")
+    _build.LAUNCHES["gather_decode"] += 1
+    return out

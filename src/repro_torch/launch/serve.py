@@ -1,5 +1,5 @@
 """Serving CLI: batched requests against APack-packed weights and the
-paged APack-compressed KV cache.
+paged APack-compressed KV cache, or a dense KV cache.
 
 Port of ``repro/launch/serve.py``.  On the card (the default):
 
@@ -7,7 +7,11 @@ Port of ``repro/launch/serve.py``.  On the card (the default):
         --smoke --requests 16 --prompt-len 32 --max-new 16 \\
         --kv apack-int8 --weights apack-int8 --weight-min-size 1024
 
-``--device cpu`` runs the same path through the kernels' plain versions.
+``--kv-materialize`` serves the paged cache through the materialize
+oracle (a dense int8 cache rebuilt from the pool every step) instead of
+the fused path; ``--kv int8`` or ``--kv bfloat16`` serves a dense cache,
+the raw-KV baseline.  ``--device cpu`` runs the same paths through the
+kernels' plain versions.
 The JAX CLI's other flags are accepted and refused with
 ``NotImplementedError`` naming their ROADMAP item, and so is its default
 weight path, the checkpoint-style compress/decompress round trip: pass
@@ -31,7 +35,6 @@ from repro_torch.serve import Request, ServeEngine
 # that means "not asked for", ROADMAP item)
 UNPORTED = (
     ("--window-size", None, "open item 1.7, heterogeneous stacks"),
-    ("--kv-materialize", False, "open item 1.7, oracle path"),
     ("--kv-refresh", False, "open item 1.8, serving robustness"),
     ("--kv-refresh-every", None, "open item 1.8, serving robustness"),
     ("--kv-refresh-threshold", None, "open item 1.8, serving robustness"),
@@ -45,8 +48,7 @@ UNPORTED = (
     ("--slo-ms", None, "open item 1.8, serving robustness (SLO admission)"),
     ("--mesh", None, "open item 1.10, multi-device serving"),
 )
-_FLAG_ARGS = {"--kv-materialize": dict(action="store_true"),
-              "--kv-refresh": dict(action="store_true"),
+_FLAG_ARGS = {"--kv-refresh": dict(action="store_true"),
               "--kv-pressure": dict(action="store_true"),
               "--scheduler": dict(default="sync"),
               "--kv-refresh-every": dict(type=int),
@@ -78,8 +80,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="smallest element count that --weights packs")
     ap.add_argument("--kv", default=None,
                     choices=["bfloat16", "int8", "apack-int8"],
-                    help="KV-cache mode (apack-int8 = paged + compressed; "
-                         "the port serves only that one)")
+                    help="KV-cache mode (apack-int8 = paged + compressed)")
+    ap.add_argument("--kv-materialize", action="store_true",
+                    help="use the materialize decode path (dense cache "
+                         "rebuilt from the pool every step) instead of the "
+                         "default device-resident fused path")
     ap.add_argument("--kv-page-size", type=int, default=16)
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default: worst case for "
@@ -121,7 +126,8 @@ def main(argv=None) -> None:
                          weights=args.weights,
                          weight_min_size=args.weight_min_size,
                          kv_page_size=args.kv_page_size,
-                         kv_pages=args.kv_pages, device=device)
+                         kv_pages=args.kv_pages,
+                         kv_fused=not args.kv_materialize, device=device)
     del params
     if args.weights:
         print(f"packed the weights in {engine.weight_pack_s:.1f}s")
@@ -158,25 +164,32 @@ def main(argv=None) -> None:
               f"p99={lat['queue_wait_p99']*1e3:.1f}ms; "
               f"e2e p50={lat['e2e_p50']*1e3:.1f}ms "
               f"p99={lat['e2e_p99']*1e3:.1f}ms")
-    ks = engine.kv_stats()
-    ratio = ("n/a (no KV reads)" if ks["kv_ratio"] is None
-             else f"{ks['kv_ratio']:.3f}")
-    print(f"paged KV traffic: raw={ks['kv_raw_bytes']/1e3:.1f} kB -> "
-          f"read={ks['kv_read_bytes']/1e3:.1f} kB "
-          f"(+{ks['kv_table_bytes']} B tables) "
-          f"ratio={ratio} "
-          f"packed_pages={ks['kv_pages_packed']} "
-          f"pool={ks['kv_pages_high_water']}/{ks['kv_pool_pages']} pages")
-    for kind, st in ks["kv_streams"].items():
-        r = st.get("ratio")
-        print(f"  stream {kind:7s}: "
-              + " ".join(f"{k}={v}" for k, v in st.items() if k != "ratio")
-              + (f" ratio={r:.3f}" if r is not None else " ratio=n/a"))
-    tr = ks["transfers"]
-    print(f"decode path: fused (device-resident); host<->device "
-          f"h2d={tr['h2d_bytes']/1e3:.1f} kB "
-          f"d2h={tr['d2h_bytes']/1e3:.1f} kB "
-          f"({tr['h2d_calls']}/{tr['d2h_calls']} calls)")
+    if engine.paged:
+        ks = engine.kv_stats()
+        ratio = ("n/a (no KV reads)" if ks["kv_ratio"] is None
+                 else f"{ks['kv_ratio']:.3f}")
+        print(f"paged KV traffic: raw={ks['kv_raw_bytes']/1e3:.1f} kB -> "
+              f"read={ks['kv_read_bytes']/1e3:.1f} kB "
+              f"(+{ks['kv_table_bytes']} B tables) "
+              f"ratio={ratio} "
+              f"packed_pages={ks['kv_pages_packed']} "
+              f"pool={ks['kv_pages_high_water']}/{ks['kv_pool_pages']} "
+              "pages")
+        for kind, st in ks["kv_streams"].items():
+            r = st.get("ratio")
+            print(f"  stream {kind:7s}: "
+                  + " ".join(f"{k}={v}" for k, v in st.items()
+                             if k != "ratio")
+                  + (f" ratio={r:.3f}" if r is not None else " ratio=n/a"))
+        tr = ks["transfers"]
+        mode = ("fused (device-resident)" if ks["kv_fused"]
+                else "materialize")
+        print(f"decode path: {mode}; host<->device "
+              f"h2d={tr['h2d_bytes']/1e3:.1f} kB "
+              f"d2h={tr['d2h_bytes']/1e3:.1f} kB "
+              f"({tr['h2d_calls']}/{tr['d2h_calls']} calls)")
+    else:
+        print(f"decode path: dense {cfg.kv_cache_dtype} KV cache")
     print("sample output:", reqs[0].tokens[:16])
 
 

@@ -1,21 +1,27 @@
 """Model assembly and the paged APack KV cache of the port.
 
 Port of the serving parts of ``repro/models/model.py``: ``init_params``
-:77, ``block_full`` :130, ``forward`` :273 (``true_len``/``last_only``),
-``_head`` :310, ``block_step_paged`` :202, ``decode_step_paged`` :408,
-``device_append`` :488, ``_pack_quantize``/``pack_weights`` :544/:562,
-``DevicePoolPlanes`` :867 and ``PagedKVCache`` :944 for stacks of global
-attention layers.
+:77, ``block_full`` :130, ``block_step`` :184 and ``block_step_paged``
+:202, ``forward`` :273 (``true_len``/``last_only``), ``_head`` :310,
+``_init_block_cache``/``init_cache`` :352/:366, ``decode_step`` :380,
+``decode_step_paged`` :408, ``device_append`` :488,
+``_pack_quantize``/``pack_weights`` :544/:562, ``extend_caches`` :820,
+``prefill`` :844, ``DevicePoolPlanes`` :867 and ``PagedKVCache`` :944
+(with ``append_step_tokens`` :1335, ``snapshot_state``/``restore_state``
+:1865/:1898 and ``materialize`` :2465) for stacks of global attention
+layers.
 
 Layers are a Python list of per-layer param dicts where JAX scans a
-stacked tree.  The page pool's payload lives on the device (see
-``modules.KVPagePool``): prefill ingest, the token append, the seal
-requantization and the APack encode all write it there, so no page payload
-crosses to the host.  What does cross is small and happens at page events:
-the calibration histograms of a sealed page (until its layer's tables
-exist), and the coded bit count and lossless check of each packed page.
-Not ported here: table refresh and re-pack, the host spill tier, rolling
-(local) and recurrent layers, the materialize oracle and meshes.
+stacked tree, and a dense decode cache is a list of per-layer dicts where
+JAX stacks one per cycle position.  The page pool's payload lives on the
+device (see ``modules.KVPagePool``): prefill ingest, the token append, the
+seal requantization and the APack encode all write it there, so no page
+payload crosses to the host.  What does cross is small and happens at page
+events: the calibration histograms of a sealed page (until its layer's
+tables exist), and the coded bit count and lossless check of each packed
+page.  Not ported here: table refresh and re-pack, the host spill tier,
+rolling (local) and recurrent layers and their state snapshots, and
+meshes.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from repro_torch.core.tables import TABLE_OVERHEAD_BITS, find_table
 from repro_torch.device import resolve
 from repro_torch.kernels import apack_decode, apack_encode
 from repro_torch.kernels import decompress_matmul as dm
-from repro_torch.kernels.paged_decode import page_bucket, table_row
+from repro_torch.kernels.paged_decode import (gather_bucket, gather_decode,
+                                              page_bucket, table_row)
 
 from . import modules as m
 from .config import ModelConfig
@@ -211,6 +218,62 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         h = h[:, t - 1:t]
     h = m.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, h), caches
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            max_len: int | None = None):
+    """Process a prompt (``prefill`` :844): last-position logits and the
+    per-layer caches, padded to ``max_len`` positions when given."""
+    logits, caches = forward(cfg, params, tokens, last_only=True)
+    if max_len is not None:
+        caches = extend_caches(cfg, caches, max_len)
+    return logits, caches
+
+
+# ------------------------------------------------------------ dense cache
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=BF16,
+               device=None) -> list[dict]:
+    """Zero dense decode cache, one dict per layer (``init_cache`` :366,
+    ``_init_block_cache`` :352, global layers)."""
+    check_supported(cfg)
+    dev = resolve(device)
+    return [m.init_attention_cache(cfg, batch, seq_len, dev, dtype)
+            for _ in range(cfg.num_layers)]
+
+
+def extend_caches(cfg: ModelConfig, caches: list, max_len: int) -> list:
+    """Zero-pad prefill caches (position axis 1, length S) to decode
+    capacity ``max_len`` (``extend_caches`` :820, global layers)."""
+    def pad(x):
+        if x.shape[1] >= max_len:
+            return x
+        y = x.new_zeros(x.shape[0], max_len, *x.shape[2:])
+        y[:, :x.shape[1]] = x
+        return y
+    return [{f: pad(x) for f, x in c.items()} for c in caches]
+
+
+def block_step(cfg: ModelConfig, p: dict, h: torch.Tensor, cache: dict,
+               pos: torch.Tensor):
+    """Single-token decode block of a global layer against its dense cache
+    (``block_step`` :184): (h, cache written in place)."""
+    hn = m.rms_norm(h, p["norm1"], cfg.norm_eps)
+    inner, cache = m.attention_step(p["inner"], hn, cache, pos, cfg)
+    return _ffn_tail(cfg, p, h, inner), cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, caches: list,
+                tokens: torch.Tensor, pos: torch.Tensor):
+    """One decode step against the dense cache (``decode_step`` :380).
+    tokens [B, 1], pos [B] -> (logits [B, 1, V], caches), each layer's
+    cache written in place at slot ``pos``."""
+    h = params["embed"][tokens].to(BF16)
+    new = []
+    for p, c in zip(params["blocks"], caches):
+        h, c = block_step(cfg, p, h, c, pos)
+        new.append(c)
+    h = m.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _head(params, h), new
 
 
 def block_step_paged(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -607,6 +670,44 @@ class PagedKVCache:
             self.seq_len[rid] += 1
         self._seal(events)
 
+    def append_step_tokens(self, caches: list, slot_rids: list,
+                           positions) -> None:
+        """Move what a dense decode step wrote back into pages
+        (``append_step_tokens`` :1335, global layers): each active slot's
+        token at ``positions[slot]`` of every layer's cache.  The JAX
+        package pulls the tokens to the host and calls ``append_token`` per
+        slot; here they stay on the device and take the fused path's
+        append (``claim_append_targets``, ``device_append``,
+        ``note_appended``), which claims the same pages in the same order
+        and seals them in one batch with the same per-page calibration
+        order."""
+        b = len(slot_rids)
+        pos = self._put(np.asarray(positions, np.int64))
+        rows = torch.arange(b, device=self.device)
+        new_kv = {f: torch.stack([c[f] for c in caches])[:, rows, pos]
+                  for f in ("k", "v", "k_scale", "v_scale")}
+        pool = self.pool
+        planes = {"tok_k": pool.tok_q[0], "tok_v": pool.tok_q[1],
+                  "tok_sk": pool.tok_scale[0], "tok_sv": pool.tok_scale[1]}
+        device_append(planes, new_kv, self.claim_append_targets(slot_rids))
+        self.note_appended(slot_rids)
+
+    # ------------------------------------------------- state snapshots
+    def snapshot_state(self, rid: int) -> dict:
+        """Preemption checkpoint of a request's fixed-size recurrent states
+        (``snapshot_state`` :1865).  Attention KV needs none: it already
+        lives compressed in the page pool.  The stacks this slice serves
+        hold global attention layers only (``check_supported`` refuses
+        state layers), so the blob is always the empty one."""
+        return {"manifest": [], "planes": None}
+
+    def restore_state(self, rid: int, snap: dict) -> None:
+        """Inverse of :meth:`snapshot_state` (``restore_state`` :1898)."""
+        if snap["planes"] is not None or snap["manifest"]:
+            raise NotImplementedError(
+                "recurrent-state snapshots are not ported yet (ROADMAP open "
+                "item 1.7, heterogeneous stacks)")
+
     # --------------------------------------------------- step metadata
     def meta_pages(self, max_len: int, slot_rids: list) -> int:
         """Page slots of the fused kernel's call: the power-of-two bucket
@@ -677,3 +778,115 @@ class PagedKVCache:
         self.traffic["kv_read_bytes_global"] += read
         self.traffic["kv_raw_bytes"] += raw
         self.traffic["kv_read_bytes"] += read
+
+    # -------------------------------------------------------- materialize
+    def _device_tables(self):
+        """The stacked table pool on the device: the fused kernel's copy
+        when the pool is exposed to it, else one upload."""
+        if self.dev is not None:
+            d = self.dev.planes
+            return d["vm"], d["ol"], d["cum"]
+        return tuple(self._put(t) for t in self._tables_stacked())
+
+    def materialize(self, slot_rids: list, max_len: int, *,
+                    decode=gather_decode) -> list[dict]:
+        """Rebuild the dense int8 cache of the active batch from the pool,
+        one dict per layer of ``k``/``v`` int8 [B, max_len, H, dh] and
+        ``k_scale``/``v_scale`` f32 [B, max_len, H] (``materialize``
+        :2465, global layers).  Also accrues the step's read traffic, as
+        the fused path's ``step_meta`` does.
+
+        Token ``t`` of a page lands at absolute position ``t0 + t``: HOT
+        tokens with their per-token scales, COLD tokens with the page's
+        scale per head, and PACKED pages decoded, all layers in one
+        ``decode`` call per K/V kind (the gather-decode kernel), the page
+        and table-row vectors padded to ``gather_bucket`` by repeating the
+        last entry.  ``decode`` is there so a check can build the same
+        cache through the plain version; the engine never passes it.
+
+        The JAX package materializes from its host mirror and first pulls
+        the device-resident HOT pages into it (``sync_hot_to_host``); this
+        pool has no host mirror (``modules.KVPagePool``), so the cache is
+        built on the device from the pool's own tensors, with a few batched
+        index writes per step and no per-page copies."""
+        pool = self.pool
+        self._accrue_read_traffic(slot_rids)
+        b, nl = len(slot_rids), self.n_layers
+        h, dh, ps = pool.kv_heads, pool.head_dim, self.page_size
+        kq = torch.zeros(2, nl, b, max_len, h, dh, dtype=torch.int8,
+                         device=self.device)
+        ks = torch.zeros(2, nl, b, max_len, h, dtype=F32, device=self.device)
+        # one row per page: (state, layer, slot, t0, n_tok, pid, job), job
+        # = the page's place in the gather list (PACKED pages only)
+        pages, jobs = [], []
+        for slot, rid in enumerate(slot_rids):
+            if rid is None:
+                continue
+            for layer in self.attn_layers:
+                for k_, pid in enumerate(self.page_tables[rid][layer]):
+                    st = int(pool.state[pid])
+                    n_tok = int(pool.fill[pid]) if st == m.PAGE_HOT else ps
+                    t0 = k_ * ps
+                    pages.append((st, layer, slot, t0,
+                                  min(n_tok, max_len - t0), pid,
+                                  len(jobs) if st == m.PAGE_PACKED else 0))
+                    if st == m.PAGE_PACKED:
+                        jobs.append((layer, pid))
+        if pages:
+            self._place(kq, ks, np.asarray(pages, np.int64), jobs, decode)
+        return [{"k": kq[0, layer], "v": kq[1, layer],
+                 "k_scale": ks[0, layer], "v_scale": ks[1, layer]}
+                for layer in range(nl)]
+
+    def _place(self, kq, ks, pages: np.ndarray, jobs: list, decode) -> None:
+        """Write every token of ``pages`` into the dense cache: one upload
+        of the token index rows, then per page state one gather and one
+        index write for the values and one of each for the scales."""
+        pool = self.pool
+        n_tok = pages[:, 4]
+        tok = np.repeat(pages, n_tok, axis=0)
+        start = np.repeat(np.cumsum(n_tok) - n_tok, n_tok)
+        off = np.arange(len(tok)) - start
+        order = np.argsort(tok[:, 0], kind="stable")
+        tok, off = tok[order], off[order]
+        counts = np.bincount(tok[:, 0], minlength=4)
+        # rows: layer, slot, position, pid, in-page offset, job
+        idx = self._put(np.stack([tok[:, 1], tok[:, 2], tok[:, 3] + off,
+                                  tok[:, 5], off, tok[:, 6]]))
+        dec = None
+        if jobs:
+            dec = self._decode_jobs(jobs, decode)
+        lo = 0
+        for st in (m.PAGE_HOT, m.PAGE_COLD, m.PAGE_PACKED):
+            hi = lo + int(counts[st])
+            if hi == lo:
+                continue
+            layer, slot, posn, pid, o, job = idx[:, lo:hi]
+            lo = hi
+            if st == m.PAGE_HOT:
+                q, sc = pool.tok_q[:, pid, o], pool.tok_scale[:, pid, o]
+            elif st == m.PAGE_COLD:
+                q, sc = pool.cold_q[:, pid, o], pool.page_scale[:, pid]
+            else:
+                q, sc = dec[:, job, o], pool.page_scale[:, pid]
+            kq[:, layer, slot, posn] = q
+            ks[:, layer, slot, posn] = sc
+
+    def _decode_jobs(self, jobs: list, decode) -> torch.Tensor:
+        """Decode every PACKED page of ``jobs`` ((layer, pid) pairs), both
+        kinds, through ``decode``: int8 [2, n, ps, H, dh]."""
+        pool = self.pool
+        n = len(jobs)
+        pad = (0, gather_bucket(n) - n)
+        ids = np.array([[pid for _, pid in jobs]]
+                       + [[table_row(0, layer, kind, self.n_layers)
+                           for layer, _ in jobs] for kind in (0, 1)],
+                       np.int32)
+        ids = self._put(np.pad(ids, ((0, 0), pad), mode="edge"))
+        vm, ol, cm = self._device_tables()
+        out = [decode(pool.sym[kind], pool.ofs[kind], pool.stored[kind],
+                      ids[0], vm, ol, cm, n_steps=pool.elems_per_stream,
+                      table_idx=ids[1 + kind])[:n]
+               for kind in (0, 1)]
+        return quant.from_unsigned(torch.stack(out)).reshape(
+            2, n, self.page_size, pool.kv_heads, pool.head_dim)

@@ -5,8 +5,9 @@ Port of the parts of ``repro/models/modules.py`` that serving qwen3-1.7b
 from the paged APack KV cache runs: ``rms_norm`` :25, ``rope`` :31,
 ``_kv_quantize``/``_kv_dequantize`` :44/:54, ``PackedWeight`` :69,
 ``packed_proj`` :100 (single device), ``proj`` :139, ``attention_full`` :175
-(global layers), ``paged_attention_step`` :326 (single device), ``mlp``
-:461 (swiglu), the page lifecycle ``PAGE_*``/``PAGE_TRANSITIONS`` :916-950
+and ``attention_step`` :267 (global layers), ``paged_attention_step`` :326
+(single device), ``init_attention_cache`` :436 (global), ``mlp`` :461
+(swiglu), the page lifecycle ``PAGE_*``/``PAGE_TRANSITIONS`` :916-950
 and ``KVPagePool`` :1077 (no spill tier, one shard).
 
 dtype placement follows the JAX package exactly, since it decides the KV
@@ -20,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.kernels import decompress_matmul as dm
 from repro_torch.kernels.fused_page_attention import fused_page_attention
 from repro_torch.kernels.ref import ofs_capacity_words, sym_capacity_words
@@ -154,7 +156,8 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
 def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """Prefill attention of a global layer, chunked over queries
     (``attention_full`` :175).  Returns ``(y [B, S, D], cache)`` with the
-    int8 cache ``{k, v, k_scale, v_scale}`` of every position."""
+    cache of every position: int8 ``{k, v, k_scale, v_scale}`` when
+    ``cfg.kv_int8``, else the unquantized ``{k, v}``."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
@@ -177,9 +180,68 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig):
         outs.append(torch.einsum("bkgcs,bskd->bckgd", w, vf).to(x.dtype))
     out = torch.cat(outs, dim=1).reshape(b, s, h, dh)
     y = proj(out, p["wo"], 2)
+    if not cfg.kv_int8:
+        return y, {"k": k, "v": v}
     qk, sk = kv_quantize(k)
     qv, sv = kv_quantize(v)
     return y, {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+
+
+def attention_step(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
+                   cfg: ModelConfig):
+    """Single-token decode step of a global layer against a dense cache
+    (``attention_step`` :267).  x [B, 1, D]; cache k/v [B, Sc, Hkv, dh],
+    int8 with per-(position, head) ``k_scale``/``v_scale`` or in the cache
+    dtype; pos [B], each slot's own position.
+
+    Slot ``pos`` of every row is written, then the whole cache is read
+    under the causal mask ``index <= pos``.  The JAX function returns an
+    updated copy; the port writes the cache's tensors in place, so a step
+    holds one cache, and returns the same dict."""
+    b = x.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // hkv
+    q, k, v = _qkv(p, x, cfg, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    if "k_scale" in cache:
+        qk, sk = kv_quantize(k[:, 0])
+        qv, sv = kv_quantize(v[:, 0])
+        for f, val in (("k", qk), ("v", qv), ("k_scale", sk),
+                       ("v_scale", sv)):
+            cache[f][rows, pos] = val
+        kc = kv_dequantize(cache["k"], cache["k_scale"])
+        vc = kv_dequantize(cache["v"], cache["v_scale"])
+    else:
+        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+        kc, vc = cache["k"], cache["v"]
+    sc = cache["k"].shape[1]
+    valid = torch.arange(sc, device=x.device)[None, :] <= pos[:, None]
+    scores = torch.einsum("bkgd,bskd->bkgs",
+                          q.reshape(b, hkv, g, dh).to(F32), kc.to(F32)) \
+        * (dh ** -0.5)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    if cfg.logit_softcap > 0:
+        scores = cfg.logit_softcap * torch.tanh(scores / cfg.logit_softcap)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w, vc.to(F32))
+    y = proj(out.reshape(b, h, dh).to(x.dtype), p["wo"], 2)[:, None, :]
+    return y, cache
+
+
+def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                         device, dtype=BF16) -> dict:
+    """Zero dense cache of a global layer (``init_attention_cache`` :436):
+    int8 K/V with f32 per-(position, head) scales when ``cfg.kv_int8``,
+    else K/V in ``dtype``."""
+    shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=F32, device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=F32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def paged_attention_step(p: dict, x: torch.Tensor, planes: dict,
@@ -264,7 +326,8 @@ PAGE_TRANSITIONS = {
 
 class KVPagePool:
     """Block pool of fixed-size KV token pages: payload planes on
-    ``device``, lifecycle metadata and the free list on the host.
+    ``device`` (the card unless the caller asks for the CPU), lifecycle
+    metadata and the free list on the host.
 
     Kind axis: index 0 = K, 1 = V.  Unlike the JAX package, whose host
     numpy pool is mirrored onto the device at page events, the payload
@@ -276,8 +339,8 @@ class KVPagePool:
 
     def __init__(self, num_pages: int, page_size: int, kv_heads: int,
                  head_dim: int, elems_per_stream: int = 128,
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device=None):
+        self.device = resolve(device)
         self.num_pages = num_pages
         self.page_size = page_size
         self.kv_heads = kv_heads

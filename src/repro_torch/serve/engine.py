@@ -1,22 +1,35 @@
-"""Batched serving engine over the paged APack KV cache.
+"""Batched serving engine over the paged APack KV cache or a dense cache.
 
-Port of the single-device, fused, ``scheduler="sync"`` path of
+Port of the single-device, ``scheduler="sync"`` path of
 ``repro/serve/engine.py``: ``prefill_bucket`` :52, ``Request`` :76,
 ``ServeEngine.__init__`` :210 (with the packed weight store,
 ``weights="apack-int8"``), ``submit`` :398, ``_try_reserve``/``_admit``
 :468/:514, ``_prefill_forward`` :646, ``_prefill_into_slot`` :680,
-``_retire`` :800, ``latency_stats`` :831, ``step`` :895, the fused branch
-of ``_step_decode`` :951-969, ``run_until_drained`` :1283,
-``weight_stats`` :1308 and ``kv_stats`` :1333.
+``_write_prefill_cache`` :710, ``preempt`` :730 (no spill tier),
+``_resume_into_slot`` :778, ``_retire`` :800, ``latency_stats`` :831,
+``step`` :895, ``_step_decode`` :936-990 (fused, materialize and dense
+branches), ``run_until_drained`` :1283, ``weight_stats`` :1308 and
+``kv_stats`` :1333.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
 with a bucketed single-request prefill whose KV is chopped into pool pages
-on the device.  Each decode step reads every page through the fused
-gather-decode attention kernel, appends the new token's K/V on the device,
-and seals (and APack-encodes) the pages that filled.  The step's only
-device-to-host reads are the greedy token ids and, at page seals, the
-calibration histograms or coded bit counts.
+on the device.  Three decode modes:
+
+- ``kv_cache_dtype="apack-int8"``, fused (the default): each step reads
+  every page through the fused gather-decode attention kernel, appends the
+  new token's K/V on the device, and seals (and APack-encodes) the pages
+  that filled.  The step's only device-to-host reads are the greedy token
+  ids and, at page seals, the calibration histograms or coded bit counts.
+- ``kv_fused=False``, the materialize oracle: each step rebuilds a dense
+  int8 cache from the pool (PACKED pages through the gather-decode kernel),
+  runs the dense decode step over it and moves the new token back into
+  pages.
+- ``kv_cache_dtype="int8"`` or ``"bfloat16"``: no pool; the batch holds
+  one dense cache of ``max_len`` positions per slot, the raw-KV baseline.
+
+``preempt`` parks an active request with its pages and reservation kept
+and resumes it at the same position, without a new prefill.
 """
 from __future__ import annotations
 
@@ -61,17 +74,24 @@ def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+KV_CACHE_DTYPES = ("apack-int8", "int8", "bfloat16")
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, *, max_batch: int = 8,
                  max_len: int = 256, eos_id: int | None = None,
                  kv_pages: int | None = None, kv_page_size: int = 16,
                  kv_calib_pages: int = 4, kv_fused: bool | None = None,
-                 kv_refresh: bool = False, scheduler: str = "sync",
-                 mesh=None, weights: str | None = None,
+                 kv_refresh: bool = False, kv_pressure: bool = False,
+                 scheduler: str = "sync", mesh=None,
+                 weights: str | None = None,
                  weight_min_size: int | None = None,
                  weight_tile_k: int | None = None, device=None):
         if kv_refresh:
             _refuse("kv_refresh (table refresh and re-pack)",
+                    "open item 1.8, serving robustness")
+        if kv_pressure:
+            _refuse("kv_pressure (spill and preempt under pool pressure)",
                     "open item 1.8, serving robustness")
         if mesh is not None:
             _refuse("mesh= (multi-device serving)",
@@ -82,12 +102,9 @@ class ServeEngine:
         if weights not in (None, "apack-int8"):
             raise ValueError(f"unknown weights mode {weights!r}; "
                              "expected 'apack-int8' or None")
-        if kv_fused is False:
-            _refuse("kv_fused=False (the materialize oracle)",
-                    "open item 1.7, oracle path")
-        if cfg.kv_cache_dtype != "apack-int8":
-            _refuse(f"kv_cache_dtype={cfg.kv_cache_dtype!r} (the dense "
-                    "cache engine)", "open item 1.3, dense model path")
+        if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r};"
+                             f" expected one of {KV_CACHE_DTYPES}")
         M.check_supported(cfg)
         self.device = resolve(device)
         self.cfg = cfg
@@ -116,34 +133,85 @@ class ServeEngine:
         self.last_tokens = np.zeros((max_batch, 1), np.int64)
         self.last_logits = None
         self.stats = {"steps": 0, "generated": 0, "completed": 0,
-                      "kv_admission_blocked": 0}
-        if kv_pages is None:
-            # every slot at full context
-            kv_pages = max_batch * M.PagedKVCache.pages_for_config(
-                cfg, max_len, kv_page_size)
-        self.kv = M.PagedKVCache(cfg, kv_pages, page_size=kv_page_size,
-                                 calib_pages=kv_calib_pages,
-                                 device=self.device)
-        self.kv.enable_device_pool()
+                      "kv_admission_blocked": 0, "preempted": 0,
+                      "resumed": 0}
+        self.paged = cfg.kv_cache_dtype == "apack-int8"
+        self.fused = self.paged and kv_fused is not False
+        self.kv: M.PagedKVCache | None = None
+        self.cache: list | None = None
+        if self.paged:
+            if kv_pages is None:
+                # every slot at full context
+                kv_pages = max_batch * M.PagedKVCache.pages_for_config(
+                    cfg, max_len, kv_page_size)
+            self.kv = M.PagedKVCache(cfg, kv_pages, page_size=kv_page_size,
+                                     calib_pages=kv_calib_pages,
+                                     device=self.device)
+            # both paged modes read the device pool; the oracle uses its
+            # table stack for the gather decode
+            self.kv.enable_device_pool()
+        else:
+            self.cache = M.init_cache(cfg, max_batch, max_len,
+                                      device=self.device)
         self._reserved: dict[int, int] = {}
         self._reserved_total = 0
+        # rid -> (state snapshot, position, last token) of a preempted
+        # request, which resumes without a new prefill
+        self._preempted: dict[int, tuple] = {}
         self._lat_wait: list[float] = []
         self._lat_e2e: list[float] = []
 
     # -------------------------------------------------------- scheduling
     def submit(self, req: Request) -> None:
-        need = self._pages_for(req)
-        if need > self.kv.pool.num_pages:
-            raise ValueError(
-                f"request {req.rid} needs {need} pages worst-case but the "
-                f"pool only has {self.kv.pool.num_pages}; shorten the "
-                "request or grow kv_pages")
+        if self.paged:
+            need = self._pages_for(req)
+            if need > self.kv.pool.num_pages:
+                raise ValueError(
+                    f"request {req.rid} needs {need} pages worst-case but "
+                    f"the pool only has {self.kv.pool.num_pages}; shorten "
+                    "the request or grow kv_pages")
         req.t_submit = time.perf_counter()
         self.queue.append(req)
 
-    def preempt(self, slot: int, **_):
-        _refuse("preempt (state snapshots and the spill tier)",
-                "open item 1.7/1.8")
+    def preempt(self, slot: int, *, spill: bool = False,
+                requeue: str = "head") -> dict:
+        """Kick the request in ``slot`` out of its decode slot and back to
+        the queue, at its ``requeue`` end ("head" or "tail").  Its KV stays
+        in the page pool, compressed as it is, and its reservation is
+        held; its fixed-size layer states would be snapshot here, and this
+        slice's stacks have none.  Re-admission resumes at the same
+        position without a new prefill, so the continuation is identical.
+        Returns the snapshot.  ``spill=True`` (park the pages in the host
+        spill tier and release the reservation) is not ported."""
+        if not self.paged:
+            raise RuntimeError("preempt requires the paged apack-int8 KV")
+        if spill:
+            _refuse("preempt(spill=True) (the host spill tier)",
+                    "open item 1.8, serving robustness")
+        if requeue not in ("head", "tail"):
+            raise ValueError(f"requeue={requeue!r}: expected 'head' or "
+                             "'tail'")
+        req = self.active[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is idle, nothing to preempt")
+        snap = self.kv.snapshot_state(req.rid)
+        self._preempted[req.rid] = (snap, int(self.positions[slot]),
+                                    int(self.last_tokens[slot, 0]))
+        self.active[slot] = None
+        if requeue == "tail":
+            self.queue.append(req)
+        else:
+            self.queue.appendleft(req)
+        self.stats["preempted"] += 1
+        return snap
+
+    def _resume_into_slot(self, slot: int, req: Request) -> None:
+        snap, pos, last = self._preempted.pop(req.rid)
+        self.kv.restore_state(req.rid, snap)
+        self.active[slot] = req
+        self.positions[slot] = pos
+        self.last_tokens[slot, 0] = last
+        self.stats["resumed"] += 1
 
     def _pages_for(self, req: Request) -> int:
         """Worst-case page reservation: prompt + generated tokens, capped
@@ -153,8 +221,9 @@ class ServeEngine:
 
     def _try_reserve(self, req: Request) -> int | None:
         """Pages to reserve for the queue head, or None while the pool's
-        unreserved headroom is too small (the head then waits, FIFO)."""
-        need = self._pages_for(req)
+        unreserved headroom is too small (the head then waits, FIFO).  A
+        preempted request still holds its reservation: it needs 0."""
+        need = 0 if req.rid in self._reserved else self._pages_for(req)
         if self._reserved_total + need <= self.kv.pool.num_pages:
             return need
         self.stats["kv_admission_blocked"] += 1
@@ -164,11 +233,17 @@ class ServeEngine:
         for slot in range(self.max_batch):
             if self.active[slot] is not None or not self.queue:
                 continue
+            if not self.paged:
+                self._prefill_into_slot(slot, self.queue.popleft(), 0)
+                continue
             head = self.queue[0]
             need = self._try_reserve(head)
             if need is None:
                 break
             self.queue.popleft()
+            if head.rid in self._preempted:
+                self._resume_into_slot(slot, head)
+                continue
             self._prefill_into_slot(slot, head, need)
 
     def _prefill_forward(self, prompt):
@@ -187,15 +262,27 @@ class ServeEngine:
         s = len(req.prompt)
         req.t_admit = time.perf_counter()
         logits, caches = self._prefill_forward(req.prompt)
-        self.kv.add_request(req.rid)
-        self._reserved[req.rid] = need
-        self._reserved_total += need
-        self.kv.ingest_prefill(req.rid, caches, s)
+        if self.paged:
+            self.kv.add_request(req.rid)
+            self._reserved[req.rid] = need
+            self._reserved_total += need
+            self.kv.ingest_prefill(req.rid, caches, s)
+        else:
+            self._write_prefill_cache(slot, caches)
         next_tok = int(logits[0, -1].argmax())   # admission event
         req.tokens.append(next_tok)
         self.active[slot] = req
         self.positions[slot] = s
         self.last_tokens[slot, 0] = next_tok
+
+    def _write_prefill_cache(self, slot: int, caches: list) -> None:
+        """Write one request's prefill cache, padded to ``max_len``, into
+        row ``slot`` of the batch cache (dense modes)."""
+        for batch, one in zip(self.cache,
+                              M.extend_caches(self.cfg, caches,
+                                              self.max_len)):
+            for f, x in one.items():
+                batch[f][slot] = x[0].to(batch[f].dtype)
 
     def _retire(self) -> None:
         for slot, req in enumerate(self.active):
@@ -211,8 +298,9 @@ class ServeEngine:
                 self._log_latency(req)
                 self.stats["completed"] += 1
                 self.active[slot] = None
-                self.kv.release(req.rid)
-                self._reserved_total -= self._reserved.pop(req.rid)
+                if self.paged:
+                    self.kv.release(req.rid)
+                    self._reserved_total -= self._reserved.pop(req.rid)
 
     def _log_latency(self, req: Request) -> None:
         if req.t_submit <= 0.0:
@@ -243,14 +331,27 @@ class ServeEngine:
             return 0
         slot_rids = [r.rid if r is not None else None for r in self.active]
         kv = self.kv
-        meta = kv.step_meta(slot_rids, self.max_len)
-        logits, new_kv = M.decode_step_paged(
-            self.cfg, self.params, kv.dev.planes, meta,
-            torch.as_tensor(self.last_tokens, device=self.device),
-            torch.as_tensor(self.positions, device=self.device))
-        targets = kv.claim_append_targets(slot_rids)
-        M.device_append(kv.dev.planes, new_kv, targets)
-        kv.note_appended(slot_rids)
+        tokens = torch.as_tensor(self.last_tokens, device=self.device)
+        positions = torch.as_tensor(self.positions, device=self.device)
+        if self.fused:
+            meta = kv.step_meta(slot_rids, self.max_len)
+            logits, new_kv = M.decode_step_paged(
+                self.cfg, self.params, kv.dev.planes, meta, tokens,
+                positions)
+            targets = kv.claim_append_targets(slot_rids)
+            M.device_append(kv.dev.planes, new_kv, targets)
+            kv.note_appended(slot_rids)
+        elif self.paged:
+            # the oracle: rebuild the dense int8 cache from the pool
+            # (PACKED pages through the gather-decode kernel), decode over
+            # it, move the new token back into pages, drop the dense view
+            cache = kv.materialize(slot_rids, self.max_len)
+            logits, cache = M.decode_step(self.cfg, self.params, cache,
+                                          tokens, positions)
+            kv.append_step_tokens(cache, slot_rids, self.positions)
+        else:
+            logits, self.cache = M.decode_step(self.cfg, self.params,
+                                               self.cache, tokens, positions)
         # the step's one sanctioned pull: token ids for EOS/retire
         toks = logits[:, 0].argmax(dim=-1).cpu().numpy()
         self.last_logits = logits
@@ -291,13 +392,16 @@ class ServeEngine:
         return s
 
     def kv_stats(self) -> dict:
-        """Raw-vs-compressed KV traffic and pool occupancy."""
+        """Raw-vs-compressed KV traffic and pool occupancy (paged modes;
+        empty for a dense cache)."""
+        if not self.paged:
+            return {}
         out = dict(self.kv.traffic)
         out["kv_ratio"] = self.kv.kv_ratio()
         out["kv_streams"] = self.kv.stream_stats()
         out["kv_pool_pages"] = self.kv.pool.num_pages
         out["kv_pages_allocated"] = self.kv.pool.alloc_count
         out["kv_pages_high_water"] = self.kv.pool.high_water
-        out["kv_fused"] = True
+        out["kv_fused"] = self.fused
         out["transfers"] = dict(self.kv.transfers)
         return out

@@ -14,7 +14,8 @@ from repro.kernels import apack_decode as japack_decode
 from repro.kernels import apack_encode as japack_encode
 from repro.kernels import ref as jref
 from repro_torch.core import tables as ptables
-from repro_torch.kernels import apack_decode, apack_encode, decompress_matmul
+from repro_torch.kernels import (apack_decode, apack_encode,
+                                 decompress_matmul, paged_decode)
 from repro_torch.kernels import ref as pref
 
 
@@ -132,9 +133,11 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     apack_decode.decode(out[0], out[1], out[4], *tt, n_steps=8, bits=8)
     cw = decompress_matmul.compress_linear(torch.ones(8, 4), tile_k=8)
     decompress_matmul.compressed_matmul(torch.ones(2, 8), cw)
+    paged_decode.gather_decode(out[0], out[1], out[4], torch.tensor([1, 0]),
+                               *tt, n_steps=8, bits=8)
     assert repro_torch.launch_counts() == {
         "apack_decode": 0, "apack_encode": 0, "fused_page_attention": 0,
-        "decompress_matmul": 0}
+        "decompress_matmul": 0, "gather_decode": 0}
 
 
 @pytest.mark.cuda

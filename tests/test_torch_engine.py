@@ -1,7 +1,7 @@
 """Port ServeEngine vs the JAX ServeEngine (``kv_backend="ref"``) on
-qwen3-1.7b SMOKE with the same params and prompts; the steady-state step's
-device-to-host reads; the device default; the refusal of unported
-features."""
+qwen3-1.7b SMOKE with the same params and prompts; preemption and resume;
+the steady-state step's device-to-host reads; the device default; the
+refusal of unported features."""
 import dataclasses
 
 import numpy as np
@@ -15,6 +15,7 @@ from repro.models import model as JM
 from repro.serve import Request as JRequest, ServeEngine as JEngine
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import model as PM
+from repro_torch.models import modules as pm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve import Request, ServeEngine
 
@@ -72,6 +73,67 @@ def test_engine_matches_reference_in_lockstep():
     assert lat["n"] == 3 and lat["e2e_p50"] > 0
 
 
+def _serve_with_preempt(eng, reqs, requeue):
+    """Step ``eng`` over ``reqs``; with ``requeue`` set, preempt slot 0
+    after the admission step and three decode steps, checking that the
+    request keeps its pages and reservation while it waits."""
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    if requeue is not None:
+        rid = eng.active[0].rid
+        held, total = eng._reserved[rid], eng._reserved_total
+        pages = [list(p) for p in eng.kv.page_tables[rid]]
+        eng.preempt(0, requeue=requeue)
+        assert eng.active[0] is None and eng._reserved_total == total
+        assert eng.queue[0 if requeue == "head" else -1].rid == rid
+        eng.step()
+        assert eng._reserved[rid] == held
+        assert [p[:len(q)] for p, q in zip(eng.kv.page_tables[rid],
+                                           pages)] == pages
+        assert (eng.active[0].rid == rid) == (requeue == "head")
+    eng.run_until_drained()
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.parametrize("requeue", ["head", "tail"])
+def test_preempt_resume_matches_uninterrupted_and_reference(requeue):
+    """Three requests through two slots; slot 0 is preempted mid-decode and
+    requeued at the head (it resumes at once) or the tail (the waiting
+    request takes its slot and it resumes when a slot frees).  Its pages
+    and reservation are kept, so the continuation reads the same pages:
+    the tokens equal an uninterrupted run's and the JAX engine's under the
+    same schedule."""
+    cfg_j = dataclasses.replace(jconfigs.get_smoke_config("qwen3-1.7b"),
+                                kv_cache_dtype="apack-int8")
+    cfg = _cfg()
+    params = JM.init_params(cfg_j, jax.random.PRNGKey(0))
+    tp = params_from_numpy(cfg, jax.tree.map(np.array, params), "cpu")
+
+    def reqs(cls):
+        return [cls(i, p, max_new_tokens=10)
+                for i, p in enumerate(_prompts(cfg))]
+    plain = _serve_with_preempt(ServeEngine(cfg, tp, device="cpu", **KW),
+                                reqs(Request), None)
+    pe = ServeEngine(cfg, tp, device="cpu", **KW)
+    got = _serve_with_preempt(pe, reqs(Request), requeue)
+    want = _serve_with_preempt(JEngine(cfg_j, params, kv_backend="ref", **KW),
+                               reqs(JRequest), requeue)
+    assert got == plain == want
+    assert pe.stats["preempted"] == pe.stats["resumed"] == 1
+    assert pe.kv.pool.free_count == pe.kv.pool.num_pages
+    assert pe._reserved_total == 0
+    with pytest.raises(NotImplementedError, match="1.8"):
+        pe.preempt(0, spill=True)
+    with pytest.raises(ValueError, match="idle"):
+        pe.preempt(0)
+    dense = ServeEngine(dataclasses.replace(cfg, kv_cache_dtype="int8"), tp,
+                        device="cpu", **KW)
+    with pytest.raises(RuntimeError, match="paged"):
+        dense.preempt(0)
+
+
 def test_steady_state_step_reads_only_tokens_and_seal_pulls(monkeypatch):
     """A decode step reads back the token ids (one ``.cpu()``) plus, when
     pages seal, one pull per seal batch (calibration histograms or packed
@@ -119,10 +181,20 @@ def test_entry_points_default_to_cuda():
         ServeEngine(cfg, params, **KW)
 
 
+def test_page_pool_defaults_to_cuda():
+    """A pool built directly runs on the card unless it asks for the CPU,
+    like every other entry point."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA requested"):
+        pm.KVPagePool(4, 2, 2, 4)
+    assert pm.KVPagePool(4, 2, 2, 4, device="cpu").sym.device.type == "cpu"
+
+
 @pytest.mark.parametrize("kw", [{"kv_refresh": True}, {"mesh": object()},
                                 {"scheduler": "async"},
                                 {"weights": "int4"},
-                                {"kv_fused": False}])
+                                {"kv_pressure": True}])
 def test_unported_features_are_refused(kw):
     """Unported features raise NotImplementedError naming their ROADMAP
     item; an unknown weights mode (packed ``apack-int8`` is served) raises
@@ -135,4 +207,4 @@ def test_unported_features_are_refused(kw):
         ServeEngine(cfg, params, device="cpu", **KW, **kw)
     eng = ServeEngine(cfg, params, device="cpu", **KW)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.preempt(0)
+        eng.preempt(0, spill=True)

@@ -1,6 +1,6 @@
 """The port's serving CLI, ``python -m repro_torch.launch.serve``, on the CPU:
-a packed-weight, paged-APack-KV run prints the JAX CLI's summary lines,
-and every flag the port does not serve yet, like the JAX CLI's default
+a packed-weight, paged-APack-KV run prints the JAX CLI's summary lines, the
+materialize oracle and a dense int8 cache serve, and every flag the port does not serve yet, like the JAX CLI's default
 checkpoint round trip, raises ``NotImplementedError`` naming its ROADMAP
 item instead of falling back."""
 import pathlib
@@ -36,11 +36,29 @@ def test_cli_serves_from_packed_weights():
     assert any(ln.startswith("paged KV traffic:") for ln in lines)
 
 
+@pytest.mark.parametrize("extra,path", [
+    (["--kv-materialize"], "decode path: materialize;"),
+    (["--kv", "int8"], "decode path: dense int8 KV cache"),
+])
+def test_cli_serves_the_oracle_and_dense_cache(extra, path, capsys):
+    """``--kv-materialize`` serves the paged cache through the materialize
+    oracle; ``--kv int8`` a dense int8 cache (no paged-KV summary)."""
+    serve.main(BASE + ["--no-compress", "--requests", "3", "--prompt-len",
+                       "8", "--max-new", "4", "--max-batch", "2",
+                       "--kv-page-size", "4"] + extra)
+    lines = capsys.readouterr().out.splitlines()
+    assert any("'completed': 3" in ln and "tok/s on cpu" in ln
+               for ln in lines), lines
+    assert any(ln.startswith(path) for ln in lines), lines
+    assert any(ln.startswith("paged KV traffic:") for ln in lines) \
+        == ("--kv-materialize" in extra)
+
+
 @pytest.mark.parametrize("extra", [
     ["--no-compress", "--mesh", "2x1"],
     ["--no-compress", "--scheduler", "async"],
     ["--weights", "apack-int8", "--kv-refresh"],
-    ["--weights", "apack-int8", "--kv-materialize"],
+    ["--weights", "apack-int8", "--kv-refresh-every", "4"],
     ["--weights", "apack-int8", "--kv-pressure", "--slot-deadline", "6"],
     ["--weights", "apack-int8", "--window-size", "8"],
 ])
