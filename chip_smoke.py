@@ -12,12 +12,15 @@ Phases (any failure exits non-zero):
    shapes the paths give it: APack decode and encode bit-exact (bits
    4/8/16, stored streams included), fused paged attention within an f32
    tolerance on a mixed HOT/COLD/PACKED/FREE pool at the full-width page
-   shape, the decompress-matmul at qwen3-1.7b's w_up and w_down shapes
-   (plus a tensor of stored streams) at M = 4 and a prefill M, there also
+   shape (page tables of 16, 7 and 1 slots, a job all FREE), the
+   decompress-matmul at qwen3-1.7b's w_up and w_down shapes (plus a tensor
+   of stored streams) at M = 1, 4, 8, 9 and a prefill M, there also
    bit-exact on integer inputs and against an f64 product, and the gather
    decode bit-exact at a materialize step's 1024 gathered pages; time
    kernel, plain version, bound and the PyTorch library yardstick where one
-   exists;
+   exists (kernel and yardstick as device time per call over a CUDA graph
+   of 20 calls, the gather decode, whose wrapper synchronizes, eagerly),
+   and the decompress-matmul's staging of its planes alone;
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
@@ -85,6 +88,33 @@ def cuda_ms(fn, iters: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed and timed with CUDA events, so the host's cost of a
+    call (Python, ctypes, allocation) is not counted.  For kernels whose
+    device time is below that cost, where back-to-back eager calls would
+    time the host (``cuda_ms``).  Every capture uses the one default
+    capture stream: a new stream per call would leave a cuBLAS workspace
+    cached for each, which the serves' peak memory would then count."""
+    import torch
+    fn()                    # warm up (builds, caches) outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph.reset()           # free the graph's memory pool now
     return start.elapsed_time(end) / iters
 
 
@@ -167,11 +197,11 @@ def check_codec(device, records):
             continue
         assert 0 < n_stored < got[4].numel(), "kv8 must mix stored and AC"
         # timing at the KV page shape (64 pages x 128 streams x 128 values)
-        enc_ms = cuda_ms(lambda: apack_encode.encode(
+        enc_ms = graph_ms(lambda: apack_encode.encode(
             vals, *tabs, n_steps=e, bits=bits), 20)
         enc_plain = cuda_ms(lambda: apack_encode.encode_plain(
             vals, *tabs, n_steps=e, bits=bits), 1)
-        dec_ms = cuda_ms(lambda: apack_decode.decode(
+        dec_ms = graph_ms(lambda: apack_decode.decode(
             got[0], got[1], got[4], *tabs, n_steps=e, bits=bits), 20)
         dec_plain_ms = cuda_ms(lambda: apack_decode.decode_plain(
             got[0], got[1], got[4], *tabs, n_steps=e, bits=bits), 1)
@@ -192,7 +222,9 @@ def check_codec(device, records):
 
 def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96):
     """A pool in every lifecycle state at the full-width page shape, and
-    page tables whose slots mix HOT, COLD, PACKED and FREE pages."""
+    page tables whose slots mix HOT, COLD, PACKED and FREE pages (three
+    FREE padding slots when there are more than four, else a PACKED first
+    slot), the last job's slots all FREE."""
     import torch
     from repro_torch.core.tables import find_table, histogram
     from repro_torch.kernels import apack_encode, ref
@@ -234,10 +266,14 @@ def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96):
     planes["cum"] = torch.stack([rows[0][2], rows[1][2]])
     pid = torch.randint(0, pool_pages, (jobs, p_slots), generator=g)
     state = torch.randint(1, 4, (jobs, p_slots), generator=g)
-    state[:, -3:] = 0                                   # FREE padding
+    pad = 3 if p_slots > 4 else 0
+    if pad:
+        state[:, -pad:] = 0                             # FREE padding
+    else:
+        state[:, 0] = 3                                 # a PACKED page each
     state[-1] = 0                                       # a fully masked job
     t0 = torch.arange(p_slots)[None, :].expand(jobs, p_slots) * ps
-    qpos = torch.full((jobs,), (p_slots - 3) * ps - 5)
+    qpos = torch.full((jobs,), (p_slots - pad) * ps - 5)
     window = torch.tensor([0, 0, 3 * ps, 0])[:jobs]
     meta = torch.stack([state, t0], -1).to(torch.int32)
     jobmeta = torch.stack([qpos, window], -1).to(torch.int32)
@@ -277,35 +313,49 @@ def attention_bound(q, pid, tid, meta, jobmeta, planes, packed_bytes, acc, m,
 
 
 def check_attention(device, records):
+    """The fused attention kernel (split pages and combine pass) against
+    its plain version on the card: page tables of 16, 7 (odd) and 1 slots,
+    each with a job whose slots are all FREE, with and without the
+    softcap; timed at J = 4, P = 16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_page_attention as fpa
     from repro_torch.kernels.fused_page_attention import _page_tiles
-    q, pid, tid, meta, jobmeta, planes, packed_bytes = mixed_pool(device)
+    err = 0.0
+    for p_slots in (1, 7, 16):
+        q, pid, tid, meta, jobmeta, planes, packed_bytes = mixed_pool(
+            device, p_slots=p_slots)
+        for softcap in (0.0, 30.0):
+            kw = dict(n_steps=128, softcap=softcap)
+            got = fpa.fused_page_attention(q, pid, tid, meta, jobmeta,
+                                           planes, **kw)
+            want = fpa.fused_page_attention_plain(q, pid, tid, meta, jobmeta,
+                                                  planes, **kw)
+            torch.cuda.synchronize()
+            # f32 throughout; the kernel sums each page's dot products in
+            # another order than the plain einsum and merges the pages'
+            # partials once, hence rtol 1e-5 / atol 1e-6 on acc and l (m
+            # is a max of the same scores)
+            case_err = 0.0
+            for g_, w_, what in zip(got, want, ("acc", "m", "l")):
+                if not torch.allclose(g_, w_, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(
+                        f"fused attention P={p_slots} softcap={softcap}: "
+                        f"{what} off by {(g_ - w_).abs().max().item()}")
+                case_err = max(case_err, (g_ - w_).abs().max().item())
+            if not bool((got[2][-1] == 0).all()):
+                raise AssertionError("fused attention: the all-FREE job "
+                                     "accumulated weight")
+            err = max(err, case_err)
+            print(f"fused_page_attention softcap={softcap}: "
+                  f"J={q.shape[0]} P={pid.shape[1]} (last job all FREE) "
+                  f"max_abs_err={case_err:.3g}")
     kw = dict(n_steps=128, softcap=0.0)
-    for softcap in (0.0, 30.0):
-        kw["softcap"] = softcap
-        got = fpa.fused_page_attention(q, pid, tid, meta, jobmeta, planes,
-                                       **kw)
-        want = fpa.fused_page_attention_plain(q, pid, tid, meta, jobmeta,
-                                              planes, **kw)
-        torch.cuda.synchronize()
-        # f32 throughout; the kernel sums each page's dot products in
-        # another order than the plain einsum, hence rtol 1e-5 / atol 1e-6
-        # on acc and l (m is a max of the same scores)
-        err = 0.0
-        for g_, w_, what in zip(got, want, ("acc", "m", "l")):
-            if not torch.allclose(g_, w_, rtol=1e-5, atol=1e-6):
-                raise AssertionError(
-                    f"fused attention softcap={softcap}: {what} off by "
-                    f"{(g_ - w_).abs().max().item()}")
-            err = max(err, (g_ - w_).abs().max().item())
-        print(f"fused_page_attention softcap={softcap}: "
-              f"J={q.shape[0]} P={pid.shape[1]} max_abs_err={err:.3g}")
-    kw["softcap"] = 0.0
     acc, m, l = fpa.fused_page_attention(q, pid, tid, meta, jobmeta, planes,
                                          **kw)
-    ms = cuda_ms(lambda: fpa.fused_page_attention(
+    ms = graph_ms(lambda: fpa.fused_page_attention(
+        q, pid, tid, meta, jobmeta, planes, **kw), 20)
+    eager = cuda_ms(lambda: fpa.fused_page_attention(
         q, pid, tid, meta, jobmeta, planes, **kw), 20)
     plain = cuda_ms(lambda: fpa.fused_page_attention_plain(
         q, pid, tid, meta, jobmeta, planes, **kw), 2)
@@ -323,11 +373,13 @@ def check_attention(device, records):
     valid = (pos < jobmeta[:, 0, None, None]) & (meta[..., 0:1] != 0)
     mask = valid.reshape(j, 1, 1, p * ps)
     qd = q[:, :, None, :]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask), 20)
     records["fused_page_attention"] = dict(
         ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound, bound_by=by,
         library_ms=lib, shape=[j, p, ps, h, dh])
+    print("fused_page_attention: " + json.dumps(dict(
+        records["fused_page_attention"], eager_ms=eager)))
 
 
 def check_gather(device, records):
@@ -442,8 +494,9 @@ def exact_matmul_check(name, q, cw, m, g):
 
 def check_decompress_matmul(device, records):
     """The decompress-matmul kernel against its plain version on the card,
-    at M = 4 (a decode step's batch) and M = 77 (a prefill, not a multiple
-    of the kernel's 8-row chunk).  Three checks, TF32 off:
+    at M = 4 (a decode step's batch), M = 1 and 8 (the ends of the
+    kernel's register path), 9 (the first on its shared-memory tile) and 77
+    (a prefill).  Three checks, TF32 off:
 
     - bit-exact on integer inputs with unit scales (``exact_matmul_check``);
     - the worst-case rounding bound of a K-term f32 sum,
@@ -477,7 +530,7 @@ def check_decompress_matmul(device, records):
                                  "streams stored")
         wf = (q.to(torch.float32) * scale[None, :])
         coded = 4 * int(coded_words(sb, ob, sym.shape[0], ofs.shape[0]).sum())
-        for m in (4, 77):
+        for m in (1, 4, 8, 9, 77):
             exact_matmul_check(name, q, cw, m, g)
             x = torch.randn(m, cw.k, generator=g, device=device)
             y = dm.compressed_matmul(x, cw)
@@ -494,16 +547,22 @@ def check_decompress_matmul(device, records):
                 raise AssertionError(
                     f"decompress_matmul {name} M={m}: error against f64 is "
                     f"{ratio:.3g}x cuBLAS f32's (limit {F64_ERR_RATIO})")
-            ms = cuda_ms(lambda: dm.compressed_matmul(x, cw), 20)
+            ms = graph_ms(lambda: dm.compressed_matmul(x, cw), 20)
+            eager = cuda_ms(lambda: dm.compressed_matmul(x, cw), 20)
+            # the kernel up to its staging of the planes: the rest of ms is
+            # the decode chain (and, past 8 rows, the tile product)
+            stage_ms = graph_ms(lambda: dm.compressed_matmul(
+                x, cw, stage_only=True), 20)
             plain = cuda_ms(lambda: dm.compressed_matmul_plain(x, cw), 1)
-            lib = cuda_ms(lambda: torch.matmul(x, wf), 20)
+            lib = graph_ms(lambda: torch.matmul(x, wf), 20)
             # coded words of every stream (+1 word its window reaches), the
             # stored flags, table, scales, x and the output, each once
             nbytes_ = coded + nbytes(cw.stored, *tabs, cw.scale, x, y)
             flops = 2 * m * cw.k * cw.n
             t_b, t_f = nbytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
             row = dict(name=name, shape=[m, cw.k, cw.n], ms=ms,
-                       plain_ms=plain, library_ms=lib,
+                       eager_ms=eager, stage_ms=stage_ms, plain_ms=plain,
+                       library_ms=lib,
                        bound_ms=max(t_b, t_f) * 1e3,
                        bound_by="bytes" if t_b >= t_f else "operations",
                        max_abs_err=err.max().item(), f64_err_ratio=ratio,
@@ -511,7 +570,8 @@ def check_decompress_matmul(device, records):
                        payload_bits=cw.payload_bits)
             rows.append(row)
             print("decompress_matmul: " + json.dumps(row))
-    main_row = rows[0]                      # w_up at M = 4, a decode step
+    main_row = next(r for r in rows         # w_up at M = 4, a decode step
+                    if r["name"] == "w_up" and r["shape"][0] == 4)
     records["decompress_matmul"] = dict(
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         max_abs_err=max(r["max_abs_err"] for r in rows),

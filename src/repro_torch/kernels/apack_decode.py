@@ -24,6 +24,24 @@ def decode_plain(sym, ofs, stored, v_min, ol, cum, *, n_steps: int,
     return ref.decode(sym, ofs, stored, v_min, ol, cum, n_steps, bits)
 
 
+def staged_rows(n_steps: int, bits: int, ws: int, wo: int) -> tuple[int, int]:
+    """Rows of the sym and ofs planes that the kernels decoding from shared
+    memory (decompress-matmul, fused attention) stage per stream.  A stream
+    coded in fewer than ``n_steps * bits`` bits (else the encoder stores it
+    verbatim, its ofs plane holding those bits) reads at most that many
+    bits from either plane, plus the words its 16-bit CODE window reaches
+    past the end: ``ceil(n_steps * bits / 32)`` words and a margin.  Where
+    that covers a whole plane of ``W`` words, ``W + 1`` rows: the plane and
+    a row of zeros, which reads past the plane's end then find.  Rows past
+    these are read from device memory, so the choice changes speed, never
+    values."""
+    words = -(-n_steps * bits // 32)
+
+    def rows(margin: int, n_words: int) -> int:
+        return n_words + 1 if words + margin >= n_words else words + margin
+    return rows(4, ws), rows(2, wo)
+
+
 def _rows(t: torch.Tensor, b: int, n: int) -> torch.Tensor:
     return t.to(torch.int32).expand(b, n).contiguous() if t.dim() == 1 \
         else t.to(torch.int32).reshape(b, n).contiguous()

@@ -37,11 +37,11 @@ apack_decode_kernel(const uint32_t* __restrict__ sym,
   int b = (int)(gid / s);
   int st = (int)(gid % s);
   int32_t* row = out + gid * n_steps;
-  apack::decode_stream(sym + (size_t)b * ws * s + st, ws,
-                       ofs + (size_t)b * wo * s + st, wo, s,
-                       stored[(size_t)b * s + st] != 0, vm + b * 17,
-                       ol + b * 16, cum + b * 17, n_steps, bits,
-                       [&](int i, int v) { row[i] = v; });
+  const apack::GlobalPlane sp{sym + (size_t)b * ws * s + st, ws, s};
+  const apack::GlobalPlane op{ofs + (size_t)b * wo * s + st, wo, s};
+  const apack::GlobalTable tab{vm + b * 17, ol + b * 16, cum + b * 17};
+  apack::decode_stream(sp, op, stored[(size_t)b * s + st] != 0, tab, n_steps,
+                       bits, [&](int i, int v) { row[i] = v; });
 }
 
 }  // namespace

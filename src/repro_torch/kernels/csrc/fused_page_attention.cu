@@ -13,30 +13,43 @@
 //
 // Mapping: the TPU grid (jobs, pages) runs its page axis in order on one
 // core and carries (acc, m, l) in VMEM scratch across grid steps.  Blocks
-// on the card run in no order, so one block owns one job and a loop inside
-// the block walks the pages.  Tiles live in shared memory as int8 with
-// their scales beside them (2 x 16 KB at qwen3-1.7b's [16, 8, 128] page);
-// each value is dequantized as float(q) * scale where it is used, the same
-// single rounding as the reference's tile.  A PACKED page is decoded by the
-// block's threads, one stream each (apack_decode.cuh): K streams and V
-// streams together are 256 at full width, one per thread.  Pages that no
-// query position can see (FREE padding slots) skip the tile build and fold
-// in as fully masked, which leaves (acc, m, l) exactly as the reference
-// leaves them.
+// on the card run in no order, so the page axis is split over blocks and
+// merged by a second pass:
+//   - pass 1, grid (J, ceil(P / pages_per_block)): block (j, b) folds pages
+//     b*ppb .. (b+1)*ppb - 1 of job j into its own online-softmax state,
+//     starting from (acc 0, m NEG_INF, l 0), and writes that partial to
+//     scratch.  Tiles live in shared memory as int8 with their scales
+//     beside them (2 x 16 KB at qwen3-1.7b's [16, 8, 128] page); each value
+//     is dequantized as float(q) * scale where it is used, the same single
+//     rounding as the reference's tile.  A PACKED page first copies its K
+//     and V planes' rows and its two table rows into shared memory
+//     (cp.async, stage.cuh), then the block's 256 threads decode its K and
+//     V streams from there, one stream each (apack_decode.cuh), four values
+//     to a 32-bit store.  A block none of whose pages any query position can
+//     see (FREE padding slots, pages masked by qpos or the window) writes
+//     the partial such pages fold to, without building tiles: acc 0, l 0, m
+//     the masked score (NEG_INF, or -softcap after the softcap).
+//   - pass 2, one block per (job, query head): m = max_b m_b,
+//     acc = sum_b acc_b * exp(m_b - m), l = sum_b l_b * exp(m_b - m), summed
+//     in page order: the same (acc, m, l) as the sequential fold, up to f32
+//     rounding, and deterministic (no atomics).  With one pass-1 block per
+//     job it is exact.
 //
-// What bounds it on the card: at J = max_batch jobs the grid has only a few
-// blocks, and each spends most of its time in the serial per-stream decode
-// of its PACKED pages, page after page.  It is latency-bound, far from both
-// the memory and the arithmetic roofline.  The known next step is to split
-// a job's pages over several blocks with a combine pass.
+// What bounds it on the card: the serial decode of a PACKED page (128
+// dependent steps a stream at full width), not bytes: a page is ~24 KB of
+// planes and the job's scores are a few MFLOP.  One page a block puts all
+// pages of all jobs in flight at once (J x P blocks instead of J), so a call
+// lasts about one page's decode plus the combine pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "apack_decode.cuh"
+#include "stage.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int COMBINE_THREADS = 128;
 constexpr int MAX_ACC = 16;         // Hq * dh <= MAX_ACC * THREADS
 constexpr float NEG_INF = -1e30f;   // the reference's mask value
 constexpr int PAGE_FREE = 0, PAGE_HOT = 1, PAGE_COLD = 2, PAGE_PACKED = 3;
@@ -57,12 +70,24 @@ struct Args {
   const int32_t* vm;               // [T, 17]
   const int32_t* ol;               // [T, 16]
   const int32_t* cum;              // [T, 17]
-  float* acc;                      // [J, Hq, dh]
-  float* m_out;                    // [J, Hq]
-  float* l_out;                    // [J, Hq]
+  float* acc;                      // [J, NB, Hq, dh] partials
+  float* m_out;                    // [J, NB, Hq]
+  float* l_out;                    // [J, NB, Hq]
   int P, Pp, T, Hq, H, dh, ps, S, Ws, Wo, n_steps, bits;
+  int ppb, rs, ro;                 // pages a block; staged plane rows
   float scale, softcap;
 };
+
+constexpr int TAB_BYTES = 16 * 16 + 80;   // int4 rows[16], int cum[17] + pad
+
+// Shared memory of pass 1: the int8 K and V tiles, two staged table rows,
+// the staged K and V planes, then the f32 scratch.
+__host__ __device__ inline int plane_offset(int tile) {
+  return 2 * tile + 2 * TAB_BYTES;
+}
+__host__ __device__ inline int float_offset(int tile, int S, int rs, int ro) {
+  return plane_offset(tile) + 2 * (rs + ro) * S * 4;
+}
 
 __device__ __forceinline__ void copy_bytes(int8_t* dst, const int8_t* src,
                                            int n) {
@@ -75,18 +100,59 @@ __device__ __forceinline__ void copy_bytes(int8_t* dst, const int8_t* src,
 __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int j = blockIdx.x;
+  const int b = blockIdx.y;
+  const int nb = gridDim.y;
   const int tile = a.ps * a.H * a.dh;
   const int g = a.Hq / a.H;
+  const size_t part = (size_t)j * nb + b;
+  const int qpos = a.jobmeta[j * 2 + 0];
+  const int window = a.jobmeta[j * 2 + 1];
+  const int p0 = b * a.ppb;
+  const int p1 = min(a.P, p0 + a.ppb);
+  // the score every masked position takes (after the softcap)
+  const float masked = a.softcap > 0.f ? a.softcap * tanhf(NEG_INF / a.softcap)
+                                       : NEG_INF;
+  // can any token of page slot p pass the mask?
+  auto live_at = [&](int p) {
+    const int slot = j * a.P + p;
+    const int t0 = a.meta[slot * 2 + 1];
+    return a.meta[slot * 2 + 0] != PAGE_FREE && t0 < qpos &&
+           (window <= 0 || t0 + a.ps - 1 > qpos - window);
+  };
+  bool any_live = false;
+  for (int p = p0; p < p1; ++p) any_live = any_live || live_at(p);
+  if (!any_live) {
+    for (int e = threadIdx.x; e < a.Hq * a.dh; e += THREADS)
+      a.acc[part * a.Hq * a.dh + e] = 0.f;
+    for (int h = threadIdx.x; h < a.Hq; h += THREADS) {
+      a.m_out[part * a.Hq + h] = masked;
+      a.l_out[part * a.Hq + h] = 0.f;
+    }
+    return;
+  }
+
+  // per kind (0 = K, 1 = V): int8 tile, table row, staged sym / ofs rows
   int8_t* kv_t[2] = {reinterpret_cast<int8_t*>(smem),
                      reinterpret_cast<int8_t*>(smem) + tile};
-  float* f = reinterpret_cast<float*>(smem + 2 * tile);
+  auto tab_rows = [&](int kind) {
+    return reinterpret_cast<int4*>(smem + 2 * tile + kind * TAB_BYTES);
+  };
+  auto tab_cum = [&](int kind) {
+    return reinterpret_cast<int*>(tab_rows(kind) + 16);
+  };
+  auto pl_sym = [&](int kind) {
+    return reinterpret_cast<uint32_t*>(smem + plane_offset(tile)) +
+           kind * (a.rs + a.ro) * a.S;
+  };
+  auto pl_ofs = [&](int kind) { return pl_sym(kind) + a.rs * a.S; };
+  float* f = reinterpret_cast<float*>(
+      smem + float_offset(tile, a.S, a.rs, a.ro));
   float* sc_t[2] = {f, f + a.ps * a.H};                  // per (token, head)
   float* qs = f + 2 * a.ps * a.H;                        // [Hq, dh]
   float* w_s = qs + a.Hq * a.dh;                         // [Hq, ps]
   float* m_s = w_s + a.Hq * a.ps;
   float* l_s = m_s + a.Hq;
   float* alpha_s = l_s + a.Hq;
-  int* tabs = reinterpret_cast<int*>(alpha_s + a.Hq);    // 2 x (17+16+17)
 
   for (int i = threadIdx.x; i < a.Hq * a.dh; i += THREADS)
     qs[i] = a.q[(size_t)j * a.Hq * a.dh + i];
@@ -97,40 +163,63 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
   float acc[MAX_ACC];
 #pragma unroll
   for (int k = 0; k < MAX_ACC; ++k) acc[k] = 0.f;
+  // four decoded values to a 32-bit store where a stream's row allows it
+  const bool word_stores = (a.n_steps & 3) == 0;
 
-  const int qpos = a.jobmeta[j * 2 + 0];
-  const int window = a.jobmeta[j * 2 + 1];
-
-  for (int p = 0; p < a.P; ++p) {
+  for (int p = p0; p < p1; ++p) {
     const int slot = j * a.P + p;
     const int state = a.meta[slot * 2 + 0];
     const int t0 = a.meta[slot * 2 + 1];
     const int pid = min(max(a.page_idx[slot], 0), a.Pp - 1);
     const int tid = min(max(a.table_idx[slot], 0), a.T - 2);
-    // can any token of this page pass the mask?
-    const bool live = state != PAGE_FREE && t0 < qpos &&
-                      (window <= 0 || t0 + a.ps - 1 > qpos - window);
+    const bool live = live_at(p);
     __syncthreads();            // previous page's tiles and weights are done
     if (live) {
       if (state == PAGE_PACKED) {
-        for (int i = threadIdx.x; i < 100; i += THREADS) {
-          int kind = i / 50, r = i % 50, row = tid + kind;
-          tabs[i] = r < 17 ? a.vm[row * 17 + r]
-                  : r < 33 ? a.ol[row * 16 + r - 17]
-                           : a.cum[row * 17 + r - 33];
+        const size_t sym0 = (size_t)pid * a.Ws * a.S;
+        const size_t ofs0 = (size_t)pid * a.Wo * a.S;
+#pragma unroll
+        for (int kind = 0; kind < 2; ++kind) {
+          apack::stage_plane(pl_sym(kind), a.S, a.sym[kind] + sym0, a.S, 0,
+                             a.rs, a.Ws, a.S, threadIdx.x, THREADS);
+          apack::stage_plane(pl_ofs(kind), a.S, a.ofs[kind] + ofs0, a.S, 0,
+                             a.ro, a.Wo, a.S, threadIdx.x, THREADS);
+          const int row = tid + kind;
+          apack::stage_table(tab_rows(kind), tab_cum(kind), a.vm + row * 17,
+                             a.ol + row * 16, a.cum + row * 17, threadIdx.x,
+                             THREADS);
         }
+        apack::cp_async_wait_all();
         __syncthreads();
         for (int st = threadIdx.x; st < 2 * a.S; st += THREADS) {
           const int kind = st / a.S, s = st % a.S;
-          const int* tb = tabs + 50 * kind;
-          int8_t* out = kv_t[kind] + (size_t)s * a.n_steps;
-          apack::decode_stream(
-              a.sym[kind] + (size_t)pid * a.Ws * a.S + s, a.Ws,
-              a.ofs[kind] + (size_t)pid * a.Wo * a.S + s, a.Wo, a.S,
-              a.stored[kind][(size_t)pid * a.S + s] != 0, tb, tb + 17,
-              tb + 33, a.n_steps, a.bits,
-              // two's complement of the u8 value (u >= 128 -> u - 256)
-              [&](int i, int v) { out[i] = (int8_t)(v >= 128 ? v - 256 : v); });
+          const apack::SmemTable tb{tab_rows(kind), tab_cum(kind)};
+          const bool stored = (kind ? a.stored[1] : a.stored[0])
+                                  [(size_t)pid * a.S + s] != 0;
+          int8_t* out = reinterpret_cast<int8_t*>(smem) + kind * tile +
+                        (size_t)s * a.n_steps;
+          uint32_t buf = 0;
+          // the two's complement byte of the u8 value (u >= 128 -> u - 256)
+          auto sink = [&](int i, int v) {
+            const uint32_t byte = (uint32_t)v & 0xFFu;
+            if (!word_stores) {
+              out[i] = (int8_t)byte;
+              return;
+            }
+            buf = (i & 3 ? buf : 0u) | byte << (8 * (i & 3));
+            if ((i & 3) == 3)
+              *reinterpret_cast<uint32_t*>(out + i - 3) = buf;
+          };
+          if (!apack::decode_stream(
+                  apack::SmemPlane{pl_sym(kind) + s, a.rs, a.S, a.Ws},
+                  apack::SmemPlane{pl_ofs(kind) + s, a.ro, a.S, a.Wo}, stored,
+                  tb, a.n_steps, a.bits, sink))
+            apack::decode_stream(
+                apack::GlobalPlane{(kind ? a.sym[1] : a.sym[0]) + sym0 + s,
+                                   a.Ws, a.S},
+                apack::GlobalPlane{(kind ? a.ofs[1] : a.ofs[0]) + ofs0 + s,
+                                   a.Wo, a.S},
+                stored, tb, a.n_steps, a.bits, sink);
         }
       } else {
         const int8_t* src0 = state == PAGE_HOT ? a.tok[0] : a.cold[0];
@@ -208,21 +297,59 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
 #pragma unroll
   for (int k = 0; k < MAX_ACC; ++k) {
     const int e = threadIdx.x + k * THREADS;
-    if (e < a.Hq * a.dh) a.acc[(size_t)j * a.Hq * a.dh + e] = acc[k];
+    if (e < a.Hq * a.dh) a.acc[part * a.Hq * a.dh + e] = acc[k];
   }
   for (int h = threadIdx.x; h < a.Hq; h += THREADS) {
-    a.m_out[j * a.Hq + h] = m_s[h];
-    a.l_out[j * a.Hq + h] = l_s[h];
+    a.m_out[part * a.Hq + h] = m_s[h];
+    a.l_out[part * a.Hq + h] = l_s[h];
+  }
+}
+
+// Pass 2: merge job j's nb partials of query head h in page order; block
+// (j, h), one thread per element of the head.
+__global__ void __launch_bounds__(COMBINE_THREADS)
+fused_page_attention_combine_kernel(const float* __restrict__ acc_p,
+                                    const float* __restrict__ m_p,
+                                    const float* __restrict__ l_p,
+                                    float* __restrict__ acc,
+                                    float* __restrict__ m_out,
+                                    float* __restrict__ l_out, int nb, int Hq,
+                                    int dh) {
+  const int j = blockIdx.x, h = blockIdx.y;
+  const size_t first = (size_t)j * nb * Hq + h;    // partial b at + b * Hq
+  float m = NEG_INF;
+  for (int b = 0; b < nb; ++b) m = fmaxf(m, m_p[first + (size_t)b * Hq]);
+  for (int d = threadIdx.x; d < dh; d += COMBINE_THREADS) {
+    float s = 0.f;
+    for (int b = 0; b < nb; ++b) {
+      const size_t pb = first + (size_t)b * Hq;
+      s += acc_p[pb * dh + d] * expf(m_p[pb] - m);
+    }
+    acc[((size_t)j * Hq + h) * dh + d] = s;
+  }
+  if (threadIdx.x == 0) {
+    float l = 0.f;
+    for (int b = 0; b < nb; ++b) {
+      const size_t pb = first + (size_t)b * Hq;
+      l += l_p[pb] * expf(m_p[pb] - m);
+    }
+    m_out[j * Hq + h] = m;
+    l_out[j * Hq + h] = l;
   }
 }
 
 }  // namespace
 
-extern "C" int fused_page_attention_smem_bytes(int Hq, int H, int dh, int ps) {
-  return 2 * ps * H * dh +
-         4 * (2 * ps * H + Hq * dh + Hq * ps + 3 * Hq) + 4 * 100;
+extern "C" int fused_page_attention_smem_bytes(int Hq, int H, int dh, int ps,
+                                               int S, int rs, int ro) {
+  const int tile = ps * H * dh;
+  return float_offset(tile, S, rs, ro) +
+         4 * (2 * ps * H + Hq * dh + Hq * ps + 3 * Hq);
 }
 
+// q f32 [J, Hq, dh]; the page table, metadata and pool planes as listed in
+// Args; acc_p / m_p / l_p f32 scratch [J, NB, Hq, dh] / [J, NB, Hq] with
+// NB = ceil(P / ppb); acc / m_out / l_out f32 [J, Hq, dh] / [J, Hq].
 extern "C" int fused_page_attention_launch(
     const void* q, const void* page_idx, const void* table_idx,
     const void* meta, const void* jobmeta, const void* tok_k,
@@ -231,48 +358,58 @@ extern "C" int fused_page_attention_launch(
     const void* pscale_v, const void* sym_k, const void* ofs_k,
     const void* stored_k, const void* sym_v, const void* ofs_v,
     const void* stored_v, const void* vm, const void* ol, const void* cum,
-    void* acc, void* m_out, void* l_out, int J, int P, int Pp, int T, int Hq,
-    int H, int dh, int ps, int S, int Ws, int Wo, int n_steps, int bits,
-    float scale, float softcap, void* stream) {
+    void* acc_p, void* m_p, void* l_p, void* acc, void* m_out, void* l_out,
+    int J, int P, int Pp, int T, int Hq, int H, int dh, int ps, int S, int Ws,
+    int Wo, int n_steps, int bits, int ppb, int rs, int ro, float scale,
+    float softcap, void* stream) {
   if (J == 0) return 0;
-  if (Hq * dh > MAX_ACC * THREADS) return (int)cudaErrorInvalidValue;
-  Args a;
-  a.q = (const float*)q;
-  a.page_idx = (const int32_t*)page_idx;
-  a.table_idx = (const int32_t*)table_idx;
-  a.meta = (const int32_t*)meta;
-  a.jobmeta = (const int32_t*)jobmeta;
-  a.tok[0] = (const int8_t*)tok_k;
-  a.tok[1] = (const int8_t*)tok_v;
-  a.tok_s[0] = (const float*)tok_sk;
-  a.tok_s[1] = (const float*)tok_sv;
-  a.cold[0] = (const int8_t*)cold_k;
-  a.cold[1] = (const int8_t*)cold_v;
-  a.pscale[0] = (const float*)pscale_k;
-  a.pscale[1] = (const float*)pscale_v;
-  a.sym[0] = (const uint32_t*)sym_k;
-  a.sym[1] = (const uint32_t*)sym_v;
-  a.ofs[0] = (const uint32_t*)ofs_k;
-  a.ofs[1] = (const uint32_t*)ofs_v;
-  a.stored[0] = (const int32_t*)stored_k;
-  a.stored[1] = (const int32_t*)stored_v;
-  a.vm = (const int32_t*)vm;
-  a.ol = (const int32_t*)ol;
-  a.cum = (const int32_t*)cum;
-  a.acc = (float*)acc;
-  a.m_out = (float*)m_out;
-  a.l_out = (float*)l_out;
-  a.P = P; a.Pp = Pp; a.T = T; a.Hq = Hq; a.H = H; a.dh = dh; a.ps = ps;
-  a.S = S; a.Ws = Ws; a.Wo = Wo; a.n_steps = n_steps; a.bits = bits;
-  a.scale = scale;
-  a.softcap = softcap;
-  int smem = fused_page_attention_smem_bytes(Hq, H, dh, ps);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_page_attention_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (Hq * dh > MAX_ACC * THREADS || ppb < 1 || rs < 1 || rs > Ws + 1 ||
+      ro < 1 || ro > Wo + 1)
+    return (int)cudaErrorInvalidValue;
+  const int nb = (P + ppb - 1) / ppb;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nb > 0) {
+    Args a;
+    a.q = (const float*)q;
+    a.page_idx = (const int32_t*)page_idx;
+    a.table_idx = (const int32_t*)table_idx;
+    a.meta = (const int32_t*)meta;
+    a.jobmeta = (const int32_t*)jobmeta;
+    a.tok[0] = (const int8_t*)tok_k;
+    a.tok[1] = (const int8_t*)tok_v;
+    a.tok_s[0] = (const float*)tok_sk;
+    a.tok_s[1] = (const float*)tok_sv;
+    a.cold[0] = (const int8_t*)cold_k;
+    a.cold[1] = (const int8_t*)cold_v;
+    a.pscale[0] = (const float*)pscale_k;
+    a.pscale[1] = (const float*)pscale_v;
+    a.sym[0] = (const uint32_t*)sym_k;
+    a.sym[1] = (const uint32_t*)sym_v;
+    a.ofs[0] = (const uint32_t*)ofs_k;
+    a.ofs[1] = (const uint32_t*)ofs_v;
+    a.stored[0] = (const int32_t*)stored_k;
+    a.stored[1] = (const int32_t*)stored_v;
+    a.vm = (const int32_t*)vm;
+    a.ol = (const int32_t*)ol;
+    a.cum = (const int32_t*)cum;
+    a.acc = (float*)acc_p;
+    a.m_out = (float*)m_p;
+    a.l_out = (float*)l_p;
+    a.P = P; a.Pp = Pp; a.T = T; a.Hq = Hq; a.H = H; a.dh = dh; a.ps = ps;
+    a.S = S; a.Ws = Ws; a.Wo = Wo; a.n_steps = n_steps; a.bits = bits;
+    a.ppb = ppb; a.rs = rs; a.ro = ro;
+    a.scale = scale;
+    a.softcap = softcap;
+    const int smem = fused_page_attention_smem_bytes(Hq, H, dh, ps, S, rs, ro);
+    cudaError_t e = apack::allow_max_smem<fused_page_attention_kernel>();
+    if (e != cudaSuccess) return (int)e;
+    fused_page_attention_kernel<<<dim3(J, nb), THREADS, smem, st>>>(a);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  fused_page_attention_kernel<<<J, THREADS, smem, (cudaStream_t)stream>>>(a);
+  fused_page_attention_combine_kernel<<<dim3(J, Hq), COMBINE_THREADS, 0,
+                                        st>>>(
+      (const float*)acc_p, (const float*)m_p, (const float*)l_p, (float*)acc,
+      (float*)m_out, (float*)l_out, nb, Hq, dh);
   return (int)cudaGetLastError();
 }

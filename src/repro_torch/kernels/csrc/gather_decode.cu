@@ -48,9 +48,10 @@ gather_decode_kernel(const uint32_t* __restrict__ sym,
   size_t p = (size_t)page_idx[gi];
   int t = table_idx[gi];
   int32_t* row = out + gid * n_steps;
-  apack::decode_stream(sym + p * ws * s + st, ws, ofs + p * wo * s + st, wo,
-                       s, stored[p * s + st] != 0, vm + t * 17, ol + t * 16,
-                       cum + t * 17, n_steps, bits,
+  const apack::GlobalPlane sp{sym + p * ws * s + st, ws, s};
+  const apack::GlobalPlane op{ofs + p * wo * s + st, wo, s};
+  const apack::GlobalTable tab{vm + t * 17, ol + t * 16, cum + t * 17};
+  apack::decode_stream(sp, op, stored[p * s + st] != 0, tab, n_steps, bits,
                        [&](int i, int v) { row[i] = v; });
 }
 

@@ -29,7 +29,7 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.tables import ApackTable, find_table
 
-from . import _build, apack_encode, ref
+from . import _build, apack_decode, apack_encode, ref
 
 F32 = torch.float32
 I32 = torch.int32
@@ -39,11 +39,11 @@ DEFAULT_TILE_K = 512
 # tensor: ``model.pack_weights`` and the ``--weight-min-size`` CLI flag share
 # this one default.
 DEFAULT_WEIGHT_MIN_SIZE = 16384
-# dynamic shared memory a block may use on sm_90 (the int8 tile is
-# tile_k x 128 bytes)
+# dynamic shared memory a block may use on sm_90 (a block stages the planes
+# of 64 streams, and for more than 8 rows of x an int8 tile_k x 64 tile)
 _MAX_SMEM = 232448
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 @dataclasses.dataclass
@@ -164,28 +164,55 @@ def compressed_matmul_plain(x: torch.Tensor,
     return acc[:m, :cw.n]
 
 
-def compressed_matmul(x: torch.Tensor, cw: CompressedLinear) -> torch.Tensor:
+def _tiled_x(x: torch.Tensor, tile_k: int, nk: int):
+    """x as the kernel reads it: ``(xt, ldx, xkt)`` with element (r, K tile
+    kt, column i) at ``xt[r * ldx + kt * xkt + i]``, every 8th column
+    16-byte aligned, readable to the next multiple of 8 past tile_k and zero
+    past K.  An f32 x whose K tiles are whole and 8-column aligned is used
+    as it is; any other is copied into a zeroed [M, nk, tile_k rounded up
+    to 8] buffer."""
+    m, k = x.shape
+    xf = x.to(F32).contiguous()
+    if tile_k % 8 == 0 and k == nk * tile_k and xf.data_ptr() % 16 == 0:
+        return xf, k, tile_k
+    t8 = -(-tile_k // 8) * 8
+    xt = torch.zeros(m, nk, t8, dtype=F32, device=x.device)
+    xt[:, :, :tile_k] = torch.nn.functional.pad(
+        xf, (0, nk * tile_k - k)).view(m, nk, tile_k)
+    return xt, nk * t8, t8
+
+
+def compressed_matmul(x: torch.Tensor, cw: CompressedLinear, *,
+                      stage_only: bool = False) -> torch.Tensor:
     """``x @ W`` where W is APack-compressed; x f32 or bf16 [M, K], computed
     in f32, result f32 [M, N].
 
     The JAX version's ``block_m`` has no counterpart: the kernel walks every
     row of x against each decoded tile.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel or raises.  ``stage_only``
+    (CUDA only, for timing the kernel's parts) runs the kernel up to the
+    copy of the planes into shared memory and returns an unwritten
+    output; it is not counted as a launch."""
     if x.dim() != 2 or x.shape[1] != cw.k:
         raise ValueError(f"x shape {tuple(x.shape)}, expected [M, {cw.k}]")
     if x.device.type == "cpu":
         return compressed_matmul_plain(x, cw)
     if x.device.type != "cuda":
         raise ValueError(f"compressed_matmul: unsupported device {x.device}")
-    if cw.tile_k * TILE_N > _MAX_SMEM:
-        raise ValueError(f"tile_k={cw.tile_k}: the int8 tile exceeds the "
-                         f"{_MAX_SMEM} bytes of shared memory a block has")
     dev = x.device
     m = x.shape[0]
-    xf = x.to(F32).contiguous()
     nk, nn = cw.k_pad // cw.tile_k, cw.n_pad // TILE_N
+    xf, ldx, xkt = _tiled_x(x, cw.tile_k, nk)
     s = nk * nn * TILE_N
     ws, wo = cw.sym_plane.shape[0], cw.ofs_plane.shape[0]
+    rs, ro = apack_decode.staged_rows(cw.tile_k, 8, ws, wo)
+    lib = _build.load("decompress_matmul")
+    fn = lib.decompress_matmul_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    smem = fn(m, cw.tile_k, rs, ro)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"tile_k={cw.tile_k}, M={m}: {smem} bytes of shared "
+                         f"memory a block, above the {_MAX_SMEM} it has")
     partial = torch.empty(nk, m, cw.n_pad, dtype=F32, device=dev)
     out = torch.empty(m, cw.n, dtype=F32, device=dev)
     ptrs = [xf.data_ptr(),
@@ -197,12 +224,13 @@ def compressed_matmul(x: torch.Tensor, cw: CompressedLinear) -> torch.Tensor:
             _build.require(cw.cum, I32, (17,), "cum", dev),
             _build.require(cw.scale, F32, (cw.n_pad,), "scale", dev),
             partial.data_ptr(), out.data_ptr()]
-    fn = _build.load("decompress_matmul").decompress_matmul_launch
+    fn = lib.decompress_matmul_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(*ptrs, m, cw.k, cw.n, cw.tile_k, nk, nn, ws, wo,
-            _build.stream_of(x))
+    rc = fn(*ptrs, m, cw.k, cw.n, cw.tile_k, nk, nn, ws, wo, rs, ro, ldx,
+            xkt, int(stage_only), _build.stream_of(x))
     _build.check(rc, "decompress_matmul")
-    _build.LAUNCHES["decompress_matmul"] += 1
+    if not stage_only:
+        _build.LAUNCHES["decompress_matmul"] += 1
     return out
 
 

@@ -11,7 +11,9 @@ on absolute position (``t0 + i < qpos``), the rolling window
 (``> qpos - window`` when ``window > 0``) and the optional softcap, and
 folded into an online softmax.  The result is the *unnormalized*
 ``(acc, m, l)``; the caller merges the current token and divides
-(``models.modules.paged_attention_step``).
+(``models.modules.paged_attention_step``).  The CUDA kernel folds each page
+in a block of its own and merges the pages' partial states in a second
+pass; ``combine_partials`` is that merge in plain PyTorch, for the tests.
 
 Head tensor-parallelism is not part of this slice: a PACKED page decodes
 all of its heads, which are exactly the dense planes' heads, so the
@@ -24,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import _build, ref
+from . import _build, apack_decode, ref
 
 F32 = torch.float32
 I32 = torch.int32
@@ -35,7 +37,12 @@ PLANE_KEYS = ("tok_k", "tok_sk", "tok_v", "tok_sv", "cold_k", "cold_v",
               "pscale_k", "pscale_v", "sym_k", "ofs_k", "stored_k",
               "sym_v", "ofs_v", "stored_v", "vm", "ol", "cum")
 
-_ARGTYPES = ([ctypes.c_void_p] * 25 + [ctypes.c_int] * 13
+# pages each block of the kernel folds before the combine pass
+PAGES_PER_BLOCK = 1
+# dynamic shared memory a block may use on sm_90
+_MAX_SMEM = 232448
+
+_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 16
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
@@ -119,6 +126,22 @@ def fused_page_attention_plain(q, page_idx, table_idx, meta, jobmeta,
             l_run.reshape(jn, hq))
 
 
+def combine_partials(acc, m, l):
+    """Merge online-softmax partials ``acc [J, NB, Hq, dh]``, ``m`` and
+    ``l [J, NB, Hq]`` of consecutive page chunks into the state of the
+    whole page table, as the kernel's combine pass does: ``m = max_b m_b``,
+    ``acc = sum_b acc_b * exp(m_b - m)``, ``l = sum_b l_b * exp(m_b - m)``,
+    summed in chunk order."""
+    m_all = m.amax(1)
+    acc_all = torch.zeros_like(acc[:, 0])
+    l_all = torch.zeros_like(l[:, 0])
+    for b in range(m.shape[1]):
+        w = torch.exp(m[:, b] - m_all)
+        acc_all = acc_all + acc[:, b] * w[..., None]
+        l_all = l_all + l[:, b] * w
+    return acc_all, m_all, l_all
+
+
 def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
                          table_idx: torch.Tensor, meta: torch.Tensor,
                          jobmeta: torch.Tensor, planes: dict, *,
@@ -159,6 +182,14 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
     if hq * dh > 16 * 256 or t_rows < 2:
         raise ValueError("fused_page_attention: Hq*dh above 4096 or fewer "
                          "than two table rows")
+    rs, ro = apack_decode.staged_rows(n_steps, bits, ws, wo)
+    lib = _build.load("fused_page_attention")
+    fn = lib.fused_page_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
+    smem = fn(hq, h, dh, ps, s, rs, ro)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"fused_page_attention: {smem} bytes of shared "
+                         f"memory a block, above the {_MAX_SMEM} it has")
     shapes = {"tok_k": (pp, ps, h, dh), "tok_v": (pp, ps, h, dh),
               "cold_k": (pp, ps, h, dh), "cold_v": (pp, ps, h, dh),
               "tok_sk": (pp, ps, h), "tok_sv": (pp, ps, h),
@@ -172,6 +203,10 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
               "tok_sk": F32, "tok_sv": F32, "pscale_k": F32, "pscale_v": F32}
     plane_ptrs = [_build.require(planes[k], dtypes.get(k, I32), shapes[k], k,
                                  dev) for k in PLANE_KEYS]
+    nb = -(-n_pages // PAGES_PER_BLOCK)
+    acc_p = torch.empty(jn, nb, hq, dh, dtype=F32, device=dev)
+    m_p = torch.empty(jn, nb, hq, dtype=F32, device=dev)
+    l_p = torch.empty(jn, nb, hq, dtype=F32, device=dev)
     acc = torch.empty(jn, hq, dh, dtype=F32, device=dev)
     m_out = torch.empty(jn, hq, dtype=F32, device=dev)
     l_out = torch.empty(jn, hq, dtype=F32, device=dev)
@@ -180,11 +215,13 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
             _build.require(table_idx, I32, (jn, n_pages), "table_idx", dev),
             _build.require(meta, I32, (jn, n_pages, 2), "meta", dev),
             _build.require(jobmeta, I32, (jn, 2), "jobmeta", dev),
-            *plane_ptrs, acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr()]
-    fn = _build.load("fused_page_attention").fused_page_attention_launch
+            *plane_ptrs, acc_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
+            acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr()]
+    fn = lib.fused_page_attention_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(*ptrs, jn, n_pages, pp, t_rows, hq, h, dh, ps, s, ws, wo,
-            n_steps, bits, dh ** -0.5, float(softcap), _build.stream_of(q))
+            n_steps, bits, PAGES_PER_BLOCK, rs, ro, dh ** -0.5,
+            float(softcap), _build.stream_of(q))
     _build.check(rc, "fused_page_attention")
     _build.LAUNCHES["fused_page_attention"] += 1
     return acc, m_out, l_out

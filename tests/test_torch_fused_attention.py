@@ -106,6 +106,64 @@ def test_plain_matches_reference_and_pallas(window, softcap):
     assert {int(s) for s in meta[:-1, :, 0].ravel()} == {0, 1, 2, 3}
 
 
+@pytest.mark.parametrize("chunk,slots,free_chunk,window,softcap", [
+    (1, 7, None, 0, 0.0),       # one page a chunk, as the kernel's blocks
+    (3, 7, 1, 0, 0.0),          # ragged chunks, the middle one all FREE
+    (7, 7, None, 0, 0.0),       # one chunk: the unsplit fold
+    (1, 6, None, 6, 5.0),       # window and softcap
+    (3, 6, 0, 6, 5.0),          # window, softcap, the first chunk all FREE
+    (1, 1, None, 0, 0.0),       # a single page slot
+])
+def test_split_pages_combine_to_the_unsplit_fold(chunk, slots, free_chunk,
+                                                 window, softcap):
+    """The kernel folds each chunk of a job's pages on its own and merges
+    the partials with ``combine_partials``.  On the CPU: the plain version
+    run chunk by chunk and merged equals the unsplit plain version and the
+    JAX ``fused_page_attention_ref`` within f32 rtol 1e-5 / atol 1e-6 (the
+    merge rescales each chunk once by exp(m_b - m) where the sequential
+    fold rescales page by page).  Chunks whose slots are all FREE, and the
+    fully masked job, fold to (acc 0, m masked, l 0) and change nothing."""
+    rng = np.random.default_rng(100 + chunk + slots + window)
+    planes = _pool(rng)
+    jobs = 3
+    pid, tid, meta, qpos = _tables(rng, jobs, slots)
+    if slots == 1:
+        meta[:, :, 0] = 3                                # one PACKED page
+        qpos[:] = [PS - 1, 1, 0]
+    if free_chunk is not None:
+        meta[:, free_chunk * chunk:(free_chunk + 1) * chunk, 0] = 0
+    win = np.full(jobs, window, np.int32)
+    jobmeta = np.stack([qpos, win], -1)
+    tp = {k: torch.from_numpy(v.view(np.int32) if v.dtype == np.uint32 else v)
+          for k, v in planes.items()}
+    q = rng.normal(0, 1, (jobs, HQ, DH)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (q, pid, tid, meta, jobmeta)]
+    kw = dict(n_steps=E, softcap=softcap)
+    parts = [pfpa.fused_page_attention_plain(
+        args[0], args[1][:, c:c + chunk], args[2][:, c:c + chunk],
+        args[3][:, c:c + chunk], args[4], tp, **kw)
+        for c in range(0, slots, chunk)]
+    got = pfpa.combine_partials(*(torch.stack([p_[i] for p_ in parts], 1)
+                                  for i in range(3)))
+    whole = pfpa.fused_page_attention_plain(*args, tp, **kw)
+    jm = jnp.asarray(np.stack([qpos, win, np.zeros(jobs, np.int32)], -1))
+    want = jfpa.fused_page_attention(
+        jnp.asarray(q), jnp.asarray(pid), jnp.asarray(tid), jnp.asarray(meta),
+        jm, {k: jnp.asarray(v) for k, v in planes.items()}, n_steps=E,
+        num_heads=HQ, softcap=softcap, backend="ref")
+    for g, w1, w2 in zip(got, whole, want):
+        np.testing.assert_allclose(g.numpy(), w1.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w2), rtol=1e-5,
+                                   atol=1e-6)
+    if chunk == slots:                  # one chunk merges to itself exactly
+        for g, w1 in zip(got, whole):
+            assert torch.equal(g, w1)
+    acc, m, l = (x.numpy() for x in got)
+    assert (l[-1] == 0).all() and (acc[-1] == 0).all()
+    assert (l[:-1] > 0).all()
+
+
 def test_wrapper_refuses_devices_without_a_kernel():
     """Only CPU tensors take the plain version; any other non-CUDA device
     is refused rather than silently computed somewhere else."""

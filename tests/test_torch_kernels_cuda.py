@@ -1,5 +1,6 @@
-"""Kernel checks that need the card (decompress-matmul, gather decode), in
-a file that imports neither JAX nor the JAX package, so that they run on a CUDA machine without JAX:
+"""Kernel checks that need the card (decompress-matmul, fused paged
+attention, gather decode), in a file that imports neither JAX nor the JAX
+package, so that they run on a CUDA machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -15,13 +16,14 @@ from repro_torch.kernels import decompress_matmul as dm
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [4, 37])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 37])
 def test_cuda_decompress_matmul_kernel(m):
     """Over three K tiles (K = 1100, tile_k 512) and a ragged N (200): with
     unit scales and small-integer x every sum is exact in f32, so the
     kernel equals the integer product bit for bit; with the real scales it
     stays within the K-term f32 bound, K * 2^-24 * (|x| @ |W|), of the
-    plain version (TF32 off)."""
+    plain version (TF32 off).  M = 1, 4 and 8 take the kernel's register
+    path, 9 and 37 its shared-memory tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -76,3 +78,81 @@ def test_cuda_gather_decode_kernel():
     assert int(st.sum()) > 0
     assert torch.equal(got, want)
     assert torch.equal(got, vals[pidx.long()])
+
+
+def _attention_pool(rng, ps, h, dh, s, pool, dev):
+    """A pool of ``pool`` pages of shape [ps, h, dh] in every lifecycle
+    state's planes, each PACKED page-kind ``s`` streams, K and V coded with
+    one table row each (plain encoder)."""
+    from repro_torch.core.tables import find_table, histogram
+    from repro_torch.kernels import ref
+
+    def i8(*shape):
+        return torch.from_numpy(np.clip(np.round(rng.laplace(0, 18, shape)),
+                                        -127, 127).astype(np.int8))
+
+    def sc(*shape):
+        return torch.from_numpy(rng.uniform(.01, .02, shape)
+                                .astype(np.float32))
+    planes = {"tok_k": i8(pool, ps, h, dh), "tok_v": i8(pool, ps, h, dh),
+              "tok_sk": sc(pool, ps, h), "tok_sv": sc(pool, ps, h),
+              "cold_k": i8(pool, ps, h, dh), "cold_v": i8(pool, ps, h, dh),
+              "pscale_k": sc(pool, h), "pscale_v": sc(pool, h)}
+    e = ps * h * dh // s
+    rows = []
+    for kind in "kv":
+        u = (planes[f"cold_{kind}"].to(torch.int32) & 0xFF).reshape(pool, s, e)
+        u[:, :2] = torch.from_numpy(rng.integers(0, 256, (pool, 2, e))
+                                    .astype(np.int32))   # stored streams
+        planes[f"cold_{kind}"] = ((u + 128) % 256 - 128).to(torch.int8) \
+            .reshape(pool, ps, h, dh)
+        tabs = ref.table_tensors(find_table(histogram(u.numpy(), 8), 8, True))
+        rows.append(tabs)
+        sym, ofs, _, _, st = ref.encode(u, *tabs, e, 8)
+        planes[f"sym_{kind}"], planes[f"ofs_{kind}"] = sym, ofs
+        planes[f"stored_{kind}"] = st.to(torch.int32)
+    for i, key in enumerate(("vm", "ol", "cum")):
+        planes[key] = torch.stack([rows[0][i], rows[1][i]])
+    return {k: v.to(dev) for k, v in planes.items()}, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 8, 128, 16, 128), (4, 2, 16, 4, 4)])
+@pytest.mark.parametrize("slots,softcap", [(1, 0.0), (7, 0.0), (16, 30.0)])
+def test_cuda_fused_page_attention_kernel(shape, slots, softcap):
+    """The split-page kernel and its combine pass against the plain
+    version at f32 rtol 1e-5 / atol 1e-6 (each page's dot products sum in
+    another order): page tables of 1, 7 and 16 slots mixing HOT, COLD,
+    PACKED (stored streams included) and FREE pages, a job with a rolling
+    window and a job whose slots are all FREE; at qwen3-1.7b's page
+    [16, 8, 128] (GQA 2) and at SMOKE's [4, 2, 16]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import fused_page_attention as fpa
+    ps, h, dh, hq, s = shape
+    rng = np.random.default_rng(slots + ps)
+    dev = torch.device("cuda")
+    planes, e = _attention_pool(rng, ps, h, dh, s, 12, dev)
+    jobs = 4
+    pid = rng.integers(0, 12, (jobs, slots))
+    state = rng.integers(1, 4, (jobs, slots))
+    state[:, 0] = 3                                     # a PACKED page each
+    if slots > 2:
+        state[:, -2:] = 0                               # FREE padding
+    state[-1] = 0                                       # a fully FREE job
+    t0 = np.broadcast_to(np.arange(slots) * ps, (jobs, slots))
+    meta = np.stack([state, t0], -1)
+    qpos = np.full(jobs, max(slots - 2, 1) * ps - 1)
+    window = np.array([0, 0, 2 * ps + 1, 0])
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (pid, np.zeros_like(pid), meta,
+                      np.stack([qpos, window], -1))]
+    q = torch.from_numpy(rng.normal(0, 1, (jobs, hq, dh))
+                         .astype(np.float32)).to(dev)
+    kw = dict(n_steps=e, softcap=softcap)
+    got = fpa.fused_page_attention(q, *args, planes, **kw)
+    want = fpa.fused_page_attention_plain(q, *args, planes, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert (got[2][-1] == 0).all() and (got[2][:-1] > 0).all()
