@@ -5,22 +5,24 @@
 
 Phases (any failure exits non-zero):
 
-1. print the card's name and power limit; build the five CUDA kernels
-   from ``src/repro_torch/kernels/csrc`` with nvcc (one process each, all
-   started together);
+1. print the card's name and power limit, and the host CPU's model and
+   clock; build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   with nvcc (one process each, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the paths give it: APack decode and encode bit-exact (bits
-   4/8/16, stored streams included), fused paged attention within an f32
+   4/8/16, stored streams included; encode also at the serve's pack shapes
+   [2, 28 | 560, 128, 128]), fused paged attention within an f32
    tolerance on a mixed HOT/COLD/PACKED/FREE pool at the full-width page
    shape (page tables of 16, 7 and 1 slots, a job all FREE), the
    decompress-matmul at qwen3-1.7b's w_up and w_down shapes (plus a tensor
    of stored streams) at M = 1, 4, 8, 9 and a prefill M, there also
    bit-exact on integer inputs and against an f64 product, and the gather
-   decode bit-exact at a materialize step's 1024 gathered pages; time
-   kernel, plain version, bound and the PyTorch library yardstick where one
-   exists (kernel and yardstick as device time per call over a CUDA graph
-   of 20 calls, the gather decode, whose wrapper synchronizes, eagerly),
-   and the decompress-matmul's staging of its planes alone;
+   decode bit-exact at G = 1024, 1 and 3 gathered pages (ids on the host
+   and on the card); time kernel, plain version, bound and the PyTorch
+   library yardstick where one exists (kernel and yardstick as device time
+   per call over a CUDA graph of 20 calls; the gather decode and the
+   decompress-matmul also eagerly), and the decompress-matmul's staging of
+   its planes alone;
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
@@ -70,6 +72,11 @@ PAGE = dict(ps=16, h=8, dh=128, hq=16)   # qwen3-1.7b page [16, 8, 128]
 AGREEMENT_GATE = 0.98             # the reference's teacher-forced gate
 F64_ERR_RATIO = 4.0               # kernel vs f64 <= this x cuBLAS f32 vs f64
 RMS_DRIFT_RATIO = 1.5             # packed drift <= this x f32 oracle's drift
+PORT_KERNELS = ("apack_decode_kernel", "apack_encode_kernel",   # csrc/*.cu
+                "fused_page_attention_kernel",
+                "fused_page_attention_combine_kernel",
+                "decompress_tile_kernel", "ktile_sum_kernel",
+                "gather_decode_kernel")
 
 
 def fail(msg: str) -> int:
@@ -135,6 +142,40 @@ def coded_words(sym_bits, ofs_bits, ws: int, wo: int):
     return words(sym_bits, ws) + words(ofs_bits, wo)
 
 
+def host_line() -> str:
+    """The host CPU: its model (``model name`` in /proc/cpuinfo, else
+    ``lscpu``'s) with its vendor, family, model and stepping, its logical
+    CPU count, the current clock of its cores (``cpu MHz``: least, median,
+    most) and the rated maximum that ``lscpu`` gives.  Serve step times
+    are host-bound and move between calls with the host."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            info = f.read().splitlines()
+    except OSError:
+        info = []
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                               timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        lscpu = []
+
+    def field(lines, key):
+        return [ln.split(":", 1)[1].strip() for ln in lines
+                if ":" in ln and ln.split(":", 1)[0].strip() == key]
+    known = [m for m in field(info, "model name") + field(lscpu, "Model name")
+             if m.lower() not in ("", "unknown")]
+    ident = ", ".join(f"{k} {(field(info, k) or ['?'])[0]}" for k in
+                      ("vendor_id", "cpu family", "model", "stepping"))
+    model = f"{known[0] if known else 'model name unknown'} ({ident})"
+    mhz = sorted(float(x) for x in field(info, "cpu MHz"))
+    clock = (f"cpu MHz {mhz[0]:.0f} / {mhz[len(mhz) // 2]:.0f} / "
+             f"{mhz[-1]:.0f} (least / median / most)" if mhz
+             else "cpu MHz not reported")
+    rated = field(lscpu, "CPU max MHz") or ["not reported"]
+    return (f"host: {model}, {os.cpu_count()} logical CPUs, {clock}, "
+            f"CPU max MHz {rated[0]}")
+
+
 # ----------------------------------------------------------------- phase 2
 def kv_like_values(n_pages, s, e, device):
     """u8 values shaped like int8 KV: a Laplace body around 0 in two's
@@ -173,17 +214,58 @@ def codec_inputs(device):
             for name, v, t, bits in cases]
 
 
+def table_rows(vals, n_rows, bits=8):
+    """``n_rows`` activation tables, row r fitted to the pages p with
+    p % n_rows == r of ``vals`` [pages, S, E], as stacked int32 tensors
+    (v_min [n_rows, 17], ol [n_rows, 16], cum [n_rows, 17]), and each
+    page's row."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tables import find_table, histogram
+    rows = torch.arange(vals.shape[0], device=vals.device) % n_rows
+    tabs = [find_table(histogram(vals[rows == r].cpu().numpy(), bits), bits,
+                       is_activation=True).as_arrays() for r in range(n_rows)]
+    return tuple(torch.as_tensor(np.stack([t[i] for t in tabs]),
+                                 dtype=torch.int32, device=vals.device)
+                 for i in range(3)), rows
+
+
+def check_encode(name, vals, tabs, bits):
+    """The encode kernel bit-exact against the plain encoder; returns the
+    kernel's result."""
+    import torch
+    from repro_torch.kernels import apack_encode
+    e = vals.shape[-1]
+    got = apack_encode.encode(vals, *tabs, n_steps=e, bits=bits)
+    want = apack_encode.encode_plain(vals, *tabs, n_steps=e, bits=bits)
+    for g, w, what in zip(got, want, ("sym", "ofs", "sym_bits", "ofs_bits",
+                                      "stored")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"encode {name}: {what} differs")
+    return got
+
+
+def encode_timing(vals, tabs, bits, got):
+    """Device ms of the encode kernel and of the plain version, and the
+    bound: the values and table rows read once, the whole planes, bit
+    counts and flags written once."""
+    from repro_torch.kernels import apack_encode
+    e = vals.shape[-1]
+    ms = graph_ms(lambda: apack_encode.encode(vals, *tabs, n_steps=e,
+                                              bits=bits), 20)
+    plain = cuda_ms(lambda: apack_encode.encode_plain(
+        vals, *tabs, n_steps=e, bits=bits), 1)
+    return dict(ms=ms, plain_ms=plain, max_abs_err=0,
+                bound_ms=nbytes(vals, *tabs, *got) / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None, shape=list(vals.shape))
+
+
 def check_codec(device, records):
     import torch
-    from repro_torch.kernels import apack_decode, apack_encode
+    from repro_torch.kernels import apack_decode
     for name, vals, tabs, bits in codec_inputs(device):
         e = vals.shape[-1]
-        got = apack_encode.encode(vals, *tabs, n_steps=e, bits=bits)
-        want = apack_encode.encode_plain(vals, *tabs, n_steps=e, bits=bits)
-        for g, w, what in zip(got, want, ("sym", "ofs", "sym_bits",
-                                          "ofs_bits", "stored")):
-            if not torch.equal(g, w):
-                raise AssertionError(f"encode {name}: {what} differs")
+        got = check_encode(name, vals, tabs, bits)
         dec = apack_decode.decode(got[0], got[1], got[4], *tabs, n_steps=e,
                                   bits=bits)
         dec_plain = apack_decode.decode_plain(got[0], got[1], got[4], *tabs,
@@ -197,27 +279,36 @@ def check_codec(device, records):
             continue
         assert 0 < n_stored < got[4].numel(), "kv8 must mix stored and AC"
         # timing at the KV page shape (64 pages x 128 streams x 128 values)
-        enc_ms = graph_ms(lambda: apack_encode.encode(
-            vals, *tabs, n_steps=e, bits=bits), 20)
-        enc_plain = cuda_ms(lambda: apack_encode.encode_plain(
-            vals, *tabs, n_steps=e, bits=bits), 1)
+        records["apack_encode"] = encode_timing(vals, tabs, bits, got)
         dec_ms = graph_ms(lambda: apack_decode.decode(
             got[0], got[1], got[4], *tabs, n_steps=e, bits=bits), 20)
         dec_plain_ms = cuda_ms(lambda: apack_decode.decode_plain(
             got[0], got[1], got[4], *tabs, n_steps=e, bits=bits), 1)
-        # encode writes whole planes; decode reads only the coded words
-        enc_bytes = nbytes(vals, *tabs, *got)
+        # decode reads only the coded words
         dec_bytes = 4 * int(coded_words(got[2], got[3], got[0].shape[-2],
                                         got[1].shape[-2]).sum())
         dec_bytes += nbytes(got[4], *tabs, dec)
-        records["apack_encode"] = dict(
-            ms=enc_ms, plain_ms=enc_plain, max_abs_err=0,
-            bound_ms=enc_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None, shape=list(vals.shape))
         records["apack_decode"] = dict(
             ms=dec_ms, plain_ms=dec_plain_ms, max_abs_err=0,
             bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=None, shape=list(vals.shape))
+        for k in ("apack_encode", "apack_decode"):
+            print(f"{k}: " + json.dumps(records[k]))
+    # the serve's pack shapes: [2 kinds, n pages, 128 streams, 128 values],
+    # a decode step's seal of one slot (28 layers) and a prefill's seal of
+    # four slots of 5 pages each; each page with its layer's table row
+    for n in (28, 560):
+        vals = kv_like_values(2 * n, 128, 128, device)
+        vals[:, :4] = torch.randint(0, 256, (2 * n, 4, 128), device=device,
+                                    dtype=torch.int32)
+        (vm, ol, cm), rows = table_rows(vals, 4)
+        shape = (2, n, 128, 128)
+        vals = vals.reshape(shape)
+        tabs = tuple(t[rows].reshape(2, n, -1) for t in (vm, ol, cm))
+        got = check_encode(f"pack n={n}", vals, tabs, 8)
+        row = encode_timing(vals, tabs, 8, got)
+        row["stored"] = int(got[4].sum())
+        print(f"apack_encode pack n={n}: bit-exact; " + json.dumps(row))
 
 
 def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96):
@@ -384,60 +475,81 @@ def check_attention(device, records):
 
 def check_gather(device, records):
     """The gather-decode kernel against its plain version on the card at a
-    materialize step's full-width shape: G = 1024 gathered pages of 128
-    streams x 128 values out of a pool of 1024 KV-like pages coded under
-    four table rows (stored streams included), 1000 random page ids with
-    duplicates, edge-padded to the bucket.  Bit-exact; timed against the
-    bytes a gather must move: the coded words of each distinct page read
-    once, its stored flags, the table rows and ids, and the int32 output."""
-    import numpy as np
+    materialize step's full-width shape: pages of 128 streams x 128 values
+    out of a pool of 1024 KV-like pages coded under four table rows (stored
+    streams included).  Bit-exact with the ids given on the host (as
+    ``materialize`` gives them) and on the card, and through the kernel's
+    launch alone (``launch_gather_decode``), at G = 1024 (1000 random ids
+    with duplicates, edge-padded to the bucket), 1 and 3 (padded to 4 by a
+    duplicate).  Timed at G = 1024 as device time per call over a CUDA
+    graph of the kernel's launch, and eagerly through the wrapper with
+    either kind of ids (the ids on the card cost a pull that waits for the
+    card).  The bound counts the bytes a gather must move: the coded words
+    of each distinct page read once, its stored flags, the table rows and
+    ids, and the int32 output."""
     import torch
-    from repro_torch.core.tables import find_table, histogram
-    from repro_torch.kernels import apack_encode, paged_decode
+    from repro_torch.kernels import apack_encode, paged_decode as pd
     torch.manual_seed(5)
     n_pages, s, e = 1024, 128, 128
     vals = kv_like_values(n_pages, s, e, device)
     vals[:, :8] = torch.randint(0, 256, (n_pages, 8, e), device=device,
                                 dtype=torch.int32)
-    rows = torch.arange(n_pages, device=device) % 4
-    tabs = [find_table(histogram(vals[rows == r].cpu().numpy(), 8), 8,
-                       is_activation=True).as_arrays() for r in range(4)]
-    vm, ol, cm = (torch.as_tensor(np.stack([t[i] for t in tabs]),
-                                  dtype=torch.int32, device=device)
-                  for i in range(3))
+    (vm, ol, cm), rows = table_rows(vals, 4)
     sym, ofs, sb, ob, st = apack_encode.encode(vals, vm[rows], ol[rows],
                                                cm[rows], n_steps=e, bits=8)
-    g = paged_decode.gather_bucket(1000)
-    idx = torch.randint(0, n_pages, (1000,), device=device)
-    idx = torch.cat([idx, idx[-1:].expand(g - 1000)]).to(torch.int32)
-    tid = rows[idx.long()].to(torch.int32)
-    kw = dict(n_steps=e, bits=8, table_idx=tid)
-    got = paged_decode.gather_decode(sym, ofs, st, idx, vm, ol, cm, **kw)
-    want = paged_decode.gather_decode_plain(sym, ofs, st, idx, vm, ol, cm,
-                                            **kw)
-    torch.cuda.synchronize()
-    if not (torch.equal(got, want) and torch.equal(got, vals[idx.long()])):
-        raise AssertionError("gather_decode: not bit-exact")
+    kw = dict(n_steps=e, bits=8)
+    cases = {}
+    for n_ids in (1000, 1, 3):
+        g = pd.gather_bucket(n_ids)
+        idx = torch.randint(0, n_pages, (n_ids,), device=device)
+        idx = torch.cat([idx, idx[-1:].expand(g - n_ids)]).to(torch.int32)
+        tid = rows[idx.long()].to(torch.int32)
+        want = pd.gather_decode_plain(sym, ofs, st, idx, vm, ol, cm,
+                                      table_idx=tid, **kw)
+        got = {"host ids": pd.gather_decode(
+                   sym, ofs, st, idx.cpu().numpy(), vm, ol, cm,
+                   table_idx=tid.cpu().numpy(), **kw),
+               "card ids": pd.gather_decode(sym, ofs, st, idx, vm, ol, cm,
+                                            table_idx=tid, **kw),
+               "launch": pd.launch_gather_decode(sym, ofs, st, idx, tid, vm,
+                                                 ol, cm, **kw)}
+        torch.cuda.synchronize()
+        if not torch.equal(want, vals[idx.long()]):
+            raise AssertionError("gather_decode_plain: not the pages' values")
+        for what, out in got.items():
+            if not torch.equal(out, want):
+                raise AssertionError(f"gather_decode G={g} ({what}): not "
+                                     "bit-exact")
+        print(f"gather_decode: G={g} ({n_ids} ids) bit-exact: "
+              + ", ".join(got))
+        cases[n_ids] = (idx, tid)
+    idx, tid = cases[1000]
+    g = idx.numel()
     n_stored = int(st[idx.long()].sum())
     if not 0 < n_stored < st[idx.long()].numel():
         raise AssertionError("gather_decode: the pages must mix stored and "
                              "coded streams")
-    ms = cuda_ms(lambda: paged_decode.gather_decode(
-        sym, ofs, st, idx, vm, ol, cm, **kw), 20)
-    plain = cuda_ms(lambda: paged_decode.gather_decode_plain(
-        sym, ofs, st, idx, vm, ol, cm, **kw), 1)
+    ms = graph_ms(lambda: pd.launch_gather_decode(
+        sym, ofs, st, idx, tid, vm, ol, cm, **kw), 20)
+    idx_h, tid_h = idx.cpu().numpy(), tid.cpu().numpy()
+    eager_host = cuda_ms(lambda: pd.gather_decode(
+        sym, ofs, st, idx_h, vm, ol, cm, table_idx=tid_h, **kw), 20)
+    eager_card = cuda_ms(lambda: pd.gather_decode(
+        sym, ofs, st, idx, vm, ol, cm, table_idx=tid, **kw), 20)
+    plain = cuda_ms(lambda: pd.gather_decode_plain(
+        sym, ofs, st, idx, vm, ol, cm, table_idx=tid, **kw), 1)
     distinct = torch.unique(idx.long())
     read = 4 * int(coded_words(sb[distinct], ob[distinct], sym.shape[1],
                                ofs.shape[1]).sum())
-    read += nbytes(st[distinct], vm, ol, cm, idx, tid, got)
+    read += nbytes(st[distinct], vm, ol, cm, idx, tid) + g * s * e * 4
     records["gather_decode"] = dict(
         ms=ms, plain_ms=plain, max_abs_err=0,
         bound_ms=read / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, shape=[g, s, e])
-    print(f"gather_decode: G={g} ({distinct.numel()} distinct pages of "
-          f"{n_pages}, 4 table rows, {n_stored} stored streams gathered) "
-          f"bit-exact; {ms:.4f} ms, plain {plain:.1f} ms, bound "
-          f"{records['gather_decode']['bound_ms']:.5f} ms")
+    print("gather_decode: " + json.dumps(dict(
+        records["gather_decode"], eager_ms_host_ids=eager_host,
+        eager_ms_card_ids=eager_card, distinct_pages=distinct.numel(),
+        stored_streams=n_stored)))
 
 
 def weight_cases(device):
@@ -864,7 +976,8 @@ def teacher_forced(run, stores):
 def profile_steady_steps(eng, cfg, rng, tag):
     """Where a steady decode step's time goes: torch.profiler over ten
     steps of a fresh full batch (tables already calibrated), device time by
-    kernel name and the device's idle share of the window."""
+    kernel name (the top twelve and every kernel of the port) and the
+    device's idle share of the window."""
     import numpy as np
     import torch
     from repro_torch.serve import Request
@@ -896,7 +1009,9 @@ def profile_steady_steps(eng, cfg, rng, tag):
     print(f"profile {tag}: 10 steady steps, wall {wall * 1e3:.1f} ms, "
           f"device busy {busy * 1e3:.1f} ms, idle share "
           f"{1 - busy / wall:.3f}")
-    for dev_us, key, count in rows[:12]:
+    # the top twelve, and every kernel of the port below them
+    for dev_us, key, count in (rows[:12] + [r for r in rows[12:] if any(
+            f"::{k}" in r[1] for k in PORT_KERNELS)]):
         print(f"profile {tag}:   {dev_us / 1e3:9.2f} ms  {count:6d}x  "
               f"{key[:90]}")
     eng.run_until_drained()
@@ -1139,6 +1254,7 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}")
+    print(host_line())
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
     built = _build.build_all()

@@ -423,9 +423,13 @@ class PagedKVCache:
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """Host -> device with accounting."""
+        self._count_put(arr)
+        return torch.as_tensor(arr, device=self.device)
+
+    def _count_put(self, arr: np.ndarray) -> None:
+        """Account an upload that a kernel wrapper makes itself."""
         self.transfers["h2d_calls"] += 1
         self.transfers["h2d_bytes"] += arr.nbytes
-        return torch.as_tensor(arr, device=self.device)
 
     # ----------------------------------------------------------- requests
     def add_request(self, rid: int) -> None:
@@ -874,7 +878,10 @@ class PagedKVCache:
 
     def _decode_jobs(self, jobs: list, decode) -> torch.Tensor:
         """Decode every PACKED page of ``jobs`` ((layer, pid) pairs), both
-        kinds, through ``decode``: int8 [2, n, ps, H, dh]."""
+        kinds, through ``decode``: int8 [2, n, ps, H, dh].  The page and
+        table ids go to ``decode`` as host arrays, which the gather wrapper
+        range-checks on the host and uploads without waiting for the card
+        (``kernels/paged_decode.gather_decode``)."""
         pool = self.pool
         n = len(jobs)
         pad = (0, gather_bucket(n) - n)
@@ -882,11 +889,14 @@ class PagedKVCache:
                        + [[table_row(0, layer, kind, self.n_layers)
                            for layer, _ in jobs] for kind in (0, 1)],
                        np.int32)
-        ids = self._put(np.pad(ids, ((0, 0), pad), mode="edge"))
+        ids = np.pad(ids, ((0, 0), pad), mode="edge")
         vm, ol, cm = self._device_tables()
-        out = [decode(pool.sym[kind], pool.ofs[kind], pool.stored[kind],
-                      ids[0], vm, ol, cm, n_steps=pool.elems_per_stream,
-                      table_idx=ids[1 + kind])[:n]
-               for kind in (0, 1)]
+        out = []
+        for kind in (0, 1):
+            self._count_put(ids[[0, 1 + kind]])     # the wrapper's upload
+            out.append(decode(pool.sym[kind], pool.ofs[kind],
+                              pool.stored[kind], ids[0], vm, ol, cm,
+                              n_steps=pool.elems_per_stream,
+                              table_idx=ids[1 + kind])[:n])
         return quant.from_unsigned(torch.stack(out)).reshape(
             2, n, self.page_size, pool.kv_heads, pool.head_dim)

@@ -134,7 +134,9 @@ class ServeEngine:
         self.last_logits = None
         self.stats = {"steps": 0, "generated": 0, "completed": 0,
                       "kv_admission_blocked": 0, "preempted": 0,
-                      "resumed": 0}
+                      "resumed": 0,
+                      "queue_wait_p50_ms": 0.0, "queue_wait_p99_ms": 0.0,
+                      "e2e_p50_ms": 0.0, "e2e_p99_ms": 0.0}
         self.paged = cfg.kv_cache_dtype == "apack-int8"
         self.fused = self.paged and kv_fused is not False
         self.kv: M.PagedKVCache | None = None
@@ -308,6 +310,12 @@ class ServeEngine:
         t_admit = req.t_admit if req.t_admit > 0.0 else req.t_done
         self._lat_wait.append(max(t_admit - req.t_submit, 0.0))
         self._lat_e2e.append(max(req.t_done - req.t_submit, 0.0))
+        for name, vals in (("queue_wait", self._lat_wait),
+                           ("e2e", self._lat_e2e)):
+            self.stats[f"{name}_p50_ms"] = float(
+                np.percentile(vals, 50) * 1e3)
+            self.stats[f"{name}_p99_ms"] = float(
+                np.percentile(vals, 99) * 1e3)
 
     def latency_stats(self) -> dict:
         """Queue-wait and end-to-end latency percentiles (seconds) over

@@ -73,6 +73,48 @@ def test_engine_matches_reference_in_lockstep():
     assert lat["n"] == 3 and lat["e2e_p50"] > 0
 
 
+LATENCY_KEYS = ("queue_wait_p50_ms", "queue_wait_p99_ms", "e2e_p50_ms",
+                "e2e_p99_ms")
+
+
+def test_stats_carry_the_reference_latency_keys():
+    """Both engines, stepped together over the lockstep workload, seed the
+    four latency percentiles at 0.0 in ``stats`` and refresh them on every
+    retire from the requests completed so far (milliseconds, the
+    ``latency_stats`` percentiles x 1e3).  Wall-clock values differ between
+    the engines, so only the key sets and the values' sanity compare."""
+    cfg_j = dataclasses.replace(jconfigs.get_smoke_config("qwen3-1.7b"),
+                                kv_cache_dtype="apack-int8")
+    cfg = _cfg()
+    params = JM.init_params(cfg_j, jax.random.PRNGKey(0))
+    tp = params_from_numpy(cfg, jax.tree.map(np.array, params), "cpu")
+    je = JEngine(cfg_j, params, kv_backend="ref", **KW)
+    pe = ServeEngine(cfg, tp, device="cpu", **KW)
+    for eng in (je, pe):
+        assert {k: eng.stats[k] for k in LATENCY_KEYS} == \
+            dict.fromkeys(LATENCY_KEYS, 0.0)
+    for i, p in enumerate(_prompts(cfg)):
+        je.submit(JRequest(i, p, max_new_tokens=3 + 2 * i))
+        pe.submit(Request(i, p, max_new_tokens=3 + 2 * i))
+    seen = 0
+    while pe.queue or any(r is not None for r in pe.active):
+        je.step()
+        pe.step()
+        assert pe.stats["completed"] == je.stats["completed"]
+        if pe.stats["completed"] == seen:
+            continue
+        seen = pe.stats["completed"]
+        for eng in (je, pe):
+            lat = eng.latency_stats()
+            assert lat["n"] == seen
+            got = [eng.stats[k] for k in LATENCY_KEYS]
+            assert all(np.isfinite(v) and v >= 0.0 for v in got)
+            assert got == [lat[k[:-3]] * 1e3 for k in LATENCY_KEYS]
+            assert eng.stats["e2e_p50_ms"] > 0.0
+    assert seen == 3
+    assert set(LATENCY_KEYS) <= set(pe.stats) & set(je.stats)
+
+
 def _serve_with_preempt(eng, reqs, requeue):
     """Step ``eng`` over ``reqs``; with ``requeue`` set, preempt slot 0
     after the admission step and three decode steps, checking that the

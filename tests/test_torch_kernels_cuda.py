@@ -1,6 +1,6 @@
 """Kernel checks that need the card (decompress-matmul, fused paged
-attention, gather decode), in a file that imports neither JAX nor the JAX
-package, so that they run on a CUDA machine without JAX:
+attention, gather decode, encode), in a file that imports neither JAX nor
+the JAX package, so that they run on a CUDA machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -78,6 +78,111 @@ def test_cuda_gather_decode_kernel():
     assert int(st.sum()) > 0
     assert torch.equal(got, want)
     assert torch.equal(got, vals[pidx.long()])
+
+
+def _gather_pool(rng, pages, n_rows, dev):
+    """``pages`` full-width KV pages (128 streams x 128 values, six noisy
+    streams a page that the coder stores) coded with the encode kernel
+    under ``n_rows`` table rows, page p under row p % n_rows."""
+    from repro_torch.core.tables import find_table, histogram
+    from repro_torch.kernels import apack_encode
+    v = (np.clip(np.round(rng.laplace(0, 18, (pages, 128, 128))), -127, 127)
+         .astype(np.int64) & 0xFF)
+    v[:, :6] = rng.integers(0, 256, (pages, 6, 128))
+    rows = np.arange(pages) % n_rows
+    tabs = [find_table(histogram(v[rows == r], 8), 8, True).as_arrays()
+            for r in range(n_rows)]
+    vm, ol, cm = (torch.from_numpy(np.stack([t[i] for t in tabs])
+                                   .astype(np.int32)).to(dev)
+                  for i in range(3))
+    vals = torch.from_numpy(v.astype(np.int32)).to(dev)
+    r = torch.from_numpy(rows).to(dev)
+    sym, ofs, _, _, st = apack_encode.encode(vals, vm[r], ol[r], cm[r],
+                                             n_steps=128, bits=8)
+    return vals, rows, sym, ofs, st, (vm, ol, cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_ids", [1, 3, 1024])
+def test_cuda_gather_decode_sizes_and_id_places(n_ids):
+    """G = 1, 3 (padded to 4 by a duplicate) and 1024 gathered pages with
+    duplicates and mixed table rows: the wrapper with the ids on the host
+    (numpy, as ``materialize`` passes them) and on the card, and the
+    kernel's launch alone, all equal the plain version bit for bit;
+    out-of-range host ids raise ``IndexError``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import paged_decode as pd
+    rng = np.random.default_rng(n_ids)
+    dev = torch.device("cuda")
+    vals, rows, sym, ofs, st, (vm, ol, cm) = _gather_pool(rng, 24, 4, dev)
+    g = pd.gather_bucket(n_ids)
+    idx = np.pad(rng.integers(0, 24, n_ids), (0, g - n_ids), mode="edge")
+    idx = idx.astype(np.int32)
+    tid = rows[idx].astype(np.int32)
+    pidx, tidx = torch.from_numpy(idx).to(dev), torch.from_numpy(tid).to(dev)
+    kw = dict(n_steps=128, bits=8)
+    want = pd.gather_decode_plain(sym, ofs, st, pidx, vm, ol, cm,
+                                  table_idx=tidx, **kw)
+    outs = [pd.gather_decode(sym, ofs, st, idx, vm, ol, cm, table_idx=tid,
+                             **kw),
+            pd.gather_decode(sym, ofs, st, pidx, vm, ol, cm, table_idx=tidx,
+                             **kw),
+            pd.launch_gather_decode(sym, ofs, st, pidx, tidx, vm, ol, cm,
+                                    **kw)]
+    torch.cuda.synchronize()
+    assert torch.equal(want, vals[pidx.long()])
+    for out in outs:
+        assert torch.equal(out, want)
+    with pytest.raises(IndexError, match="page ids"):
+        pd.gather_decode(sym, ofs, st, np.asarray([0, 24], np.int32), vm, ol,
+                         cm, table_idx=np.asarray([0, 1], np.int32), **kw)
+
+
+ENCODE_CASES = {
+    # S not a multiple of the kernel's 128-thread blocks, at bits 4, 8, 16
+    "s100_b8": ((3, 100, 36), 8, "laplace"),
+    "s37_b4": ((4, 37, 33), 4, "laplace"),
+    "s130_b16": ((2, 130, 7), 16, "laplace"),
+    # a uniform table: every stream stored
+    "stored": ((4, 128, 128), 8, "uniform"),
+    # the serve's pack of a decode step's seal: [2 kinds, 28 pages, ...]
+    "pack28": ((2, 28, 128, 128), 8, "laplace"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
+def test_cuda_encode_kernel(case):
+    """The encode kernel equals the plain encoder bit for bit (planes, bit
+    counts, stored flags) at stream counts that are not a multiple of its
+    block, bits 4, 8 and 16, a uniform table (every stream stored) and the
+    [2, 28, 128, 128] pack shape; its planes decode back to the values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.tables import find_table, histogram, uniform_table
+    from repro_torch.kernels import apack_decode, apack_encode, ref
+    shape, bits, kind = ENCODE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    top = (1 << bits) - 1
+    v = np.clip(np.round(rng.laplace(top / 2, top / 24, shape)), 0, top)
+    v = v.astype(np.int32)
+    v[..., :3, :] = rng.integers(0, top + 1, v[..., :3, :].shape)
+    t = (uniform_table(bits) if kind == "uniform"
+         else find_table(histogram(v, bits), bits, True))
+    dev = torch.device("cuda")
+    vals = torch.from_numpy(v).to(dev)
+    tabs = ref.table_tensors(t, dev)
+    e = shape[-1]
+    got = apack_encode.encode(vals, *tabs, n_steps=e, bits=bits)
+    want = apack_encode.encode_plain(vals, *tabs, n_steps=e, bits=bits)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[4].all()) == (kind == "uniform") and bool(got[4].any())
+    back = apack_decode.decode_plain(got[0], got[1], got[4], *tabs,
+                                     n_steps=e, bits=bits)
+    assert torch.equal(back, vals)
 
 
 def _attention_pool(rng, ps, h, dh, s, pool, dev):

@@ -137,6 +137,53 @@ def test_gather_decode_refuses_bad_ids():
                                    cm, n_steps=8, bits=17)
 
 
+@pytest.mark.parametrize("form", ["numpy", "cpu_tensor"])
+def test_gather_decode_checks_host_ids_on_the_host(form, monkeypatch):
+    """Ids given on the host, as numpy arrays (what ``materialize`` passes)
+    or CPU tensors, are range-checked there: out-of-range page or table
+    ids raise ``IndexError`` with the same messages as ids on the card,
+    before any decode, and in-range ids decode as the JAX gather kernel
+    does, through no ``.cpu()`` or ``.tolist()``."""
+    rng = np.random.default_rng(3)
+    v, sym, ofs, st, (vm, ol, cm) = _pool(rng, 3, 32, 16, [0, 1, 1], 2, 2)
+    kw = dict(n_steps=16, bits=8)
+    wrap = np.asarray if form == "numpy" else torch.tensor
+    decodes = []
+    plain = paged_decode.gather_decode_plain
+    monkeypatch.setattr(paged_decode, "gather_decode_plain",
+                        lambda *a, **k: decodes.append(1) or plain(*a, **k))
+    for page, table, match in (([0, 3], [0, 1], r"page ids span \[0, 3\], "
+                                                r"outside \[0, 3\)"),
+                               ([-1, 2], [0, 1], r"page ids span \[-1, 2\]"),
+                               ([0, 2], [2, 1], r"table ids span \[1, 2\], "
+                                                r"outside \[0, 2\)"),
+                               ([0, 2], [0, -1], r"table ids span \[-1, 0\]")):
+        with pytest.raises(IndexError, match=match):
+            paged_decode.gather_decode(sym, ofs, st, wrap(page), vm, ol, cm,
+                                       table_idx=wrap(table), **kw)
+    with pytest.raises(IndexError, match="page ids"):
+        paged_decode.gather_decode(sym, ofs, st, wrap([5]), vm[0], ol[0],
+                                   cm[0], **kw)
+    assert decodes == []
+    idx = np.asarray([2, 0, 2, 1], np.int32)
+    tid = np.asarray([1, 0, 1, 1], np.int32)
+    pulls = []
+    for name in ("cpu", "tolist"):
+        orig = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name, lambda *a, _o=orig, **k:
+                            pulls.append(1) or _o(*a, **k))
+    got = paged_decode.gather_decode(sym, ofs, st, wrap(idx), vm, ol, cm,
+                                     table_idx=wrap(tid), **kw)
+    assert pulls == [] and decodes == [1]
+    want = jpd.gather_decode_ref(
+        jnp.asarray(sym.numpy().view(np.uint32)),
+        jnp.asarray(ofs.numpy().view(np.uint32)), jnp.asarray(st.numpy()),
+        jnp.asarray(idx), jnp.asarray(vm.numpy()), jnp.asarray(ol.numpy()),
+        jnp.asarray(cm.numpy()), table_idx=jnp.asarray(tid), **kw)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(got.numpy(), v[idx])
+
+
 def test_gather_bucket_matches_reference():
     assert [paged_decode.gather_bucket(n) for n in range(1, 5001)] == \
         [jpd.gather_bucket(n) for n in range(1, 5001)]
@@ -313,6 +360,53 @@ def test_fused_and_oracle_engines_agree(params):
     a, b = engines[False].kv_stats(), engines[True].kv_stats()
     assert a["kv_ratio"] == b["kv_ratio"]
     assert a["kv_pages_packed"] == b["kv_pages_packed"] > 0
+
+
+def test_oracle_step_pulls_nothing_for_the_gather(params, monkeypatch):
+    """An oracle (``kv_fused=False``) decode step that gathers PACKED pages
+    reads back the token ids (one ``.cpu()``) plus one pull per seal batch
+    (accounted in ``kv.transfers``), as the fused step does
+    (``test_torch_engine.py::
+    test_steady_state_step_reads_only_tokens_and_seal_pulls``): the
+    gather's ids are checked on the host, so it adds no ``.cpu()``,
+    ``.item()``, ``.tolist()`` or synchronize."""
+    cfg = _cfgs("apack-int8")[1]
+    eng = ServeEngine(cfg, params[1], device="cpu", kv_fused=False,
+                      kv_calib_pages=2, **KW)
+    for i, p in enumerate(_prompts(cfg, (9, 14))):
+        eng.submit(Request(i, p, max_new_tokens=14))
+    for _ in range(3):                            # admission, calibration
+        eng.step()
+    gathers = []
+    plain = paged_decode.gather_decode_plain
+    monkeypatch.setattr(paged_decode, "gather_decode_plain",
+                        lambda *a, **k: gathers.append(len(a[3]))
+                        or plain(*a, **k))
+    calls = {"item": 0, "cpu": 0, "tolist": 0, "synchronize": 0}
+
+    def counting(name, orig):
+        def f(*a, **k):
+            calls[name] += 1
+            return orig(*a, **k)
+        return f
+
+    for name in ("item", "cpu", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            counting(name, getattr(torch.Tensor, name)))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counting("synchronize", torch.cuda.synchronize))
+    for _ in range(8):
+        d2h = eng.kv.transfers["d2h_calls"]
+        n_gathers = len(gathers)
+        before = dict(calls)
+        assert eng.step() == 2
+        assert len(gathers) == n_gathers + 2       # one per K/V kind
+        assert calls["item"] == before["item"]
+        assert calls["tolist"] == before["tolist"]
+        assert calls["synchronize"] == before["synchronize"]
+        assert calls["cpu"] - before["cpu"] == \
+            1 + eng.kv.transfers["d2h_calls"] - d2h
+    assert min(gathers) > 0
 
 
 def test_materialize_of_host_appends_matches_reference():
