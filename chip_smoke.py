@@ -10,10 +10,13 @@ Phases (any failure exits non-zero):
    with nvcc (one process each, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the paths give it: APack decode and encode bit-exact (bits
-   4/8/16, stored streams included; encode also at the serve's pack shapes
-   [2, 28 | 560, 128, 128]), fused paged attention within an f32
-   tolerance on a mixed HOT/COLD/PACKED/FREE pool at the full-width page
-   shape (page tables of 16, 7 and 1 slots, a job all FREE), the
+   4/8/16, stored streams included; both also at the serve's pack shapes
+   [2, 28 | 560, 128, 128] and decode at one page; decode with bool and
+   int32 stored flags and with a shared and a per-page table row, and one
+   decode call a single device kernel in a profiler window), fused paged
+   attention within an f32 tolerance on a mixed HOT/COLD/PACKED/FREE pool
+   at the full-width page shape (page tables of 16, 7 and 1 slots, a job
+   all FREE), the
    decompress-matmul at qwen3-1.7b's w_up and w_down shapes (plus a tensor
    of stored streams) at M = 1, 4, 8, 9 and a prefill M, there also
    bit-exact on integer inputs and against an f64 product, and the gather
@@ -260,40 +263,93 @@ def encode_timing(vals, tabs, bits, got):
                 bound_by="bytes", library_ms=None, shape=list(vals.shape))
 
 
+def check_decode(name, planes, tabs, bits, vals):
+    """The decode kernel on encoded planes, bit-exact against the plain
+    decoder and the encoded values; bool and int32 stored flags give
+    identical outputs, and so do one shared 1-D table row and the same row
+    copied out to every page.  Returns the kernel's output."""
+    import torch
+    from repro_torch.kernels import apack_decode
+    sym, ofs, st = planes[0], planes[1], planes[4]
+    kw = dict(n_steps=vals.shape[-1], bits=bits)
+    got = apack_decode.decode(sym, ofs, st, *tabs, **kw)
+    want = apack_decode.decode_plain(sym, ofs, st, *tabs, **kw)
+    if not torch.equal(got, want) or not torch.equal(got, vals):
+        raise AssertionError(f"decode {name}: not bit-exact")
+    variants = {"int32 stored": apack_decode.decode(
+        sym, ofs, st.to(torch.int32), *tabs, **kw)}
+    if tabs[0].dim() == 1:
+        lead = tuple(sym.shape[:-2])
+        variants["row per page"] = apack_decode.decode(
+            sym, ofs, st, *(t.expand(*lead, t.shape[-1]).contiguous()
+                            for t in tabs), **kw)
+    for what, out in variants.items():
+        if not torch.equal(out, got):
+            raise AssertionError(f"decode {name}: {what} differs")
+    return got
+
+
+def decode_timing(planes, tabs, bits, out):
+    """Device ms of the decode kernel and of the plain version, and the
+    bound: the coded words of each stream (+1 word) read once, the stored
+    flags and table rows as given, the int32 output written once."""
+    from repro_torch.kernels import apack_decode
+    sym, ofs, sb, ob, st = planes
+    kw = dict(n_steps=out.shape[-1], bits=bits)
+    ms = graph_ms(lambda: apack_decode.decode(sym, ofs, st, *tabs, **kw), 20)
+    plain = cuda_ms(lambda: apack_decode.decode_plain(sym, ofs, st, *tabs,
+                                                      **kw), 1)
+    read = 4 * int(coded_words(sb, ob, sym.shape[-2], ofs.shape[-2]).sum())
+    read += nbytes(st, *tabs, out)
+    return dict(ms=ms, plain_ms=plain, max_abs_err=0,
+                bound_ms=read / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None, shape=list(out.shape))
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels that one call of ``fn`` runs: a
+    torch.profiler window over the call, after a call outside it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if "CUDA" in str(getattr(e, "device_type", ""))]
+
+
 def check_codec(device, records):
+    """Encode and decode kernels bit-exact at the codec cases, the serve's
+    pack shapes and one page; timed at the codec shape, the pack shapes
+    and (decode) one page; then one decode call at the codec shape must
+    run one device kernel, the decode kernel."""
     import torch
     from repro_torch.kernels import apack_decode
     for name, vals, tabs, bits in codec_inputs(device):
         e = vals.shape[-1]
         got = check_encode(name, vals, tabs, bits)
-        dec = apack_decode.decode(got[0], got[1], got[4], *tabs, n_steps=e,
-                                  bits=bits)
-        dec_plain = apack_decode.decode_plain(got[0], got[1], got[4], *tabs,
-                                              n_steps=e, bits=bits)
-        if not torch.equal(dec, dec_plain) or not torch.equal(dec, vals):
-            raise AssertionError(f"decode {name}: not bit-exact")
+        dec = check_decode(name, got, tabs, bits, vals)
         n_stored = int(got[4].sum())
         print(f"codec {name}: shape {tuple(vals.shape)} bits {bits} "
-              f"stored {n_stored} bit-exact")
+              f"stored {n_stored} bit-exact (decode: bool and int32 stored, "
+              "shared and per-page table rows)")
         if name != "kv8":
             continue
         assert 0 < n_stored < got[4].numel(), "kv8 must mix stored and AC"
         # timing at the KV page shape (64 pages x 128 streams x 128 values)
         records["apack_encode"] = encode_timing(vals, tabs, bits, got)
-        dec_ms = graph_ms(lambda: apack_decode.decode(
-            got[0], got[1], got[4], *tabs, n_steps=e, bits=bits), 20)
-        dec_plain_ms = cuda_ms(lambda: apack_decode.decode_plain(
-            got[0], got[1], got[4], *tabs, n_steps=e, bits=bits), 1)
-        # decode reads only the coded words
-        dec_bytes = 4 * int(coded_words(got[2], got[3], got[0].shape[-2],
-                                        got[1].shape[-2]).sum())
-        dec_bytes += nbytes(got[4], *tabs, dec)
-        records["apack_decode"] = dict(
-            ms=dec_ms, plain_ms=dec_plain_ms, max_abs_err=0,
-            bound_ms=dec_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None, shape=list(vals.shape))
+        records["apack_decode"] = decode_timing(got, tabs, bits, dec)
         for k in ("apack_encode", "apack_decode"):
             print(f"{k}: " + json.dumps(records[k]))
+        codec = (got, tabs, e, bits)
+        # one page: a single block, so its time is one stream's chain
+        page = tuple(p[:1] for p in got)
+        one = check_decode("one page", page, tabs, bits, vals[:1])
+        print("apack_decode one page (chain floor): bit-exact; "
+              + json.dumps(decode_timing(page, tabs, bits, one)))
     # the serve's pack shapes: [2 kinds, n pages, 128 streams, 128 values],
     # a decode step's seal of one slot (28 layers) and a prefill's seal of
     # four slots of 5 pages each; each page with its layer's table row
@@ -309,6 +365,17 @@ def check_codec(device, records):
         row = encode_timing(vals, tabs, 8, got)
         row["stored"] = int(got[4].sum())
         print(f"apack_encode pack n={n}: bit-exact; " + json.dumps(row))
+        dec = check_decode(f"pack n={n}", got, tabs, 8, vals)
+        print(f"apack_decode pack n={n}: bit-exact (bool and int32 stored); "
+              + json.dumps(decode_timing(got, tabs, 8, dec)))
+    got, tabs, e, bits = codec
+    names = device_kernels(lambda: apack_decode.decode(
+        got[0], got[1], got[4], *tabs, n_steps=e, bits=bits))
+    print(f"apack_decode: one call at the codec shape runs {len(names)} "
+          f"device kernel(s): {names}")
+    if len(names) != 1 or "apack_decode_kernel" not in names[0]:
+        raise AssertionError("apack_decode: one call must run the decode "
+                             "kernel alone")
 
 
 def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96):

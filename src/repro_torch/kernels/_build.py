@@ -121,3 +121,24 @@ def require(t, dtype, shape, name: str, device) -> int:
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
     return t.data_ptr()
+
+
+def require_table(t, b: int, n: int, name: str, device):
+    """Check a table array of ``n`` entries that a kernel reads for ``b``
+    pages: one row for every page (``[n]``, or a row expanded to the pages
+    with stride 0) or a row per page (``[..., n]`` with ``b`` rows).
+    Returns the rows as a tensor to keep alive while the kernel runs and
+    the elements between two pages' rows, 0 for one shared row.  An int32
+    table whose rows are contiguous is read where it lies, not copied."""
+    import torch
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dim() == 0 or t.shape[-1] != n:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"[{n}] or [..., {n}]")
+    rows = t.to(torch.int32).reshape(-1, n)
+    if rows.shape[0] not in (1, b):
+        raise ValueError(f"{name}: {rows.shape[0]} rows for {b} pages")
+    if rows.stride(-1) != 1:
+        rows = rows.contiguous()
+    return rows, (rows.stride(0) if rows.shape[0] > 1 else 0)

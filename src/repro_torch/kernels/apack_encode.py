@@ -5,7 +5,8 @@ Port of ``repro/kernels/apack_encode.py`` (``_encode_kernel`` :52,
 package runs around it (``ops.py:109-120``), so the result equals
 ``ref.encode`` (``repro/kernels/ref.py:387``).  The kernel
 (``csrc/apack_encode.cu``) encodes one stream per thread and takes a
-leading page axis, each page with its own table row.
+leading page axis, each page with its own table row or all with one; the
+launch is a call's only device work.
 """
 from __future__ import annotations
 
@@ -14,9 +15,8 @@ import ctypes
 import torch
 
 from . import _build, ref
-from .apack_decode import _rows
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def encode_plain(values, v_min, ol, cum, *, n_steps: int, bits: int = 8):
@@ -49,22 +49,22 @@ def encode(values: torch.Tensor, v_min: torch.Tensor, ol: torch.Tensor,
     dev = values.device
     ws = ref.sym_capacity_words(n_steps)
     wo = ref.ofs_capacity_words(n_steps, bits)
-    vm, olr, cm = _rows(v_min, b, 17), _rows(ol, b, 16), _rows(cum, b, 17)
+    tabs = [_build.require_table(t, b, n, name, dev) for t, n, name in
+            ((v_min, 17, "v_min"), (ol, 16, "ol"), (cum, 17, "cum"))]
     sym = torch.empty(*lead, ws, s, dtype=torch.int32, device=dev)
     ofs = torch.empty(*lead, wo, s, dtype=torch.int32, device=dev)
     sym_bits = torch.empty(*lead, s, dtype=torch.int32, device=dev)
     ofs_bits = torch.empty(*lead, s, dtype=torch.int32, device=dev)
-    stored = torch.empty(*lead, s, dtype=torch.int32, device=dev)
+    stored = torch.empty(*lead, s, dtype=torch.bool, device=dev)
     ptrs = [_build.require(values, torch.int32, (*lead, s, n_steps),
                            "values", dev),
-            _build.require(vm, torch.int32, (b, 17), "v_min", dev),
-            _build.require(olr, torch.int32, (b, 16), "ol", dev),
-            _build.require(cm, torch.int32, (b, 17), "cum", dev),
+            *(rows.data_ptr() for rows, _ in tabs),
             sym.data_ptr(), ofs.data_ptr(), sym_bits.data_ptr(),
             ofs_bits.data_ptr(), stored.data_ptr()]
     fn = _build.load("apack_encode").apack_encode_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(*ptrs, b, s, n_steps, bits, ws, wo, _build.stream_of(values))
+    rc = fn(*ptrs, b, s, n_steps, bits, ws, wo,
+            *(stride for _, stride in tabs), _build.stream_of(values))
     _build.check(rc, "apack_encode")
     _build.LAUNCHES["apack_encode"] += 1
-    return sym, ofs, sym_bits, ofs_bits, stored != 0
+    return sym, ofs, sym_bits, ofs_bits, stored

@@ -1,8 +1,9 @@
 // APack stream decoder as a device function, shared by every decoding
-// kernel: the standalone decode (apack_decode.cu), the gather decode
-// (gather_decode.cu), the fused paged attention (fused_page_attention.cu)
-// and the decompress-matmul (decompress_matmul.cu); the encoder
-// (apack_encode.cu) shares the renormalization.
+// kernel: the standalone decode (apack_decode.cu) and the gather decode
+// (gather_decode.cu) through their page body (decode_page.cuh), the fused
+// paged attention (fused_page_attention.cu) and the decompress-matmul
+// (decompress_matmul.cu); the encoder (apack_encode.cu) shares the
+// renormalization.
 //
 // Replaces the body of the Pallas kernel repro/kernels/apack_decode.py
 // (`decode_block`, :34), itself a lane-parallel copy of repro/kernels/ref.py
@@ -14,14 +15,15 @@
 // Layout: planes are word-interleaved [W, S] u32, word w of stream s at
 // w*S + s, so the 32 threads of a warp that decode neighbouring streams
 // read neighbouring words.  The decoder reaches its planes and its table
-// through small accessor types, so one loop serves two placements:
-//   - GlobalPlane / GlobalTable read device memory (kernels 1 and 4);
-//   - SmemPlane / SmemTable read copies that the block staged in shared
-//     memory (kernels 3 and 5): word w of stream c at smem[w*ncols + c], so
-//     a warp's 32 threads read 32 different banks whatever word each is at.
-//     A stream that reads past the staged rows (none that the encoder
-//     produces) is decoded again from device memory, so the result is the
-//     reference's for any input.
+// through small accessor types.  Every decoding kernel stages its table
+// row in shared memory (SmemTable).  Planes come in two placements:
+//   - SmemPlane reads rows that the block staged in shared memory: word w
+//     of stream c at smem[w*ncols + c], so a warp's 32 threads read 32
+//     different banks whatever word each is at;
+//   - GlobalPlane reads device memory: the redo of a stream that read past
+//     the staged rows (none that the encoder produces), so the result is
+//     the reference's for any input, and kernels 1 and 4 for planes whose
+//     rows would not fit a block (decode_page.cuh).
 //
 // What bounds it: the coder is a serial, data-dependent state machine (each
 // step's bit position depends on the previous symbol), so one stream cannot
@@ -118,17 +120,6 @@ struct SmemTable {
   const int* cum;       // [17]
   __device__ __forceinline__ int4 row(int s) const { return rows[s]; }
   __device__ __forceinline__ int cum_at(int j) const { return cum[j]; }
-};
-
-struct GlobalTable {
-  const int* __restrict__ vm;    // [17]
-  const int* __restrict__ ol;    // [16]
-  const int* __restrict__ cum;   // [17]
-  __device__ __forceinline__ int4 row(int s) const {
-    const int o = __ldg(ol + s);
-    return make_int4(o, (int)((1u << o) - 1u), 0, __ldg(vm + s));
-  }
-  __device__ __forceinline__ int cum_at(int j) const { return __ldg(cum + j); }
 };
 
 // Fill a SmemTable's storage (rows int4[16], cum int[17]) from the 17/16/17

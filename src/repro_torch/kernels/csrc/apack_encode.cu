@@ -8,7 +8,8 @@
 // offset column and n_steps*bits offset bits.
 //
 // One thread encodes one stream of one page; every page (batch row) has its
-// own table row.
+// own table row, or all share one (a row stride of 0, so the wrapper copies
+// no row out per page).
 //
 // What bounds it on the card: the coder's serial chain and a warp's issue of
 // its instructions, not memory (a 128-stream page reads 64 KB of values and
@@ -57,15 +58,16 @@ constexpr int CHUNK = 8;                 // values a thread holds ahead
 
 struct Args {
   const int32_t* values;   // [B, S, n_steps]
-  const int32_t* vm;       // [B, 17]
-  const int32_t* ol;       // [B, 16]
-  const int32_t* cum;      // [B, 17]
+  const int32_t* vm;       // row b at vm + b * vm_stride, [17]
+  const int32_t* ol;       // [16]
+  const int32_t* cum;      // [17]
   uint32_t* sym;           // [B, Ws, S]
   uint32_t* ofs;           // [B, Wo, S]
   int32_t* sym_bits;       // [B, S]
   int32_t* ofs_bits;       // [B, S]
-  int32_t* stored;         // [B, S]
+  uint8_t* stored;         // [B, S], bool
   int S, n_steps, bits, ws, wo;
+  int vm_stride, ol_stride, cum_stride;   // 0: one row for every page
   bool vec;                // rows of whole, aligned 16-byte pieces
 };
 
@@ -212,8 +214,9 @@ __global__ void __launch_bounds__(BLOCK) apack_encode_kernel(Args a) {
   const int per_page = (a.S + BLOCK - 1) / BLOCK;
   const int b = blockIdx.x / per_page;
   const int st = (blockIdx.x - b * per_page) * BLOCK + threadIdx.x;
-  const int* vm = a.vm + b * 17;
-  const int* cm = a.cum + b * 17;
+  const int* vm = a.vm + b * a.vm_stride;
+  const int* ol = a.ol + b * a.ol_stride;
+  const int* cm = a.cum + b * a.cum_stride;
   const int n_lut = kLut ? 1 << a.bits : apack::N_SYMBOLS;
   for (int j = threadIdx.x; j < n_lut; j += BLOCK) {
     int s = j;
@@ -223,7 +226,7 @@ __global__ void __launch_bounds__(BLOCK) apack_encode_kernel(Args a) {
       for (int k = 0; k < apack::N_SYMBOLS; ++k) s += j >= vm[k] ? 1 : 0;
       s = max(s, 0);
     }
-    rows[j] = make_int4(a.ol[b * 16 + s], cm[s], cm[s + 1], vm[s]);
+    rows[j] = make_int4(ol[s], cm[s], cm[s + 1], vm[s]);
   }
   if (threadIdx.x < apack::N_SYMBOLS) vmin[threadIdx.x] = vm[threadIdx.x];
   __syncthreads();
@@ -285,21 +288,23 @@ __global__ void __launch_bounds__(BLOCK) apack_encode_kernel(Args a) {
 }  // namespace
 
 // Rows of values that are not whole, aligned 16-byte pieces take 4-byte
-// loads.
+// loads.  *_stride: elements between two pages' table rows, 0 for one row
+// shared by every page.
 extern "C" int apack_encode_launch(const void* values, const void* vm,
                                    const void* ol, const void* cum, void* sym,
                                    void* ofs, void* sym_bits, void* ofs_bits,
                                    void* stored, int n_pages, int s,
                                    int n_steps, int bits, int ws, int wo,
-                                   void* stream) {
+                                   int vm_stride, int ol_stride,
+                                   int cum_stride, void* stream) {
   if ((long)n_pages * s == 0) return 0;
   // the sinks' 32-bit word offsets reach capacity * s
   if ((long)(ws > wo ? ws : wo) * s > 0xFFFFFFFFL)
     return (int)cudaErrorInvalidValue;
   const Args a{(const int32_t*)values, (const int32_t*)vm, (const int32_t*)ol,
                (const int32_t*)cum, (uint32_t*)sym, (uint32_t*)ofs,
-               (int32_t*)sym_bits, (int32_t*)ofs_bits, (int32_t*)stored,
-               s, n_steps, bits, ws, wo,
+               (int32_t*)sym_bits, (int32_t*)ofs_bits, (uint8_t*)stored,
+               s, n_steps, bits, ws, wo, vm_stride, ol_stride, cum_stride,
                n_steps % 4 == 0 && ((uintptr_t)values & 15) == 0};
   const long grid = (long)n_pages * ((s + BLOCK - 1) / BLOCK);
   const cudaStream_t st = (cudaStream_t)stream;

@@ -15,41 +15,20 @@
 // What bounds it on the card: the serial decode chain of 131,072 streams
 // at a materialize step's G = 1024 (about 80 integer instructions a step,
 // 128 steps: some 0.09 ms of the integer pipe's issue), not bytes (64 MB of
-// int32 output, 0.02 ms).  The design keeps the memory system off that
-// chain:
-//   - one page a block: the block stages its page's table row once into
-//     shared memory (SmemTable), so a step's row lookup is one 16-byte
-//     shared load.  A block does not take two pages that share a row: the
-//     row costs 336 bytes and 33 loads, while one page a block keeps the
-//     grid fine-grained for the waves (G blocks, at most six of 36 KB to an
-//     SM);
-//   - the block stages the plane rows a coded stream can reach (rs sym and
-//     ro ofs rows, apack_decode.staged_rows: 36 and 34 at n_steps 128,
-//     bits 8, 35.8 KB a page) with cp.async, and decodes through SmemPlane:
-//     word w of stream c at smem[w * ncols + c], so a warp's 32 reads hit
-//     32 banks wherever each stream's cursor is.  A stream whose reads left
-//     the staged rows (none that the encoder produces) is decoded again
-//     from device memory.  Planes whose rows would not fit a block are
-//     decoded from device memory throughout (GlobalPlane; rs = 0 asks for
-//     that placement, which measured slower at G = 1024: PERF.md);
-//   - eight decoded values wait in registers (the decode loop is unrolled
-//     by eight, so the sink sees i & 7 as a constant) and leave as two
-//     16-byte stores: one whole 32-byte sector a thread, in place of eight
-//     4-byte stores into eight different lines' sectors.
+// int32 output, 0.02 ms).  The block body it shares with the standalone
+// decode (decode_page.cuh) keeps the memory system off that chain: the
+// page's table row and the plane rows its streams reach staged in shared
+// memory, eight values to two 16-byte stores.  One page a block: a block
+// does not take two pages that share a row, since the row costs 336 bytes
+// and 33 loads, while one page a block keeps the grid fine-grained for the
+// waves (G blocks, at most six of 36 KB to an SM).
 // Duplicated (bucket-padding) pages are decoded again, as on the TPU.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "apack_decode.cuh"
-#include "stage.cuh"
+#include "decode_page.cuh"
 
 namespace {
-
-constexpr int BLOCK = 128;
-// SmemTable storage: int4 rows[16] and int cum[17], padded to 16 bytes so
-// that the staged planes after it stay aligned for 16-byte copies
-constexpr int TAB_BYTES = 16 * 16 + 80;
-constexpr int SMEM_MAX = 232448;
 
 struct Args {
   const uint32_t* sym;        // [P, Ws, S]
@@ -66,79 +45,35 @@ struct Args {
 };
 
 template <bool kStaged, bool kVec>
-__global__ void __launch_bounds__(BLOCK) gather_decode_kernel(Args a) {
+__global__ void __launch_bounds__(apack::PAGE_BLOCK)
+gather_decode_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int g = blockIdx.x;
-  const int c0 = blockIdx.y * BLOCK;
-  const int ncols = min(BLOCK, a.S - c0);
+  const int c0 = blockIdx.y * apack::PAGE_BLOCK;
+  const int ncols = min(apack::PAGE_BLOCK, a.S - c0);
   const size_t p = (size_t)a.page_idx[g];
   const int t = a.table_idx[g];
-  int4* tab_rows = reinterpret_cast<int4*>(smem);
-  int* tab_cum = reinterpret_cast<int*>(tab_rows + apack::N_SYMBOLS);
-  uint32_t* ssym = reinterpret_cast<uint32_t*>(smem + TAB_BYTES);
-  uint32_t* sofs = ssym + (size_t)a.rs * ncols;
-  const uint32_t* gsym = a.sym + p * a.Ws * a.S + c0;
-  const uint32_t* gofs = a.ofs + p * a.Wo * a.S + c0;
-  if (kStaged) {
-    apack::stage_plane(ssym, ncols, gsym, a.S, 0, a.rs, a.Ws, ncols,
-                       threadIdx.x, BLOCK);
-    apack::stage_plane(sofs, ncols, gofs, a.S, 0, a.ro, a.Wo, ncols,
-                       threadIdx.x, BLOCK);
-  }
-  apack::stage_table(tab_rows, tab_cum, a.vm + t * 17, a.ol + t * 16,
-                     a.cum + t * 17, threadIdx.x, BLOCK);
-  if (kStaged) apack::cp_async_wait_all();
-  __syncthreads();
   const int c = threadIdx.x;
-  if (c >= ncols) return;
-  const bool stored = a.stored[p * a.S + c0 + c] != 0;
-  int32_t* row = a.out + ((size_t)g * a.S + c0 + c) * a.n_steps;
-  int4 lo = make_int4(0, 0, 0, 0), hi = lo;
-  auto sink = [&](int i, int v) {
-    if (!kVec) {
-      row[i] = v;
-      return;
-    }
-    // selects, not an indexed array: a constant i & 7 folds them away,
-    // and the array would otherwise live in local memory
-    const int k = i & 7;
-    lo.x = k == 0 ? v : lo.x;
-    lo.y = k == 1 ? v : lo.y;
-    lo.z = k == 2 ? v : lo.z;
-    lo.w = k == 3 ? v : lo.w;
-    hi.x = k == 4 ? v : hi.x;
-    hi.y = k == 5 ? v : hi.y;
-    hi.z = k == 6 ? v : hi.z;
-    hi.w = k == 7 ? v : hi.w;
-    if (k == 7) {
-      int4* dst = reinterpret_cast<int4*>(row + i - 7);
-      dst[0] = lo;
-      dst[1] = hi;
-    }
-  };
-  const apack::SmemTable tab{tab_rows, tab_cum};
-  if (kStaged &&
-      apack::decode_stream(apack::SmemPlane{ssym + c, a.rs, ncols, a.Ws},
-                           apack::SmemPlane{sofs + c, a.ro, ncols, a.Wo},
-                           stored, tab, a.n_steps, a.bits, sink))
-    return;
-  apack::decode_stream(apack::GlobalPlane{gsym + c, a.Ws, a.S},
-                       apack::GlobalPlane{gofs + c, a.Wo, a.S}, stored, tab,
-                       a.n_steps, a.bits, sink);
+  const bool stored = c < ncols && a.stored[p * a.S + c0 + c] != 0;
+  const apack::PageRef pg{a.sym + p * a.Ws * a.S + c0,
+                          a.ofs + p * a.Wo * a.S + c0,
+                          a.vm + t * 17, a.ol + t * 16, a.cum + t * 17,
+                          a.out + ((size_t)g * a.S + c0) * a.n_steps};
+  apack::decode_page<kStaged, kVec>(smem, pg, stored, a.S, a.Ws, a.Wo, ncols,
+                                    a.n_steps, a.bits, a.rs, a.ro);
 }
 
 template <bool kStaged, bool kVec>
 cudaError_t launch(const Args& a, int g, cudaStream_t stream) {
-  const int ncols = min(BLOCK, a.S);
-  const size_t smem =
-      TAB_BYTES + (kStaged ? (size_t)(a.rs + a.ro) * ncols * 4 : 0);
+  const size_t smem = apack::page_smem_bytes(kStaged, a.rs, a.ro, a.S);
   if (smem > 48 * 1024) {
     const cudaError_t e =
         apack::allow_max_smem<gather_decode_kernel<kStaged, kVec>>();
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(g, (a.S + BLOCK - 1) / BLOCK);
-  gather_decode_kernel<kStaged, kVec><<<grid, BLOCK, smem, stream>>>(a);
+  const dim3 grid(g, (a.S + apack::PAGE_BLOCK - 1) / apack::PAGE_BLOCK);
+  gather_decode_kernel<kStaged, kVec>
+      <<<grid, apack::PAGE_BLOCK, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -158,9 +93,7 @@ extern "C" int gather_decode_launch(const void* sym, const void* ofs,
          (const int32_t*)page_idx, (const int32_t*)table_idx,
          (const int32_t*)vm, (const int32_t*)ol, (const int32_t*)cum,
          (int32_t*)out, s, ws, wo, n_steps, bits, rs, ro};
-  const bool staged =
-      rs > 0 && ro > 0 &&
-      TAB_BYTES + (size_t)(rs + ro) * (s < BLOCK ? s : BLOCK) * 4 <= SMEM_MAX;
+  const bool staged = apack::page_staged(rs, ro, s);
   const bool vec = n_steps % 8 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (!staged) a.rs = a.ro = 0;

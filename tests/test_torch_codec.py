@@ -158,3 +158,76 @@ def test_cuda_codec_kernels_match_plain():
     back = apack_decode.decode(got[0], got[1], got[4], *tt, n_steps=128,
                                bits=8)
     assert torch.equal(back, v)
+
+
+@pytest.mark.parametrize("shared_row", [False, True])
+@pytest.mark.parametrize("stored_dtype", [torch.bool, torch.int32])
+def test_decode_pages_match_pallas_interpret(shared_row, stored_dtype):
+    """The port's decode over leading dims [2, 3]: six pages of S = 37
+    streams x 33 values (not a multiple of 8), each mixing stored and coded
+    streams, with a distinct table row per page or one shared 1-D row, and
+    bool or int32 stored flags, equals the Pallas decode kernel in
+    interpret mode page by page, and gives back the values."""
+    rng = np.random.default_rng(17)
+    s, e, bits = 37, 33, 8
+    v = np.stack([_values(rng, s, e, bits, n_noisy=3) for _ in range(6)])
+    if shared_row:
+        rows = [jtables.find_table(jtables.histogram(v, bits), bits, True)]
+        tt = pref.table_tensors(rows[0])
+    else:
+        rows = [jtables.find_table(jtables.histogram(p, bits), bits, True)
+                for p in v]
+        assert len({tuple(t.cum) for t in rows}) == 6
+        tt = tuple(torch.from_numpy(np.stack([t.as_arrays()[i] for t in rows])
+                                    .astype(np.int32)).reshape(2, 3, -1)
+                   for i in range(3))
+    vals = torch.from_numpy(v).reshape(2, 3, s, e)
+    sym, ofs, _, _, st = apack_encode.encode(vals, *tt, n_steps=e, bits=bits)
+    assert st.any() and not st.all()
+    got = apack_decode.decode(sym, ofs, st.to(stored_dtype), *tt, n_steps=e,
+                              bits=bits).reshape(6, s, e).numpy()
+    assert np.array_equal(got, v)
+    sym_u = sym.reshape(6, *sym.shape[2:]).numpy().view(np.uint32)
+    ofs_u = ofs.reshape(6, *ofs.shape[2:]).numpy().view(np.uint32)
+    st_i = st.reshape(6, s).numpy().astype(np.int32)
+    for p in range(6):
+        vm, ol, cum = (jnp.asarray(a) for a in rows[p % len(rows)].as_arrays())
+        want = japack_decode.decode_pallas(
+            jnp.asarray(sym_u[p]), jnp.asarray(ofs_u[p]), jnp.asarray(st_i[p]),
+            vm, ol, cum, n_steps=e, bits=bits, block_streams=s,
+            interpret=True)
+        assert np.array_equal(got[p], np.asarray(want))
+
+
+def test_require_table_reads_rows_where_they_lie():
+    """The kernels' table argument: a 1-D row, or one row expanded to the
+    pages, reaches the kernel as that row with stride 0; an int32 table
+    with a row per page as itself with stride n; neither is copied.  Other
+    dtypes are converted, and a row count other than 1 or the page count
+    raises."""
+    from repro_torch.kernels import _build
+    cpu = torch.device("cpu")
+    row = torch.arange(17, dtype=torch.int32)
+    per_page = torch.arange(6 * 16, dtype=torch.int32).reshape(2, 3, 16)
+    for t, n, stride in ((row, 17, 0), (row.expand(2, 3, 17), 17, 0),
+                         (per_page, 16, 16)):
+        rows, got = _build.require_table(t, 6, n, "t", cpu)
+        assert got == stride and rows.data_ptr() == t.data_ptr()
+        assert rows.shape[-1] == n
+    rows, got = _build.require_table(per_page.long(), 6, 16, "t", cpu)
+    assert got == 16 and rows.dtype == torch.int32
+    assert torch.equal(rows, per_page.reshape(6, 16))
+    with pytest.raises(ValueError, match="4 rows for 6 pages"):
+        _build.require_table(per_page[:, :2], 6, 16, "t", cpu)
+    with pytest.raises(ValueError, match="shape"):
+        _build.require_table(row, 6, 16, "t", cpu)
+
+
+def test_decode_checks_bits_before_any_work():
+    """The decode wrapper's bits range check comes first, whatever the
+    device."""
+    z = torch.zeros(1, 4, 2, dtype=torch.int32)
+    tt = pref.table_tensors(ptables.uniform_table(8))
+    for bits in (0, 17):
+        with pytest.raises(ValueError, match="outside"):
+            apack_decode.decode(z, z, z[:, 0], *tt, n_steps=4, bits=bits)

@@ -1,6 +1,6 @@
 """Kernel checks that need the card (decompress-matmul, fused paged
-attention, gather decode, encode), in a file that imports neither JAX nor
-the JAX package, so that they run on a CUDA machine without JAX:
+attention, gather decode, encode, decode), in a file that imports neither
+JAX nor the JAX package, so that they run on a CUDA machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -151,17 +151,11 @@ ENCODE_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
-def test_cuda_encode_kernel(case):
-    """The encode kernel equals the plain encoder bit for bit (planes, bit
-    counts, stored flags) at stream counts that are not a multiple of its
-    block, bits 4, 8 and 16, a uniform table (every stream stored) and the
-    [2, 28, 128, 128] pack shape; its planes decode back to the values."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _codec_case(case):
+    """Values and the table of an ``ENCODE_CASES`` case, on the card: a
+    Laplace body with three noisy streams (stored under a fitted table)."""
     from repro_torch.core.tables import find_table, histogram, uniform_table
-    from repro_torch.kernels import apack_decode, apack_encode, ref
+    from repro_torch.kernels import ref
     shape, bits, kind = ENCODE_CASES[case]
     rng = np.random.default_rng(len(case))
     top = (1 << bits) - 1
@@ -171,9 +165,21 @@ def test_cuda_encode_kernel(case):
     t = (uniform_table(bits) if kind == "uniform"
          else find_table(histogram(v, bits), bits, True))
     dev = torch.device("cuda")
-    vals = torch.from_numpy(v).to(dev)
-    tabs = ref.table_tensors(t, dev)
-    e = shape[-1]
+    return torch.from_numpy(v).to(dev), ref.table_tensors(t, dev), bits, kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
+def test_cuda_encode_kernel(case):
+    """The encode kernel equals the plain encoder bit for bit (planes, bit
+    counts, stored flags) at stream counts that are not a multiple of its
+    block, bits 4, 8 and 16, a uniform table (every stream stored) and the
+    [2, 28, 128, 128] pack shape; its planes decode back to the values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import apack_decode, apack_encode
+    vals, tabs, bits, kind = _codec_case(case)
+    e = vals.shape[-1]
     got = apack_encode.encode(vals, *tabs, n_steps=e, bits=bits)
     want = apack_encode.encode_plain(vals, *tabs, n_steps=e, bits=bits)
     torch.cuda.synchronize()
@@ -183,6 +189,46 @@ def test_cuda_encode_kernel(case):
     back = apack_decode.decode_plain(got[0], got[1], got[4], *tabs,
                                      n_steps=e, bits=bits)
     assert torch.equal(back, vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES) + ["pack28_rows"])
+def test_cuda_decode_kernel(case):
+    """The decode kernel equals the plain decoder bit for bit, and gives
+    back the values, on the encode kernel's planes in every encode case
+    and at [2, 28, 128, 128] with a table row per page (four rows); bool
+    and int32 stored flags give identical outputs, and so does a shared
+    1-D row copied out to every page."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.tables import find_table, histogram
+    from repro_torch.kernels import apack_decode, apack_encode
+    vals, tabs, bits, _ = _codec_case(case.removesuffix("_rows"))
+    lead = tuple(vals.shape[:-2])
+    if case.endswith("_rows"):
+        v = vals.reshape(-1, *vals.shape[-2:]).cpu().numpy()
+        rows = np.arange(v.shape[0]) % 4
+        ts = [find_table(histogram(v[rows == r], bits), bits, True)
+              .as_arrays() for r in range(4)]
+        tabs = tuple(torch.from_numpy(np.stack([ts[r][i] for r in rows])
+                                      .astype(np.int32)).reshape(*lead, -1)
+                     .to(vals.device) for i in range(3))
+    e = vals.shape[-1]
+    sym, ofs, _, _, st = apack_encode.encode(vals, *tabs, n_steps=e,
+                                             bits=bits)
+    kw = dict(n_steps=e, bits=bits)
+    got = apack_decode.decode(sym, ofs, st, *tabs, **kw)
+    want = apack_decode.decode_plain(sym, ofs, st, *tabs, **kw)
+    variants = [apack_decode.decode(sym, ofs, st.to(torch.int32), *tabs,
+                                    **kw)]
+    if tabs[0].dim() == 1:
+        variants.append(apack_decode.decode(
+            sym, ofs, st, *(t.expand(*lead, t.shape[-1]).contiguous()
+                            for t in tabs), **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, vals)
+    for out in variants:
+        assert torch.equal(out, got)
 
 
 def _attention_pool(rng, ps, h, dh, s, pool, dev):
