@@ -25,7 +25,11 @@ Phases (any failure exits non-zero):
    library yardstick where one exists (kernel and yardstick as device time
    per call over a CUDA graph of 20 calls; the gather decode and the
    decompress-matmul also eagerly), and the decompress-matmul's staging of
-   its planes alone;
+   its planes alone; encode and decode also at the weight round trip's
+   shape, [688128 streams, 512 values] at 8 bits under one shared table
+   row, and at 16 bits (the decode kernel's unstaged path), bit-exact on
+   the whole tensor and against the plain versions on sampled streams,
+   and through ``ops``/``fastpath`` (uint8 and ``torch.uint16`` values);
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
@@ -49,13 +53,25 @@ Phases (any failure exits non-zero):
    steps and resumed: the tokens must equal phase 3's;
 7. serve them from a dense int8 KV cache, the uncompressed baseline, and
    profile steady steps;
-8. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
-   caches) on the card against the same engines on the CPU, and the
-   oracle's tokens against the fused engine's on the card;
-9. after each paged serve, decode every PACKED KV page captured mid-serve
-   with the decode kernel and with the plain decoder, and re-encode a
-   sample with the plain encoder;
-10. print the ``kernels`` JSON line, then the result line.
+8. the JAX CLI's default weight path at full width: ``compress_params``
+   (quantize, histogram, table search, the encode kernel, the pull of the
+   trimmed planes) then ``decompress_params`` (upload, the decode kernel,
+   dequantization), timed in parts with its own launch counts; every
+   decompressed leaf must equal the codec-free dequantization of the same
+   int8 codes bit for bit, and the plain encoder and decoder on the card
+   must give the kernels' columns on 1,024 streams from each end of every
+   distinct container shape; then serve the 8 requests from the
+   round-tripped weights on the fused paged APack KV path, with the token
+   agreement against phase 3 printed;
+9. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
+   caches, and the fused one on round-tripped weights, whose
+   ``compress_params`` containers must match too) on the card against the
+   same engines on the CPU, and the oracle's tokens against the fused
+   engine's on the card;
+10. after each paged serve, decode every PACKED KV page captured mid-serve
+    with the decode kernel and with the plain decoder, and re-encode a
+    sample with the plain encoder;
+11. print the ``kernels`` JSON line, then the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when it is
 not run from a checkout of the repository.
@@ -75,6 +91,10 @@ PAGE = dict(ps=16, h=8, dh=128, hq=16)   # qwen3-1.7b page [16, 8, 128]
 AGREEMENT_GATE = 0.98             # the reference's teacher-forced gate
 F64_ERR_RATIO = 4.0               # kernel vs f64 <= this x cuBLAS f32 vs f64
 RMS_DRIFT_RATIO = 1.5             # packed drift <= this x f32 oracle's drift
+# (bits, streams) of the codec at the weight round trip's shape: a stacked
+# w_up of qwen3-1.7b, 28 x 2048 x 6144 values in streams of 512, and a
+# 16-bit case
+FASTPATH_CASES = ((8, 688128), (16, 32768))
 PORT_KERNELS = ("apack_decode_kernel", "apack_encode_kernel",   # csrc/*.cu
                 "fused_page_attention_kernel",
                 "fused_page_attention_combine_kernel",
@@ -248,19 +268,23 @@ def check_encode(name, vals, tabs, bits):
     return got
 
 
-def encode_timing(vals, tabs, bits, got):
+def encode_timing(vals, tabs, bits, got, iters=20, sample=None):
     """Device ms of the encode kernel and of the plain version, and the
     bound: the values and table rows read once, the whole planes, bit
-    counts and flags written once."""
+    counts and flags written once.  ``sample`` (stream indices) times the
+    plain version on those streams only, for shapes whose plain encode
+    would not fit the card."""
     from repro_torch.kernels import apack_encode
     e = vals.shape[-1]
     ms = graph_ms(lambda: apack_encode.encode(vals, *tabs, n_steps=e,
-                                              bits=bits), 20)
+                                              bits=bits), iters)
+    pv = vals if sample is None else vals[sample]
     plain = cuda_ms(lambda: apack_encode.encode_plain(
-        vals, *tabs, n_steps=e, bits=bits), 1)
+        pv, *tabs, n_steps=e, bits=bits), 1)
     return dict(ms=ms, plain_ms=plain, max_abs_err=0,
                 bound_ms=nbytes(vals, *tabs, *got) / HBM_BYTES_PER_S * 1e3,
-                bound_by="bytes", library_ms=None, shape=list(vals.shape))
+                bound_by="bytes", library_ms=None, shape=list(vals.shape),
+                plain_shape=list(pv.shape))
 
 
 def check_decode(name, planes, tabs, bits, vals):
@@ -289,21 +313,31 @@ def check_decode(name, planes, tabs, bits, vals):
     return got
 
 
-def decode_timing(planes, tabs, bits, out):
+def decode_timing(planes, tabs, bits, out, iters=20, sample=None):
     """Device ms of the decode kernel and of the plain version, and the
     bound: the coded words of each stream (+1 word) read once, the stored
-    flags and table rows as given, the int32 output written once."""
+    flags and table rows as given, the int32 output written once.
+    ``sample`` (stream indices of a [W, S] plane) times the plain version
+    on those streams only."""
     from repro_torch.kernels import apack_decode
     sym, ofs, sb, ob, st = planes
     kw = dict(n_steps=out.shape[-1], bits=bits)
-    ms = graph_ms(lambda: apack_decode.decode(sym, ofs, st, *tabs, **kw), 20)
-    plain = cuda_ms(lambda: apack_decode.decode_plain(sym, ofs, st, *tabs,
+    ms = graph_ms(lambda: apack_decode.decode(sym, ofs, st, *tabs, **kw),
+                  iters)
+    ps, po, pst = ((sym, ofs, st) if sample is None else
+                   (sym[:, sample], ofs[:, sample], st[sample]))
+    plain = cuda_ms(lambda: apack_decode.decode_plain(ps, po, pst, *tabs,
                                                       **kw), 1)
     read = 4 * int(coded_words(sb, ob, sym.shape[-2], ofs.shape[-2]).sum())
     read += nbytes(st, *tabs, out)
     return dict(ms=ms, plain_ms=plain, max_abs_err=0,
                 bound_ms=read / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                library_ms=None, shape=list(out.shape))
+                library_ms=None, shape=list(out.shape),
+                plain_shape=list(out.shape) if sample is None
+                else [len(sample), out.shape[-1]],
+                staged=apack_decode.page_staged(out.shape[-1], bits,
+                                                sym.shape[-2], ofs.shape[-2],
+                                                sym.shape[-1]))
 
 
 def device_kernels(fn) -> list:
@@ -376,6 +410,98 @@ def check_codec(device, records):
     if len(names) != 1 or "apack_decode_kernel" not in names[0]:
         raise AssertionError("apack_decode: one call must run the decode "
                              "kernel alone")
+
+
+def end_streams(n_streams: int, k: int = 1024, device="cuda"):
+    """Indices of the first and the last ``k`` streams (every stream when
+    there are no more than 2k), on the card."""
+    import torch
+    idx = torch.arange(n_streams, device=device)
+    return idx if n_streams <= 2 * k else torch.cat([idx[:k], idx[-k:]])
+
+
+def weight_codes(n_streams, e, bits, device, seed=7):
+    """Unsigned codes of normal weights quantized per column
+    (``quantize_symmetric(axis=-1)``, 6144 columns at 8 bits as in a
+    stacked w_up, 512 at 16), as [n_streams, e] int32 streams."""
+    import torch
+    from repro_torch.core import quant
+    g = torch.Generator(device=device).manual_seed(seed)
+    cols = 6144 if bits == 8 else 512
+    w = torch.randn(n_streams * e // cols, cols, generator=g, device=device)
+    q, _ = quant.quantize_symmetric(w, bits=bits, axis=-1)
+    del w
+    return quant.to_unsigned(q, bits).reshape(n_streams, e)
+
+
+def check_fastpath_shapes(device, records):
+    """Encode and decode kernels at the shape the weight round trip gives
+    them: one table row shared by every stream, no page axis, 512-value
+    streams, [688128, 512] at 8 bits (a stacked w_up, w_gate or w_down of
+    qwen3-1.7b) and [32768, 512] at 16 bits, whose capacity planes take
+    the decode kernel's unstaged path.  The kernels' planes, bit counts and
+    flags equal the plain encoder's on the first and last 1,024 streams,
+    the decode kernel gives back every value and equals the plain decoder
+    on those streams; both are timed (graph of 3 calls; the plain versions
+    on the sampled streams).  Then ``fastpath`` round-trips the same
+    values through the trimmed host container, uint8 or ``torch.uint16``
+    out."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tables import find_table
+    from repro_torch.kernels import apack_decode, apack_encode, fastpath, ref
+    e = 512
+    for bits, n in FASTPATH_CASES:
+        vals = weight_codes(n, e, bits, device)
+        hist = torch.bincount(vals.reshape(-1), minlength=1 << bits)
+        table = find_table(hist.cpu().numpy().astype(np.int64), bits,
+                           is_activation=False)
+        tabs = ref.table_tensors(table, device)
+        kw = dict(n_steps=e, bits=bits)
+        got = apack_encode.encode(vals, *tabs, **kw)
+        idx = end_streams(n)
+        want = apack_encode.encode_plain(vals[idx], *tabs, **kw)
+        for g, w, what in zip(got, want, ("sym", "ofs", "sym_bits",
+                                          "ofs_bits", "stored")):
+            if not torch.equal(g[..., idx], w):
+                raise AssertionError(f"encode fastpath bits={bits}: {what} "
+                                     "differs from the plain encoder")
+        dec = apack_decode.decode(got[0], got[1], got[4], *tabs, **kw)
+        plain = apack_decode.decode_plain(got[0][:, idx], got[1][:, idx],
+                                          got[4][idx], *tabs, **kw)
+        if not torch.equal(dec, vals) or not torch.equal(dec[idx], plain):
+            raise AssertionError(f"decode fastpath bits={bits}: not "
+                                 "bit-exact")
+        enc = encode_timing(vals, tabs, bits, got, iters=3, sample=idx)
+        enc["stored"] = int(got[4].sum())
+        dct = decode_timing(got, tabs, bits, dec, iters=3, sample=idx)
+        if dct["staged"] != (bits == 8):
+            raise AssertionError(f"decode fastpath bits={bits}: staged="
+                                 f"{dct['staged']}, the case is chosen for "
+                                 "the other path")
+        del dec, plain, want
+        ct = fastpath.compress_tensor(vals, table, bits)
+        back = fastpath.decompress_tensor(ct, device)
+        want_dtype = torch.uint8 if bits == 8 else torch.uint16
+        if back.dtype != want_dtype or not torch.equal(back.to(torch.int32),
+                                                       vals):
+            raise AssertionError(f"fastpath bits={bits}: {back.dtype} out, "
+                                 "or not the values")
+        trimmed = dict(ws=int(ct.sym_plane.shape[0]),
+                       wo=int(ct.ofs_plane.shape[0]),
+                       staged=apack_decode.page_staged(
+                           e, bits, ct.sym_plane.shape[0] or 1,
+                           ct.ofs_plane.shape[0] or 1, n),
+                       ratio=ct.ratio())
+        records[f"fastpath{bits}"] = dict(encode=enc, decode=dct,
+                                          trimmed=trimmed)
+        print(f"codec fastpath bits={bits}: [{n}, {e}] one table row, "
+              f"planes [{got[0].shape[0]} | {got[1].shape[0]}, {n}] "
+              f"bit-exact (plain on {len(idx)} streams), fastpath "
+              f"{back.dtype} round trip exact; "
+              + json.dumps(records[f"fastpath{bits}"]))
+        del vals, got, back, ct
+        torch.cuda.empty_cache()
 
 
 def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96):
@@ -823,9 +949,11 @@ def oracle_stores(packed_params, host_weights):
 
 
 def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
-                     fused=True, calib_pages=4, hook=None):
+                     fused=True, calib_pages=4, hook=None, params=None,
+                     label=None):
     """Serve the 8 requests at qwen3-1.7b's published widths and ``layers``
-    layers, from dense or packed weights, through the fused paged KV path,
+    layers, from dense or packed weights (the seed-0 draw, or ``params``,
+    named ``label``), through the fused paged KV path,
     the materialize oracle (``fused=False``) or a dense cache (``kv`` of
     "int8"), with the launch counts reset just before the serve and read
     just after.  ``hook(eng, i)``, when given, runs after step ``i``; its
@@ -844,12 +972,14 @@ def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
     from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
     mode = ("fused" if fused else "oracle") if kv == "apack-int8" else kv
-    tag = f"serve[{mode} KV, {weights or 'dense'} weights, {layers} layers]"
+    label = label or weights or "dense"
+    tag = f"serve[{mode} KV, {label} weights, {layers} layers]"
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=layers,
                               kv_cache_dtype=kv)
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, gen, device)
+    if params is None:
+        params = M.init_params(cfg, gen, device)
     eng = ServeEngine(cfg, params, max_batch=4, max_len=160,
                       kv_page_size=16, kv_calib_pages=calib_pages,
                       kv_fused=fused, weights=weights, device=device)
@@ -910,7 +1040,7 @@ def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
     if not torch.isfinite(eng.last_logits).all():
         raise AssertionError(f"{tag}: non-finite logits")
     decode_steps = step_s[1:]                     # step 0 admits + calibrates
-    summary = {"layers": layers, "weights": weights or "dense",
+    summary = {"layers": layers, "weights": label,
                "kv": mode, "requests": len(reqs),
                "generated_tokens": gen_tokens,
                "wall_s": wall, "tokens_per_s": gen_tokens / wall,
@@ -1107,7 +1237,8 @@ def capture_packed(eng):
             "cum": torch.as_tensor(cm[rows], device=dev)}
 
 
-def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True):
+def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
+                 roundtrip=False):
     """A SMOKE-width engine on the card against the same engine on the CPU
     (plain versions): greedy tokens must be identical, and the prefill
     logits of the first request may differ by at most one bf16 step at
@@ -1117,25 +1248,36 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True):
     every projection (``weight_min_size=1024``: SMOKE's matrices are under
     the default); ``fused=False`` serves the paged cache through the
     materialize oracle; ``kv`` "int8" or "bfloat16" serves a dense cache.
-    Returns the card's tokens."""
+    ``roundtrip=True`` serves the weights after ``compress_params`` (every
+    stacked matrix of 64 elements or more, the norm scales included) and
+    ``decompress_params`` on each device, and the two devices'
+    ``CompressedParams`` must be identical (containers, scales, byte
+    counts) and so must the decompressed weights.  Returns the card's
+    tokens."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import init_params
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import (Request, ServeEngine, compress_params,
+                                   decompress_params)
     cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
                               kv_cache_dtype=kv)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 512, n) for n in (20, 33, 9)]
     out = {}
+    cps = {}
     for dev in ("cpu", device):
         p = {"embed": params["embed"].to(dev),
              "final_norm": params["final_norm"].to(dev),
              "blocks": [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
                              if isinstance(v, dict) else v.to(dev))
                          for k, v in b.items()} for b in params["blocks"]]}
+        if roundtrip:
+            cps[dev] = compress_params(p, min_size=64)
+            p = decompress_params(cps[dev], dev)
+            cps[dev] = (cps[dev], p)
         eng = ServeEngine(cfg, p, max_batch=2, max_len=64, kv_page_size=4,
                           kv_calib_pages=2, kv_fused=fused, weights=weights,
                           weight_min_size=1024, device=dev)
@@ -1151,9 +1293,23 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True):
             * out["cpu"][1].abs().max().item())
     same = out["cpu"][0] == out[device][0]
     same_ws = out["cpu"][2] == out[device][2]
-    tag = (f"{weights or 'dense'} weights, "
+    tag = (f"{weights or ('round-trip' if roundtrip else 'dense')} "
+           "weights, "
            + (("fused" if fused else "oracle") if kv == "apack-int8" else kv)
            + " KV")
+    if roundtrip:
+        (cp_c, w_c), (cp_d, w_d) = cps["cpu"], cps[device]
+        cp_diff = compressed_params_diff(cp_c, cp_d)
+        same_w = all(torch.equal(a.cpu(), b) for a, b in
+                     zip(param_leaves(w_d), param_leaves(w_c)))
+        print(f"smoke round trip card vs cpu: {len(cp_c.containers)} "
+              f"containers, {cp_d.original_bytes} -> {cp_d.compressed_bytes}"
+              f" bytes ({cp_d.ratio:.4f}x), containers identical "
+              f"{not cp_diff} {cp_diff[:8]}, decompressed weights identical "
+              f"{same_w}")
+        if cp_diff or not same_w:
+            raise AssertionError("SMOKE compress_params on the card differs "
+                                 "from the CPU's")
     print(f"smoke engine [{tag}] card vs cpu: prefill logit "
           f"max diff {diff:.3g} (bound {step:.3g}), greedy tokens identical "
           f"{same}, weight_stats equal {same_ws}")
@@ -1161,6 +1317,185 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True):
         raise AssertionError(f"SMOKE engine [{tag}] on the card disagrees "
                              "with the CPU")
     return out[device][0]
+
+
+def param_leaves(tree):
+    """The tensors of a param tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for x in tree for t in param_leaves(x)]
+    return [tree]
+
+
+def compressed_params_diff(a, b) -> list:
+    """Where two ``CompressedParams`` differ: byte counts, paths, and per
+    leaf its containers (every plane, bit count, flag and table), scale
+    and passthrough value.  Empty when they are identical."""
+    import numpy as np
+    import torch
+    diff = [what for what, x, y in (
+        ("paths", a.paths, b.paths),
+        ("original_bytes", a.original_bytes, b.original_bytes),
+        ("compressed_bytes", a.compressed_bytes, b.compressed_bytes),
+        ("containers", sorted(a.containers), sorted(b.containers)),
+        ("passthrough", sorted(a.passthrough), sorted(b.passthrough)))
+        if x != y]
+    for path in set(a.containers) & set(b.containers):
+        (ct, scale, dtype), (ct2, scale2, dtype2) = (a.containers[path],
+                                                     b.containers[path])
+        if dtype != dtype2 or ct.shape != ct2.shape:
+            diff.append(f"{path}: dtype or shape")
+        if not np.array_equal(scale, scale2):
+            diff.append(f"{path}: scale ({int((scale != scale2).sum())} "
+                        f"of {scale.size})")
+        if ct.table != ct2.table:
+            diff.append(f"{path}: table")
+        diff += [f"{path}: {f}" for f in ("sym_plane", "ofs_plane",
+                                          "sym_bits", "ofs_bits", "stored")
+                 if not np.array_equal(getattr(ct, f), getattr(ct2, f))]
+    diff += [f"{k}: passthrough value" for k in
+             set(a.passthrough) & set(b.passthrough)
+             if not torch.equal(a.passthrough[k], b.passthrough[k])]
+    return sorted(diff)
+
+
+# ----------------------------------------------------------------- phase 8
+def weight_round_trip(device):
+    """The JAX CLI's default weight path at full width: qwen3-1.7b's seed-0
+    params (28 layers) through ``compress_params`` and
+    ``decompress_params`` on the card, launch counts reset just before and
+    read just after, each part timed.  Gates:
+
+    - every compressed leaf comes back equal, bit for bit, to the
+      codec-free ``from_unsigned(to_unsigned(q)) * scale`` of the same int8
+      codes ``q`` (quantized again from the original leaf), and every
+      passthrough leaf to itself;
+    - for each distinct container shape, the plain encoder on the card,
+      on the first and the last 1,024 streams, gives the container's
+      trimmed columns (zeros past them), bit counts and flags, and the
+      plain decoder on those columns gives the decode kernel's values.
+
+    Returns the decompressed params, the ``CompressedParams`` summary and
+    the round trip's launch counts."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import quant
+    from repro_torch.core.format import _pad_value
+    from repro_torch.kernels import apack_decode, apack_encode, ref
+    from repro_torch.models import model as M
+    from repro_torch.serve import compress_params, decompress_params
+    from repro_torch.serve.engine import _stacked_leaves
+    cfg = get_config("qwen3-1.7b")
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    torch.cuda.synchronize()
+    repro_torch.reset_launch_counts()
+    tc: dict = {}
+    t0 = time.perf_counter()
+    cp = compress_params(params, timings=tc)
+    t_comp = time.perf_counter() - t0
+    td: dict = {}
+    t0 = time.perf_counter()
+    back = decompress_params(cp, device, timings=td)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = repro_torch.launch_counts()
+    if launches["apack_encode"] != len(cp.containers) or \
+            launches["apack_decode"] != len(cp.containers):
+        raise AssertionError(f"weight round trip: launches {launches} for "
+                             f"{len(cp.containers)} containers")
+    summary = {
+        "containers": {k: {"shape": list(ct.shape), "streams": ct.n_streams,
+                           "planes": [int(ct.sym_plane.shape[0]),
+                                      int(ct.ofs_plane.shape[0])],
+                           "stored": int(ct.stored.sum()),
+                           "ratio": ct.ratio()}
+                       for k, (ct, _, _) in cp.containers.items()},
+        "passthrough": sorted(cp.passthrough),
+        "values": sum(int(np.prod(ct.shape))
+                      for ct, _, _ in cp.containers.values()),
+        "original_mb": cp.original_bytes / 1e6,
+        "compressed_mb": cp.compressed_bytes / 1e6, "ratio": cp.ratio,
+        "compress_s": t_comp, "decompress_s": t_dec,
+        "parts_s": {**tc, **td}, "launches": launches}
+    print(f"APack weight compression: {cp.original_bytes/1e6:.1f} MB -> "
+          f"{cp.compressed_bytes/1e6:.1f} MB ({cp.ratio:.2f}x, "
+          f"{t_comp:.1f}s)")
+    print("weight round trip: " + json.dumps(summary))
+    # the gates: every leaf, and the sampled streams of each shape
+    t0 = time.perf_counter()
+    seen = set()
+    for (path, orig_fn), (path2, back_fn) in zip(
+            _stacked_leaves(params), _stacked_leaves(back)):
+        assert path == path2
+        got = back_fn()
+        if path in cp.passthrough:
+            if not torch.equal(got, orig_fn()):
+                raise AssertionError(f"round trip {path}: passthrough "
+                                     "changed")
+            continue
+        ct, _, _ = cp.containers[path]
+        q, qp = quant.quantize_symmetric(orig_fn().float(), axis=-1)
+        u = quant.to_unsigned(q)
+        want = (quant.from_unsigned(u).float() * qp.scale).to(got.dtype)
+        if not torch.equal(got.reshape(-1).view(torch.uint8),
+                           want.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"round trip {path}: not bit-exact")
+        del got, want, q
+        if ct.shape in seen:
+            continue
+        seen.add(ct.shape)
+        e, n = ct.elems_per_stream, ct.n_valid
+        streams = torch.full((ct.n_streams * e,), _pad_value(ct.table),
+                             dtype=torch.int32, device=device)
+        streams[:n] = u.reshape(-1)
+        streams = streams.reshape(ct.n_streams, e)
+        idx = end_streams(ct.n_streams)
+        tabs = ref.table_tensors(ct.table, device)
+        kw = dict(n_steps=e, bits=ct.bits)
+        sym, ofs, sb, ob, st = apack_encode.encode_plain(streams[idx], *tabs,
+                                                         **kw)
+        ih = idx.cpu().numpy()
+        planes = []
+        for plain, trimmed in ((sym, ct.sym_plane), (ofs, ct.ofs_plane)):
+            w = trimmed.shape[0]
+            cols = torch.from_numpy(trimmed[:, ih].view(np.int32)).to(device)
+            if not (torch.equal(plain[:w], cols) and not plain[w:].any()):
+                raise AssertionError(f"round trip {path}: plain encoder's "
+                                     "planes differ from the container's")
+            planes.append(torch.from_numpy(trimmed.view(np.int32)).to(device)
+                          if w else torch.zeros(1, ct.n_streams,
+                                                dtype=torch.int32,
+                                                device=device))
+        for plain, kept in ((sb, ct.sym_bits), (ob, ct.ofs_bits),
+                            (st, ct.stored)):
+            if not np.array_equal(plain.cpu().numpy(), kept[ih]):
+                raise AssertionError(f"round trip {path}: bit counts or "
+                                     "flags differ from the plain encoder")
+        stored = torch.from_numpy(ct.stored).to(device)
+        kernel = apack_decode.decode(*planes, stored, *tabs, **kw)[idx]
+        plain = apack_decode.decode_plain(planes[0][:, idx],
+                                          planes[1][:, idx], stored[idx],
+                                          *tabs, **kw)
+        if not (torch.equal(kernel, plain) and torch.equal(plain,
+                                                           streams[idx])):
+            raise AssertionError(f"round trip {path}: decode kernel != "
+                                 "plain decoder on the sampled streams")
+        print(f"round trip {path}: shape {list(ct.shape)}, "
+              f"{ct.n_streams} streams, planes [{planes[0].shape[0]} | "
+              f"{planes[1].shape[0]}]: plain encoder and decoder on "
+              f"{len(idx)} end streams equal the kernels'")
+        del streams, planes, u
+    torch.cuda.synchronize()
+    print(f"round trip gates: {len(cp.containers)} leaves bit-exact against "
+          f"from_unsigned(to_unsigned(q)) * scale, {len(seen)} container "
+          f"shapes sampled, {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return back, summary, launches
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1335,6 +1670,7 @@ def main() -> int:
                     print(f"ptxas {name}: {line.strip()}")
     records: dict = {}
     check_codec(device, records)
+    check_fastpath_shapes(device, records)
     check_attention(device, records)
     check_decompress_matmul(device, records)
     check_gather(device, records)
@@ -1399,7 +1735,21 @@ def main() -> int:
                          "int8 KV")
     del dense8
     torch.cuda.empty_cache()
+    # phase 8: the JAX CLI's default weight path, compress_params ->
+    # decompress_params, then a fused serve from the round-tripped weights
+    rt = serve_full_width(device, layers=28,
+                          params=weight_round_trip(device)[0],
+                          label="round-trip")
+    print("round-trip vs fused serve: " + json.dumps({
+        "token_agreement": token_agreement([r.tokens for r in rt["reqs"]],
+                                           fused_tokens),
+        "requests_identical": sum(r.tokens == t for r, t in
+                                  zip(rt["reqs"], fused_tokens))}))
+    verify_packed(rt["snapshot"])
+    del rt
+    torch.cuda.empty_cache()
     fused_smoke = smoke_vs_cpu(device)
+    smoke_vs_cpu(device, roundtrip=True)
     smoke_vs_cpu(device, weights="apack-int8")
     if smoke_vs_cpu(device, fused=False) != fused_smoke:
         raise AssertionError("SMOKE oracle engine on the card disagrees with "

@@ -45,6 +45,16 @@ def staged_rows(n_steps: int, bits: int, ws: int, wo: int) -> tuple[int, int]:
     return rows(4, ws), rows(2, wo)
 
 
+def page_staged(n_steps: int, bits: int, ws: int, wo: int, s: int) -> bool:
+    """Whether :func:`decode` stages the rows of :func:`staged_rows` of
+    [ws | wo, s] planes in shared memory, or reads the planes from device
+    memory throughout: the built kernel's own decision (``page_staged`` of
+    ``csrc/decode_page.cuh``), so it needs the kernel library."""
+    fn = _build.load("apack_decode").apack_decode_page_staged
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return bool(fn(*staged_rows(n_steps, bits, ws, wo), s))
+
+
 def decode(sym: torch.Tensor, ofs: torch.Tensor, stored: torch.Tensor,
            v_min: torch.Tensor, ol: torch.Tensor, cum: torch.Tensor, *,
            n_steps: int, bits: int = 8) -> torch.Tensor:

@@ -109,3 +109,9 @@ extern "C" int apack_decode_launch(const void* sym, const void* ofs,
                       : (vec ? launch<false, true>(a, n_pages, st)
                              : launch<false, false>(a, n_pages, st)));
 }
+
+// Whether apack_decode_launch stages rs and ro plane rows of s streams in
+// shared memory (1) or reads the planes from device memory throughout (0).
+extern "C" int apack_decode_page_staged(int rs, int ro, int s) {
+  return apack::page_staged(rs, ro, s) ? 1 : 0;
+}

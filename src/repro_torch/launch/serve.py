@@ -1,21 +1,25 @@
-"""Serving CLI: batched requests against APack-packed weights and the
-paged APack-compressed KV cache, or a dense KV cache.
+"""Serving CLI: batched requests against APack-compressed weights and
+(optionally) a paged APack-compressed KV cache.
 
 Port of ``repro/launch/serve.py``.  On the card (the default):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
-        --smoke --requests 16 --prompt-len 32 --max-new 16 \\
-        --kv apack-int8 --weights apack-int8 --weight-min-size 1024
+        --smoke --requests 16 --prompt-len 32 --max-new 16 --kv apack-int8
 
-``--kv-materialize`` serves the paged cache through the materialize
-oracle (a dense int8 cache rebuilt from the pool every step) instead of
-the fused path; ``--kv int8`` or ``--kv bfloat16`` serves a dense cache,
-the raw-KV baseline.  ``--device cpu`` runs the same paths through the
-kernels' plain versions.
-The JAX CLI's other flags are accepted and refused with
-``NotImplementedError`` naming their ROADMAP item, and so is its default
-weight path, the checkpoint-style compress/decompress round trip: pass
-``--weights apack-int8`` or ``--no-compress``.
+By default (neither ``--weights`` nor ``--no-compress``) the weights make
+the checkpoint-style round trip first, as in the JAX CLI:
+``compress_params`` int8-quantizes and APack-codes every large matrix
+(the encode kernel), prints the compression line, and
+``decompress_params`` decodes them back to dense (the decode kernel).
+``--weights apack-int8`` serves from APack-packed weights instead, every
+matmul on them through the decompress-matmul kernel; ``--no-compress``
+serves the dense weights as they are.  ``--kv-materialize`` serves the
+paged cache through the materialize oracle (a dense int8 cache rebuilt
+from the pool every step) instead of the fused path; ``--kv int8`` or
+``--kv bfloat16`` serves a dense cache, the raw-KV baseline.  ``--device
+cpu`` runs the same paths through the kernels' plain versions.  The JAX
+CLI's other flags are accepted and refused with ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -27,9 +31,11 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.device import resolve
 from repro_torch.kernels.decompress_matmul import DEFAULT_WEIGHT_MIN_SIZE
 from repro_torch.models import model as M
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import (Request, ServeEngine, compress_params,
+                               decompress_params)
 
 # flags of the JAX CLI that the port does not serve yet: (flag, value
 # that means "not asked for", ROADMAP item)
@@ -77,7 +83,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "through the decompress-matmul kernel")
     ap.add_argument("--weight-min-size", type=int,
                     default=DEFAULT_WEIGHT_MIN_SIZE,
-                    help="smallest element count that --weights packs")
+                    help="smallest element count compressed by either "
+                         "weight path (--weights and the checkpoint "
+                         "round-trip share this one default)")
     ap.add_argument("--kv", default=None,
                     choices=["bfloat16", "int8", "apack-int8"],
                     help="KV-cache mode (apack-int8 = paged + compressed)")
@@ -91,7 +99,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "max_batch x max_len)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
-                         "versions")
+                         "versions (without a card, cuda raises)")
     for flag, _, item in UNPORTED:
         ap.add_argument(flag, help=f"not ported yet (ROADMAP {item})",
                         **_FLAG_ARGS.get(flag, {}))
@@ -103,24 +111,28 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if getattr(args, flag[2:].replace("-", "_")) != unset:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
-    if not args.no_compress and not args.weights:
-        raise NotImplementedError(
-            "the checkpoint-style weight round trip (compress_params/"
-            "decompress_params over core/format and kernels/fastpath), the "
-            "JAX CLI's default, is not ported yet (ROADMAP open items "
-            "1.1, 1.2 and 1.6); pass --weights apack-int8 or --no-compress")
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     refuse_unported(args)
-    device = torch.device(args.device)
+    device = resolve(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
     if args.kv:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv)
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(cfg, gen, device)
+    if not args.no_compress and not args.weights:
+        # checkpoint-style round trip: compress, report, decompress back to
+        # dense.  --weights apack-int8 supersedes it: the packed planes are
+        # the weight store, no decompressed copy exists.
+        t0 = time.time()
+        cp = compress_params(params, min_size=args.weight_min_size)
+        print(f"APack weight compression: {cp.original_bytes/1e6:.1f} MB -> "
+              f"{cp.compressed_bytes/1e6:.1f} MB "
+              f"({cp.ratio:.2f}x, {time.time()-t0:.1f}s)")
+        params = decompress_params(cp, device)
     engine = ServeEngine(cfg, params, max_batch=args.max_batch,
                          max_len=args.prompt_len + args.max_new + 8,
                          weights=args.weights,

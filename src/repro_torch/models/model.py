@@ -522,7 +522,9 @@ class PagedKVCache:
         pids = [pid for _, pid in events]
         idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
         f = pool.tok_q[:, idx].to(F32) * pool.tok_scale[:, idx][..., None]
-        sc = torch.clamp_min(f.abs().amax(dim=(2, 4)), 1e-8) / 127.0
+        # the reference divides on the host (numpy): a true division
+        sc = quant.true_divide(torch.clamp_min(f.abs().amax(dim=(2, 4)),
+                                               1e-8), 127.0)
         q2 = torch.clamp(torch.round(f / sc[:, :, None, :, None]),
                          -127, 127).to(torch.int8)
         pool.seal(pids, q2, sc)

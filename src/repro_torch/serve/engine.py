@@ -9,7 +9,9 @@ Port of the single-device, ``scheduler="sync"`` path of
 ``_resume_into_slot`` :778, ``_retire`` :800, ``latency_stats`` :831,
 ``step`` :895, ``_step_decode`` :936-990 (fused, materialize and dense
 branches), ``run_until_drained`` :1283, ``weight_stats`` :1308 and
-``kv_stats`` :1333.
+``kv_stats`` :1333; and the checkpoint-style weight round trip,
+``CompressedParams`` :146, ``compress_params`` :160 and
+``decompress_params`` :196.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
@@ -40,7 +42,11 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core import quant
+from repro_torch.core.tables import find_table
 from repro_torch.device import resolve
+from repro_torch.kernels import fastpath
+from repro_torch.kernels.decompress_matmul import DEFAULT_WEIGHT_MIN_SIZE
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -75,6 +81,145 @@ def _refuse(what: str, item: str) -> None:
 
 
 KV_CACHE_DTYPES = ("apack-int8", "int8", "bfloat16")
+
+
+# ------------------------------------------------- the weight round trip
+@dataclasses.dataclass
+class CompressedParams:
+    """APack-compressed int8 view of a param tree (large matrices only), in
+    the JAX package's layout: one entry per leaf of its stacked tree, keyed
+    by the leaf's path (``blocks/0/ffn/w_up``), in its flatten order
+    (``paths``).  A host object, like the JAX package's: containers are
+    ``core.format.CompressedTensor``s with numpy scales, small leaves CPU
+    tensors."""
+    containers: dict            # path -> (CompressedTensor, scale, dtype)
+    passthrough: dict           # path -> stacked leaf (CPU tensor)
+    paths: list[str]
+    n_layers: int
+    original_bytes: int
+    compressed_bytes: int
+
+    @property
+    def ratio(self) -> float:
+        return self.original_bytes / max(self.compressed_bytes, 1)
+
+
+def _stacked_leaves(params: dict):
+    """``(path, thunk)`` of every leaf of the JAX package's tree for the
+    port's ``params``, in ``jax.tree.flatten`` order (dict keys sorted):
+    ``params["blocks"]``, one dict per layer, becomes the one stack
+    ``blocks/0`` of every layer along a leading axis, the JAX layout of a
+    config whose cycle is one layer kind (``check_supported`` refuses the
+    others).  A thunk builds its stacked leaf on demand, so that one stack
+    at a time lives on the device."""
+    def walk(node, path, get):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k], f"{path}/{k}",
+                                lambda b, k=k, get=get: get(b)[k])
+        else:
+            yield path, get
+    for key in sorted(params):
+        if key != "blocks":
+            yield key, (lambda key=key: params[key])
+            continue
+        layers = params["blocks"]
+        for path, get in walk(layers[0], "blocks/0", lambda b: b):
+            yield path, (lambda get=get: torch.stack(
+                [get(b) for b in layers]))
+
+
+def compress_params(params: dict, min_size: int = DEFAULT_WEIGHT_MIN_SIZE,
+                    *, timings: dict | None = None) -> CompressedParams:
+    """int8-quantize and APack-compress every large matrix of a param tree.
+
+    The leaves are the JAX package's stacked ones (``_stacked_leaves``),
+    and that sets the numbers: ``quantize_symmetric(axis=-1)`` gives one
+    scale per last-axis channel shared by every layer of a stack, the table
+    and the streams cover the whole stack, and a stack of norm scales
+    [L, d] is a matrix past ``min_size`` where one layer's [d] would not
+    be.  Each leaf is quantized on its device (a true division, as the
+    eager JAX call makes it), its histogram taken there with
+    ``torch.bincount`` and pulled, the weight-mode table searched on the
+    host, and the streams coded by ``fastpath.compress_tensor``: the encode
+    kernel on the card, the plain encoder on the CPU.  Byte counts are the
+    JAX package's: ceil bytes of each container's ``total_bits`` plus its
+    scale.  ``timings`` (a dict) gets the seconds of ``stack``,
+    ``quantize_histogram``, ``find_table`` and ``fastpath``'s parts."""
+    containers: dict = {}
+    passthrough: dict = {}
+    paths = []
+    orig = comp = 0
+    dev = params["embed"].device
+    for path, leaf_fn in _stacked_leaves(params):
+        paths.append(path)
+        with fastpath.timed(timings, "stack", dev):
+            leaf = leaf_fn()
+        nbytes = leaf.numel() * leaf.element_size()
+        orig += nbytes
+        if not (leaf.numel() >= min_size and leaf.is_floating_point()
+                and leaf.dim() >= 2):
+            passthrough[path] = leaf.cpu()
+            comp += nbytes
+            continue
+        dtype = str(leaf.dtype).removeprefix("torch.")
+        with fastpath.timed(timings, "quantize_histogram", dev):
+            q, qp = quant.quantize_symmetric(leaf.to(torch.float32), axis=-1)
+            del leaf
+            u = quant.to_unsigned(q)
+            del q
+            hist = torch.bincount(u.reshape(-1), minlength=256)
+        with fastpath.timed(timings, "find_table", dev):
+            # weights are static: the weight-mode heuristic profiles the
+            # whole tensor and steals no counts for empty ranges
+            table = find_table(hist.cpu().numpy().astype(np.int64), 8,
+                               is_activation=False)
+        ct = fastpath.compress_tensor(u, table, timings=timings)
+        del u
+        scale = qp.scale.cpu().numpy()
+        containers[path] = (ct, scale, dtype)
+        # ceil bytes, and the per-channel dequant scale ships with the
+        # payload
+        comp += -(-ct.total_bits // 8) + scale.nbytes
+    return CompressedParams(containers=containers, passthrough=passthrough,
+                            paths=paths, n_layers=len(params["blocks"]),
+                            original_bytes=orig,
+                            compressed_bytes=comp)
+
+
+def decompress_params(cp: CompressedParams, device=None, *,
+                      timings: dict | None = None) -> dict:
+    """The port's param tree (one dict per layer) from a
+    ``CompressedParams``, on ``device.resolve(device)``: each container
+    decoded by ``fastpath.decompress_tensor`` (the decode kernel on the
+    card), then ``from_unsigned``, ``q.f32 * scale`` in f32 and the leaf's
+    dtype, as the JAX package does; each stack split back into its layers
+    (views of it).  ``timings`` gets ``upload``, ``decode`` and
+    ``dequantize``."""
+    dev = resolve(device)
+    blocks: list = [{} for _ in range(cp.n_layers)]
+    tree: dict = {"blocks": blocks}
+    for path in cp.paths:
+        if path in cp.passthrough:
+            leaf = cp.passthrough[path].to(dev)
+        else:
+            ct, scale, dtype = cp.containers[path]
+            u = fastpath.decompress_tensor(ct, dev, timings=timings)
+            with fastpath.timed(timings, "dequantize", dev):
+                q = quant.from_unsigned(u, bits=ct.bits)
+                del u
+                leaf = (q.to(torch.float32) * torch.from_numpy(scale).to(dev)
+                        ).to(getattr(torch, dtype))
+                del q
+        keys = path.split("/")
+        if keys[0] != "blocks":
+            tree[keys[0]] = leaf
+            continue
+        for layer, node in enumerate(blocks):
+            for k in keys[2:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = leaf[layer]
+    return tree
 
 
 class ServeEngine:

@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro`` — not even its
-JAX-free modules — and the chip script refuses to run outside a checkout."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's examples import neither JAX (nor ``ml_dtypes``, which comes with
+it) nor anything of the JAX package ``repro`` — not even its JAX-free
+modules — and the chip script refuses to run outside a checkout."""
 import ast
 import pathlib
 import subprocess
@@ -21,12 +22,15 @@ def _imports(path: pathlib.Path):
 
 
 def test_no_jax_or_repro_imports_in_the_source():
-    """The package and the port's chip script (``chip_smoke.py``)."""
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The package, the port's chip script (``chip_smoke.py``) and its
+    examples (``examples/*_torch.py``)."""
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) >= 2
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 15
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
-           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
     assert not bad, bad
 
 
@@ -38,7 +42,7 @@ def test_importing_the_port_loads_no_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code],

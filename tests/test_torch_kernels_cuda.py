@@ -1,5 +1,6 @@
 """Kernel checks that need the card (decompress-matmul, fused paged
-attention, gather decode, encode, decode), in a file that imports neither
+attention, gather decode, encode, decode, and the codec host layer over
+the encode and decode kernels), in a file that imports neither
 JAX nor the JAX package, so that they run on a CUDA machine without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -307,3 +308,97 @@ def test_cuda_fused_page_attention_kernel(shape, slots, softcap):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
     assert (got[2][-1] == 0).all() and (got[2][:-1] > 0).all()
+
+
+ROUNDTRIP_CASES = {"b4_odd": (4, 37 * 64 - 5, 64, "fitted"),
+                   "b8_fastpath": (8, 130 * 512 + 7, 512, "fitted"),
+                   "b16_unstaged": (16, 300 * 512 - 9, 512, "fitted"),
+                   "stored": (8, 3 * 512, 512, "uniform")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROUNDTRIP_CASES))
+def test_cuda_ops_and_fastpath_match_cpu(case):
+    """``ops`` and ``fastpath`` on the card (the encode and decode kernels,
+    one shared table row) equal the same calls on the CPU (the plain
+    versions) bit for bit: every ``CompressedArrays`` field, the trimmed
+    host containers (a uniform table stores every stream, leaving the
+    symbol plane no rows) and the decoded values with their dtype (uint8,
+    ``torch.uint16`` at 16 bits, where 512-value streams take the decode
+    kernel's unstaged path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.tables import table_for, uniform_table
+    from repro_torch.kernels import fastpath, ops
+    bits, n, e, kind = ROUNDTRIP_CASES[case]
+    rng = np.random.default_rng(n)
+    top = (1 << bits) - 1
+    v = np.clip(np.round(rng.laplace(top / 2, top / 24, n)), 0, top)
+    v = v.astype(np.int64)
+    v[:e] = rng.integers(0, top + 1, e)              # a stored stream
+    t = uniform_table(bits) if kind == "uniform" else table_for(v, bits)
+    got = ops.apack_encode(torch.from_numpy(v).cuda(), t, e)
+    want = ops.apack_encode(torch.from_numpy(v), t, e)
+    for f in ("sym_plane", "ofs_plane", "sym_bits", "ofs_bits", "stored",
+              "v_min", "ol", "cum"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    back = ops.apack_decode(got)
+    assert back.dtype == (torch.uint8 if bits <= 8 else torch.uint16)
+    assert torch.equal(back.cpu(), ops.apack_decode(want))
+    assert np.array_equal(back.cpu().numpy(), v)
+    ct = fastpath.compress_np(v, t, bits=bits, elems_per_stream=e,
+                              device="cuda")
+    ct_cpu = fastpath.compress_np(v, t, bits=bits, elems_per_stream=e,
+                                  device="cpu")
+    for f in ("sym_plane", "ofs_plane", "sym_bits", "ofs_bits", "stored"):
+        a, b = getattr(ct, f), getattr(ct_cpu, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert (ct.sym_plane.shape[0] == 0) == (kind == "uniform")
+    assert np.array_equal(fastpath.decompress_np(ct, "cuda"), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_byteplane_matches_cpu(dtype):
+    """Float byte planes coded on the card equal those coded on the CPU,
+    and decode on the card to the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import byteplane
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, 9000)
+                         .astype(np.float32)).to(dtype).reshape(90, 100)
+    got = byteplane.compress_float(x.cuda())
+    want = byteplane.compress_float(x)
+    for a, b in zip(got.planes, want.planes, strict=True):
+        for f in ("sym_plane", "ofs_plane", "sym_bits", "ofs_bits", "stored"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    back = byteplane.decompress_float(got, device="cuda")
+    assert back.dtype == dtype and torch.equal(back.cpu(), x)
+
+
+@pytest.mark.cuda
+def test_cuda_quantizers_divide_as_the_cpu():
+    """``quantize_symmetric`` and ``quantize_affine`` (per column, 8 and 16
+    bits) and ``true_divide`` give on the card the CPU's codes and scales
+    bit for bit.  A division by a Python number would not: CUDA computes it
+    as a multiply by the reciprocal, one bit off for some values, and the
+    card's containers would then differ from the CPU's and the JAX
+    package's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((rng.standard_normal((4096, 700)) *
+                          rng.uniform(0.001, 3, 700)).astype(np.float32))
+    for fn in (lambda t: quant.quantize_symmetric(t, axis=-1),
+               lambda t: quant.quantize_symmetric(t, bits=16, axis=-1),
+               lambda t: quant.quantize_affine(t, axis=-1),
+               lambda t: quant.quantize_affine(t, bits=12, axis=0)):
+        q, qp = fn(x.cuda())
+        qc, qpc = fn(x)
+        assert torch.equal(qp.scale.cpu(), qpc.scale)
+        assert torch.equal(qp.zero_point.cpu(), qpc.zero_point)
+        assert q.dtype == qc.dtype
+        assert torch.equal(q.cpu().to(torch.int32), qc.to(torch.int32))
+    y = torch.from_numpy(rng.uniform(0.5, 2.0, 10 ** 6).astype(np.float32))
+    assert torch.equal(quant.true_divide(y.cuda(), 127).cpu(),
+                       quant.true_divide(y, 127))
