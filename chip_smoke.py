@@ -30,6 +30,12 @@ Phases (any failure exits non-zero):
    row, and at 16 bits (the decode kernel's unstaged path), bit-exact on
    the whole tensor and against the plain versions on sampled streams,
    and through ``ops``/``fastpath`` (uint8 and ``torch.uint16`` values);
+   then at recurrentgemma-9b's page [16, 1, 256] (32 streams of 128
+   values): encode and decode at [2, 12 | 1548, 32, 128], the gather at
+   G = 1024, 1 and 3, and fused attention with 16 query heads over one
+   KV head, J = 4, 130 page slots and window 2048 (a job whose oldest
+   page is partly rolled out, one whose ``qpos - window`` sits on a page
+   boundary), each timed with its bound and yardstick;
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
@@ -63,15 +69,31 @@ Phases (any failure exits non-zero):
    distinct container shape; then serve the 8 requests from the
    round-tripped weights on the fused paged APack KV path, with the token
    agreement against phase 3 printed;
-9. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
-   caches, and the fused one on round-tripped weights, whose
-   ``compress_params`` containers must match too) on the card against the
-   same engines on the CPU, and the oracle's tokens against the fused
-   engine's on the card;
-10. after each paged serve, decode every PACKED KV page captured mid-serve
+9. serve recurrentgemma-9b at published widths and depth (38 layers: 2
+   recurrent prefix layers + 12 x (recurrent, recurrent, local), window
+   2048, seed-0 random f32 weights served from their bf16 copy; the
+   qwen3 engines freed first; page 16, 4 slots, ``max_len`` 2176; 8
+   requests of 2001-2112-token prompts, half below the window and half
+   above it, 48 new tokens each): the fused path (pages roll out at
+   ingest and while decoding: ``kv_pages_evicted`` > 0) with a profiler
+   window of steady steps, the materialize oracle (``materialize``
+   through the gather kernel bit-exact against the plain decode at a
+   step with PACKED pages, fused attention against dense attention over
+   the ring), and the fused path with slot 0 preempted and resumed (its
+   recurrent states through a byte-plane snapshot, kernels 2 and 1,
+   restored bit for bit; tokens equal to the fused serve's);
+10. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
+    caches, and the fused one on round-tripped weights, whose
+    ``compress_params`` containers must match too; and fused, oracle and
+    dense int8 engines on ``hetero-serve-smoke`` and recurrentgemma-9b
+    SMOKE with window 8, whose KV stats must match too) on the card
+    against the same engines on the CPU, and the oracle's tokens against
+    the fused engine's on the card;
+11. after each paged serve, decode every PACKED KV page captured mid-serve
     with the decode kernel and with the plain decoder, and re-encode a
     sample with the plain encoder;
-11. print the ``kernels`` JSON line, then the result line.
+12. print the phase-2 records at recurrentgemma-9b's page, the
+    ``kernels`` JSON line, then the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when it is
 not run from a checkout of the repository.
@@ -88,6 +110,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM data sheet
 F32_FLOPS = 67e12                 # H100 SXM f32 outside the tensor cores
 PAGE = dict(ps=16, h=8, dh=128, hq=16)   # qwen3-1.7b page [16, 8, 128]
+# recurrentgemma-9b's page [16, 1, 256] (MQA: 16 query heads over one KV
+# head), 32 streams of 128 values, and its local layers' window
+RG_PAGE = dict(ps=16, h=1, dh=256, hq=16)
+RG_WINDOW = 2048
 AGREEMENT_GATE = 0.98             # the reference's teacher-forced gate
 F64_ERR_RATIO = 4.0               # kernel vs f64 <= this x cuBLAS f32 vs f64
 RMS_DRIFT_RATIO = 1.5             # packed drift <= this x f32 oracle's drift
@@ -504,16 +530,17 @@ def check_fastpath_shapes(device, records):
         torch.cuda.empty_cache()
 
 
-def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96):
-    """A pool in every lifecycle state at the full-width page shape, and
-    page tables whose slots mix HOT, COLD, PACKED and FREE pages (three
-    FREE padding slots when there are more than four, else a PACKED first
-    slot), the last job's slots all FREE."""
+def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96, page=PAGE):
+    """A pool in every lifecycle state at a full-width page shape (``page``;
+    streams of 128 values), and page tables whose slots mix HOT, COLD,
+    PACKED and FREE pages (three FREE padding slots when there are more
+    than four, else a PACKED first slot), the last job's slots all FREE."""
     import torch
     from repro_torch.core.tables import find_table, histogram
     from repro_torch.kernels import apack_encode, ref
-    ps, h, dh, hq = PAGE["ps"], PAGE["h"], PAGE["dh"], PAGE["hq"]
-    s = e = 128
+    ps, h, dh, hq = page["ps"], page["h"], page["dh"], page["hq"]
+    e = 128
+    s = ps * h * dh // e
     g = torch.Generator(device="cpu").manual_seed(1)
 
     def i8(*shape):
@@ -568,14 +595,14 @@ def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96):
 
 
 def attention_bound(q, pid, tid, meta, jobmeta, planes, packed_bytes, acc, m,
-                    l):
+                    l, page=PAGE):
     """Least bytes and flops for the call's data: q, the metadata, the
     table rows, each distinct (page, state) that a slot names, read once in
     the form its state stores (a PACKED page as its coded words and stored
     flags, from ``packed_bytes``), and the outputs; flops of QK and PV over
     the tokens that pass the mask."""
     import torch
-    ps, h, dh, hq = PAGE["ps"], PAGE["h"], PAGE["dh"], PAGE["hq"]
+    ps, h, dh, hq = page["ps"], page["h"], page["dh"], page["hq"]
     st = meta[..., 0].cpu()
     read = 0
     for p, s in set(zip(pid.cpu().reshape(-1).tolist(),
@@ -666,11 +693,12 @@ def check_attention(device, records):
         records["fused_page_attention"], eager_ms=eager)))
 
 
-def check_gather(device, records):
+def check_gather(device, records, s=128, key="gather_decode"):
     """The gather-decode kernel against its plain version on the card at a
-    materialize step's full-width shape: pages of 128 streams x 128 values
-    out of a pool of 1024 KV-like pages coded under four table rows (stored
-    streams included).  Bit-exact with the ids given on the host (as
+    materialize step's full-width shape: pages of ``s`` streams x 128
+    values (128 at qwen3-1.7b's page, 32 at recurrentgemma-9b's) out of a
+    pool of 1024 KV-like pages coded under four table rows (stored streams
+    included), the record stored under ``key``.  Bit-exact with the ids given on the host (as
     ``materialize`` gives them) and on the card, and through the kernel's
     launch alone (``launch_gather_decode``), at G = 1024 (1000 random ids
     with duplicates, edge-padded to the bucket), 1 and 3 (padded to 4 by a
@@ -683,7 +711,7 @@ def check_gather(device, records):
     import torch
     from repro_torch.kernels import apack_encode, paged_decode as pd
     torch.manual_seed(5)
-    n_pages, s, e = 1024, 128, 128
+    n_pages, e = 1024, 128
     vals = kv_like_values(n_pages, s, e, device)
     vals[:, :8] = torch.randint(0, 256, (n_pages, 8, e), device=device,
                                 dtype=torch.int32)
@@ -713,7 +741,7 @@ def check_gather(device, records):
             if not torch.equal(out, want):
                 raise AssertionError(f"gather_decode G={g} ({what}): not "
                                      "bit-exact")
-        print(f"gather_decode: G={g} ({n_ids} ids) bit-exact: "
+        print(f"{key}: G={g} ({n_ids} ids) S={s} bit-exact: "
               + ", ".join(got))
         cases[n_ids] = (idx, tid)
     idx, tid = cases[1000]
@@ -735,14 +763,127 @@ def check_gather(device, records):
     read = 4 * int(coded_words(sb[distinct], ob[distinct], sym.shape[1],
                                ofs.shape[1]).sum())
     read += nbytes(st[distinct], vm, ol, cm, idx, tid) + g * s * e * 4
-    records["gather_decode"] = dict(
+    records[key] = dict(
         ms=ms, plain_ms=plain, max_abs_err=0,
         bound_ms=read / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, shape=[g, s, e])
-    print("gather_decode: " + json.dumps(dict(
-        records["gather_decode"], eager_ms_host_ids=eager_host,
+    print(f"{key}: " + json.dumps(dict(
+        records[key], eager_ms_host_ids=eager_host,
         eager_ms_card_ids=eager_card, distinct_pages=distinct.numel(),
         stored_streams=n_stored)))
+
+
+def check_rg_codec(device, records):
+    """Encode and decode kernels at recurrentgemma-9b's page [16, 1, 256]:
+    [2 kinds, n pages, 32 streams, 128 values], a decode step's seal of
+    one slot's 12 rolling layers (n = 12) and a prefill's ingest of one
+    request, 12 layers x 129 pages (n = 1548), each page with one of four
+    table rows; bit-exact against the plain versions and timed as device
+    time per call over a CUDA graph of 20."""
+    import torch
+    for n in (12, 1548):
+        vals = kv_like_values(2 * n, 32, 128, device)
+        vals[:, :2] = torch.randint(0, 256, (2 * n, 2, 128), device=device,
+                                    dtype=torch.int32)
+        (vm, ol, cm), rows = table_rows(vals, 4)
+        shape = (2, n, 32, 128)
+        vals = vals.reshape(shape)
+        tabs = tuple(t[rows].reshape(2, n, -1) for t in (vm, ol, cm))
+        got = check_encode(f"[16, 1, 256] n={n}", vals, tabs, 8)
+        records[f"apack_encode n={n}"] = encode_timing(vals, tabs, 8, got)
+        dec = check_decode(f"[16, 1, 256] n={n}", got, tabs, 8, vals)
+        records[f"apack_decode n={n}"] = decode_timing(got, tabs, 8, dec)
+        for k in ("apack_encode", "apack_decode"):
+            print(f"{k} [16, 1, 256] n={n}: bit-exact; "
+                  + json.dumps(records[f"{k} n={n}"]))
+
+
+def check_attention_rolling(device, records):
+    """The fused attention kernel on recurrentgemma-9b's local layers: page
+    [16, 1, 256], 16 query heads over one KV head (g = 16, Hq*dh = 4096,
+    the wrapper's limit), J = 4 jobs over 130 page slots past three
+    evicted pages (COLD and PACKED pages, the last one HOT), window 2048.
+    Job 0's ``qpos - window`` falls inside its oldest page (partly rolled
+    out), job 1's exactly on a page boundary, job 2 is a decode step over
+    a HOT last page with its oldest page and a half rolled out, job 3 reads
+    the same table as a global layer (window 0).  Against the plain
+    version at f32 rtol 1e-5 / atol 1e-6; timed as device time per call
+    over a CUDA graph of 20, with its bound and SDPA over the same pages
+    dequantized into a dense f32 cache (masked alike) as its yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_page_attention as fpa
+    from repro_torch.kernels.fused_page_attention import _page_tiles
+    page = RG_PAGE
+    ps, h, dh, hq = page["ps"], page["h"], page["dh"], page["hq"]
+    jobs, slots, base = 4, 130, 3
+    q, pid, tid, meta, jobmeta, planes, packed_bytes = mixed_pool(
+        device, jobs=jobs, p_slots=slots, pool_pages=96, page=page)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    state = torch.randint(2, 4, (jobs, slots), generator=g)
+    state[:, -1] = 1
+    t0 = (base + torch.arange(slots))[None, :].expand(jobs, slots) * ps
+    meta = torch.stack([state, t0], -1).to(torch.int32).to(device)
+    first = base * ps
+    qpos = torch.tensor([first + RG_WINDOW + 7, first + RG_WINDOW + 16,
+                         (base + slots) * ps - 3, (base + slots) * ps - 3])
+    window = torch.tensor([RG_WINDOW, RG_WINDOW, RG_WINDOW, 0])
+    jobmeta = torch.stack([qpos, window], -1).to(torch.int32).to(device)
+    n_steps = 128
+    got = fpa.fused_page_attention(q, pid, tid, meta, jobmeta, planes,
+                                   n_steps=n_steps)
+    want = fpa.fused_page_attention_plain(q, pid, tid, meta, jobmeta, planes,
+                                          n_steps=n_steps)
+    mag = fpa.fused_page_attention_f64(q, pid, tid, meta, jobmeta, planes,
+                                       n_steps=n_steps)[3]
+    torch.cuda.synchronize()
+    # f32 tolerance rtol 1e-5 / atol 1e-6, as the other attention checks;
+    # over ~2000 keys acc cancels toward zero, so its relative part is
+    # taken against sum(w |v|), the magnitude of its f32 sums (as the
+    # oracle gates take it)
+    err = (got[0] - want[0]).abs()
+    worst = (err / (1e-5 * mag.float() + 1e-6)).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(
+            f"fused attention [16, 1, 256] window {RG_WINDOW}: acc off by "
+            f"{err.max().item()} ({worst:.3g}x the tolerance)")
+    err = err.max().item()
+    for g_, w_, what in zip(got[1:], want[1:], ("m", "l")):
+        if not torch.allclose(g_, w_, rtol=1e-5, atol=1e-6):
+            raise AssertionError(
+                f"fused attention [16, 1, 256] window {RG_WINDOW}: {what} "
+                f"off by {(g_ - w_).abs().max().item()}")
+        err = max(err, (g_ - w_).abs().max().item())
+    if not bool((got[2] > 0).all()):
+        raise AssertionError("fused attention [16, 1, 256]: a job read no "
+                             "key")
+    kw = dict(n_steps=n_steps)
+    ms = graph_ms(lambda: fpa.fused_page_attention(
+        q, pid, tid, meta, jobmeta, planes, **kw), 20)
+    plain = cuda_ms(lambda: fpa.fused_page_attention_plain(
+        q, pid, tid, meta, jobmeta, planes, **kw), 2)
+    bound, by = attention_bound(q, pid, tid, meta, jobmeta, planes,
+                                packed_bytes, *got, page=page)
+    kt, vt = _page_tiles(planes, pid, tid, meta[..., 0], n_steps, 8)
+    j, p = pid.shape
+    kd = kt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
+        hq // h, dim=1).contiguous()
+    vd = vt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
+        hq // h, dim=1).contiguous()
+    pos = meta[..., 1:2] + torch.arange(ps, device=device)
+    qp, win = jobmeta[:, 0, None, None], jobmeta[:, 1, None, None]
+    valid = (pos < qp) & (meta[..., 0:1] != 0)
+    valid &= torch.where(win > 0, pos > qp - win, True)
+    mask = valid.reshape(j, 1, 1, p * ps)
+    lib = graph_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask), 20)
+    records["fused_page_attention [16, 1, 256]"] = dict(
+        ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound, bound_by=by,
+        library_ms=lib, shape=[j, p, ps, h, dh], window=RG_WINDOW,
+        acc_worst_of_tolerance=worst,
+        keys_per_job=valid.reshape(j, -1).sum(-1).tolist())
+    print("fused_page_attention [16, 1, 256]: " + json.dumps(
+        records["fused_page_attention [16, 1, 256]"]))
 
 
 def weight_cases(device):
@@ -948,12 +1089,14 @@ def oracle_stores(packed_params, host_weights):
     return stores
 
 
-def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
+def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                      fused=True, calib_pages=4, hook=None, params=None,
-                     label=None):
-    """Serve the 8 requests at qwen3-1.7b's published widths and ``layers``
-    layers, from dense or packed weights (the seed-0 draw, or ``params``,
-    named ``label``), through the fused paged KV path,
+                     label=None, arch="qwen3-1.7b", max_len=160,
+                     requests=None):
+    """Serve the 8 requests (``serve_requests``, or ``requests(cfg, rng)``)
+    at ``arch``'s published widths and ``layers`` layers (its own depth
+    when None), from dense or packed weights (the seed-0 draw, or
+    ``params``, named ``label``), through the fused paged KV path,
     the materialize oracle (``fused=False``) or a dense cache (``kv`` of
     "int8"), with the launch counts reset just before the serve and read
     just after.  ``hook(eng, i)``, when given, runs after step ``i``; its
@@ -973,25 +1116,27 @@ def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
     from repro_torch.serve import ServeEngine
     mode = ("fused" if fused else "oracle") if kv == "apack-int8" else kv
     label = label or weights or "dense"
-    tag = f"serve[{mode} KV, {label} weights, {layers} layers]"
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=layers,
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
                               kv_cache_dtype=kv)
+    layers = cfg.num_layers
+    tag = f"serve[{arch}, {mode} KV, {label} weights, {layers} layers]"
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
     if params is None:
         params = M.init_params(cfg, gen, device)
-    eng = ServeEngine(cfg, params, max_batch=4, max_len=160,
+    eng = ServeEngine(cfg, params, max_batch=4, max_len=max_len,
                       kv_page_size=16, kv_calib_pages=calib_pages,
                       kv_fused=fused, weights=weights, device=device)
     host_weights = {(i, grp, name): params["blocks"][i][grp][name].cpu()
                     for i, grp, name, _ in packed_sites(eng.params)}
     del params
     torch.cuda.synchronize()
-    print(f"{tag}: qwen3-1.7b d_model {cfg.d_model} built in "
+    print(f"{tag}: d_model {cfg.d_model} built in "
           f"{time.perf_counter() - t0:.1f} s (weight packing "
           f"{eng.weight_pack_s:.1f} s)")
     rng = np.random.default_rng(0)
-    reqs = serve_requests(cfg, rng)
+    reqs = (requests or serve_requests)(cfg, rng)
     for r in reqs:
         eng.submit(r)
     repro_torch.reset_launch_counts()
@@ -1029,7 +1174,7 @@ def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
     launches = {k: v - checks[k]
                 for k, v in repro_torch.launch_counts().items()}
     gen_tokens = sum(len(r.tokens) for r in reqs)
-    if not all(r.done and len(r.tokens) == 48 for r in reqs):
+    if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError(f"{tag}: not every request completed")
     path = ["decompress_matmul"] if weights else []
     if eng.paged:
@@ -1062,7 +1207,7 @@ def serve_full_width(device, *, layers, weights=None, kv="apack-int8",
                                  "not < 1")
         summary.update({k: stats[k] for k in (
             "kv_ratio", "kv_pages_packed", "kv_pages_high_water",
-            "transfers")})
+            "kv_pages_evicted", "kv_streams", "transfers")})
     if weights is not None:
         ws = eng.weight_stats()
         summary["weight_stats"] = {k: ws[k] for k in (
@@ -1170,16 +1315,18 @@ def teacher_forced(run, stores):
     return rates
 
 
-def profile_steady_steps(eng, cfg, rng, tag):
+def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80):
     """Where a steady decode step's time goes: torch.profiler over ten
-    steps of a fresh full batch (tables already calibrated), device time by
-    kernel name (the top twelve and every kernel of the port) and the
-    device's idle share of the window."""
+    steps of a fresh full batch (tables already calibrated; prompts of
+    ``prompt_len`` tokens), device time by kernel name (the top twelve and
+    every kernel of the port), the device's idle share of the window and
+    the fused attention kernel's launches a step."""
     import numpy as np
     import torch
     from repro_torch.serve import Request
     for i in range(4):
-        eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size, 80),
+        eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size,
+                                                 prompt_len),
                            max_new_tokens=24))
     for _ in range(3):                      # admit + warm
         eng.step()
@@ -1203,9 +1350,11 @@ def profile_steady_steps(eng, cfg, rng, tag):
             rows.append((dev_us, evt.key, evt.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
+    attn = sum(r[2] for r in rows
+               if "fused_page_attention_kernel" in r[1]) / 10
     print(f"profile {tag}: 10 steady steps, wall {wall * 1e3:.1f} ms, "
           f"device busy {busy * 1e3:.1f} ms, idle share "
-          f"{1 - busy / wall:.3f}")
+          f"{1 - busy / wall:.3f}, fused attention launches a step {attn}")
     # the top twelve, and every kernel of the port below them
     for dev_us, key, count in (rows[:12] + [r for r in rows[12:] if any(
             f"::{k}" in r[1] for k in PORT_KERNELS)]):
@@ -1238,7 +1387,7 @@ def capture_packed(eng):
 
 
 def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
-                 roundtrip=False):
+                 roundtrip=False, arch="qwen3-1.7b"):
     """A SMOKE-width engine on the card against the same engine on the CPU
     (plain versions): greedy tokens must be identical, and the prefill
     logits of the first request may differ by at most one bf16 step at
@@ -1252,8 +1401,11 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
     stacked matrix of 64 elements or more, the norm scales included) and
     ``decompress_params`` on each device, and the two devices'
     ``CompressedParams`` must be identical (containers, scales, byte
-    counts) and so must the decompressed weights.  Returns the card's
-    tokens."""
+    counts) and so must the decompressed weights.  ``arch``
+    "hetero-serve-smoke" or "recurrentgemma-9b" (window 8) serves a
+    heterogeneous stack, whose paged engines must also give equal
+    ``kv_ratio``, stream stats and ``kv_pages_evicted`` (> 0).  Returns the
+    card's tokens."""
     import dataclasses
     import numpy as np
     import torch
@@ -1261,8 +1413,9 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
     from repro_torch.models.model import init_params
     from repro_torch.serve import (Request, ServeEngine, compress_params,
                                    decompress_params)
-    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
-                              kv_cache_dtype=kv)
+    cfg = dataclasses.replace(get_smoke_config(arch), kv_cache_dtype=kv)
+    if arch == "recurrentgemma-9b":
+        cfg = dataclasses.replace(cfg, window_size=8)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 512, n) for n in (20, 33, 9)]
@@ -1275,7 +1428,7 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
                              if isinstance(v, dict) else v.to(dev))
                          for k, v in b.items()} for b in params["blocks"]]}
         if roundtrip:
-            cps[dev] = compress_params(p, min_size=64)
+            cps[dev] = compress_params(cfg, p, min_size=64)
             p = decompress_params(cps[dev], dev)
             cps[dev] = (cps[dev], p)
         eng = ServeEngine(cfg, p, max_batch=2, max_len=64, kv_page_size=4,
@@ -1286,14 +1439,23 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
             eng.submit(r)
         logits0, _ = eng._prefill_forward(prompts[0])
         eng.run_until_drained()
+        ks = eng.kv_stats()
         out[dev] = ([r.tokens for r in reqs], logits0.float().cpu(),
-                    eng.weight_stats())
+                    eng.weight_stats(),
+                    {k: ks[k] for k in ("kv_ratio", "kv_streams",
+                                        "kv_pages_evicted",
+                                        "kv_pages_packed") if k in ks})
     diff = (out["cpu"][1] - out[device][1]).abs().max().item()
     step = (torch.finfo(torch.bfloat16).eps
             * out["cpu"][1].abs().max().item())
     same = out["cpu"][0] == out[device][0]
     same_ws = out["cpu"][2] == out[device][2]
-    tag = (f"{weights or ('round-trip' if roundtrip else 'dense')} "
+    same_kv = out["cpu"][3] == out[device][3]
+    hetero = arch != "qwen3-1.7b"
+    if hetero and eng.paged and not out[device][3]["kv_pages_evicted"] > 0:
+        raise AssertionError(f"SMOKE {arch}: no page rolled out")
+    tag = (f"{arch}, "
+           f"{weights or ('round-trip' if roundtrip else 'dense')} "
            "weights, "
            + (("fused" if fused else "oracle") if kv == "apack-int8" else kv)
            + " KV")
@@ -1312,8 +1474,9 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
                                  "from the CPU's")
     print(f"smoke engine [{tag}] card vs cpu: prefill logit "
           f"max diff {diff:.3g} (bound {step:.3g}), greedy tokens identical "
-          f"{same}, weight_stats equal {same_ws}")
-    if diff > step or not same or not same_ws:
+          f"{same}, weight_stats equal {same_ws}, kv stats equal {same_kv}"
+          + (f" {json.dumps(out[device][3])}" if hetero else ""))
+    if diff > step or not same or not same_ws or (hetero and not same_kv):
         raise AssertionError(f"SMOKE engine [{tag}] on the card disagrees "
                              "with the CPU")
     return out[device][0]
@@ -1395,7 +1558,7 @@ def weight_round_trip(device):
     repro_torch.reset_launch_counts()
     tc: dict = {}
     t0 = time.perf_counter()
-    cp = compress_params(params, timings=tc)
+    cp = compress_params(cfg, params, timings=tc)
     t_comp = time.perf_counter() - t0
     td: dict = {}
     t0 = time.perf_counter()
@@ -1429,7 +1592,7 @@ def weight_round_trip(device):
     t0 = time.perf_counter()
     seen = set()
     for (path, orig_fn), (path2, back_fn) in zip(
-            _stacked_leaves(params), _stacked_leaves(back)):
+            _stacked_leaves(cfg, params), _stacked_leaves(cfg, back)):
         assert path == path2
         got = back_fn()
         if path in cp.passthrough:
@@ -1498,6 +1661,146 @@ def weight_round_trip(device):
     return back, summary, launches
 
 
+# ----------------------------------------------------------------- phase 9
+def rg_requests(cfg, rng):
+    """The 8 requests of the recurrentgemma-9b serve, 48 new tokens each:
+    prompts of 2001-2047 tokens (below the 2048 window; they cross it while
+    decoding) alternating with prompts of 2049-2112 (above it: pages roll
+    out at ingest and then every 16 tokens)."""
+    import numpy as np
+    from repro_torch.serve import Request
+    lens = [int(rng.integers(2001, 2048) if i % 2 == 0
+                else rng.integers(2049, 2113)) for i in range(8)]
+    return [Request(i, rng.integers(0, cfg.vocab_size, n).astype(np.int64),
+                    max_new_tokens=48) for i, n in enumerate(lens)]
+
+
+def rg_oracle_hook(done: dict):
+    """Run ``oracle_gates`` once, after ten decode steps, while the pages
+    are HOT and PACKED (the rolling layers calibrate at the first ingest,
+    so a COLD page never waits between steps)."""
+    from repro_torch.models.modules import PAGE_PACKED
+
+    def hook(eng, i):
+        if "packed" not in done and i >= 10 and \
+                PAGE_PACKED in live_page_states(eng):
+            done["packed"] = oracle_gates(eng, "HOT+PACKED")
+    return hook
+
+
+def rg_preempt_hook(res: dict):
+    """Preempt slot 0 after ten decode steps, keeping a copy of its
+    recurrent states from the device store; after the next step, which
+    resumes it (``restore_state`` through the decode kernel), its restored
+    states must equal the copy bit for bit."""
+    import torch
+
+    def hook(eng, i):
+        if i == 9:
+            res["rid"] = eng.active[0].rid
+            res["live"] = eng.kv.read_state_slot(0)
+            t0 = time.perf_counter()
+            planes = eng.preempt(0, requeue="head")["planes"]
+            torch.cuda.synchronize()
+            res["snapshot"] = {
+                "s": time.perf_counter() - t0,
+                "raw_bytes": planes.original_bits // 8,
+                "bytes": planes.total_bits // 8,
+                "ratio": planes.total_bits / planes.original_bits,
+                "planes_stored": [bool(p.stored.all())
+                                  for p in planes.planes]}
+        elif i == 10:
+            st = eng.kv.states[res["rid"]]
+            res["restored_bit_exact"] = all(
+                torch.equal(st[layer][f], v)
+                for layer, d in res.pop("live").items()
+                for f, v in d.items())
+    return hook
+
+
+def recurrentgemma_phase(device):
+    """recurrentgemma-9b at published widths and depth (38 layers: 2
+    recurrent prefix layers + 12 x (recurrent, recurrent, local), window
+    2048), seed-0 random f32 weights, served from their bf16 serving copy:
+    the fused paged APack KV path, the materialize oracle (gated at one
+    step with PACKED pages) and the fused path with slot 0 preempted and
+    resumed (tokens equal to the fused serve's, states restored bit for
+    bit).  Returns the fused serve's launch counts."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    cfg = get_config("recurrentgemma-9b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    n_params = sum(t.numel() for t in param_leaves(params))
+    params = M.serving_params(params)
+    torch.cuda.synchronize()
+    print("recurrentgemma-9b: " + json.dumps({
+        "layers": cfg.num_layers, "kinds": M.layer_kinds(cfg),
+        "params": n_params, "init_s": time.perf_counter() - t0,
+        "serving_copy_gb": sum(nbytes(t) for t in param_leaves(params))
+        / 1e9,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    kw = dict(arch="recurrentgemma-9b", params=params, max_len=2176,
+              requests=rg_requests)
+    fused = serve_full_width(device, **kw)
+    fused_tokens = [r.tokens for r in fused["reqs"]]
+    s = fused["summary"]
+    if not s["kv_pages_evicted"] > 0:
+        raise AssertionError("recurrentgemma-9b: no page rolled out")
+    print("recurrentgemma-9b fused: " + json.dumps({
+        "tokens_per_s": s["tokens_per_s"],
+        "median_step_ms": s["median_step_ms"], "kv_ratio": s["kv_ratio"],
+        "stream_ratios": {k: v["ratio"] for k, v in s["kv_streams"].items()},
+        "kv_pages_evicted": s["kv_pages_evicted"],
+        "max_memory_gb": s["max_memory_gb"]}))
+    verify_packed(fused["snapshot"])
+    profile_steady_steps(fused["eng"], fused["cfg"], fused["rng"],
+                         "recurrentgemma-9b fused", prompt_len=2100)
+    launches = fused["launches"]
+    del fused
+    torch.cuda.empty_cache()
+    done: dict = {}
+    oracle = serve_full_width(device, fused=False, hook=rg_oracle_hook(done),
+                              **kw)
+    if "packed" not in done:
+        raise AssertionError("recurrentgemma-9b oracle: the gates never ran")
+    print("recurrentgemma-9b oracle vs fused serve: " + json.dumps({
+        "token_agreement": token_agreement(
+            [r.tokens for r in oracle["reqs"]], fused_tokens),
+        "requests_identical": sum(r.tokens == t for r, t in
+                                  zip(oracle["reqs"], fused_tokens)),
+        "launches": oracle["launches"]}))
+    verify_packed(oracle["snapshot"])
+    del oracle
+    torch.cuda.empty_cache()
+    res: dict = {}
+    pre = serve_full_width(device, hook=rg_preempt_hook(res), **kw)
+    st = pre["eng"].stats
+    print("recurrentgemma-9b preempt serve: " + json.dumps({
+        "preempted": st["preempted"], "resumed": st["resumed"],
+        "snapshot": res.get("snapshot"),
+        "restored_bit_exact": res.get("restored_bit_exact"),
+        "state_stream": pre["summary"]["kv_streams"]["state"]}))
+    if st["preempted"] != 1 or st["resumed"] != 1:
+        raise AssertionError("recurrentgemma-9b preempt serve: slot 0 was "
+                             "not preempted and resumed once")
+    if not res.get("restored_bit_exact"):
+        raise AssertionError("recurrentgemma-9b preempt serve: the state "
+                             "snapshot did not restore bit-exactly")
+    if [r.tokens for r in pre["reqs"]] != fused_tokens:
+        raise AssertionError("recurrentgemma-9b preempt serve: tokens "
+                             "differ from the uninterrupted fused serve")
+    del pre, params, kw
+    torch.cuda.empty_cache()
+    print(f"recurrentgemma-9b phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ----------------------------------------------------------------- phase 5
 def live_page_states(eng) -> set:
     """Lifecycle states of every page of the active requests."""
@@ -1511,9 +1814,10 @@ def oracle_gates(eng, what: str) -> dict:
 
     (a) ``materialize`` through the gather-decode kernel equals, bit for
         bit, a ``materialize`` whose PACKED pages the plain version decodes;
-    (b) at the first and the last layer, the fused attention kernel's
-        normalized output over the same pages equals dense attention over
-        the materialized cache (computed in f64) within the existing
+    (b) at the first and the last attention layer, the fused attention
+        kernel's normalized output over the same pages equals dense
+        attention over the materialized cache (a global layer's positions,
+        a rolling layer's ring slots; computed in f64) within the existing
         attention check's tolerance, rtol 1e-5 and atol 1e-6, the relative
         part taken against sum(w |v|), the magnitude at which the f32 sums
         of the online softmax run (the reference's
@@ -1541,11 +1845,12 @@ def oracle_gates(eng, what: str) -> dict:
                         device=eng.device)
     g = torch.Generator(device=eng.device).manual_seed(6)
     worst = 0.0
-    for layer in (0, cfg.num_layers - 1):
+    ends = (0, len(kv.attn_layers) - 1)
+    for i, layer in ((i, kv.attn_layers[i]) for i in ends):
         q = torch.randn(len(rids), h, dh, generator=g, device=eng.device)
         acc, _, l = fused_page_attention(
-            q, meta["pid"][layer], meta["tid"][layer], meta["kmeta"][layer],
-            meta["qw"][layer], kv.dev.planes,
+            q, meta["pid"][i], meta["tid"][i], meta["kmeta"][i],
+            meta["qw"][i], kv.dev.planes,
             n_steps=kv.pool.elems_per_stream,
             softcap=float(cfg.logit_softcap))
         out = (acc / l[..., None])[act].double()
@@ -1556,7 +1861,16 @@ def oracle_gates(eng, what: str) -> dict:
         sc = torch.einsum("akgd,askd->akgs", q3, kd) * dh ** -0.5
         if cfg.logit_softcap > 0:
             sc = cfg.logit_softcap * torch.tanh(sc / cfg.logit_softcap)
-        valid = torch.arange(sc.shape[-1], device=eng.device) < qpos[:, None]
+        slot = torch.arange(sc.shape[-1], device=eng.device)
+        if kv.layer_kinds[layer] == "local":
+            # ring slot j holds the latest position p < qpos with
+            # p % ring == j; the kernel reads p > qpos - ring
+            ring = sc.shape[-1]
+            p = qpos[:, None] - 1 - torch.remainder(
+                qpos[:, None] - 1 - slot, ring)
+            valid = (p >= 0) & (p > qpos[:, None] - ring)
+        else:
+            valid = slot < qpos[:, None]
         w = torch.softmax(torch.where(valid[:, None, None], sc,
                                       -float("inf")), dim=-1)
         dense = torch.einsum("akgs,askd->akgd", w, vd).reshape(out.shape)
@@ -1674,6 +1988,11 @@ def main() -> int:
     check_attention(device, records)
     check_decompress_matmul(device, records)
     check_gather(device, records)
+    # phase 2 at recurrentgemma-9b's page [16, 1, 256]
+    rg_records: dict = {}
+    check_rg_codec(device, rg_records)
+    check_gather(device, rg_records, s=32, key="gather_decode [16, 1, 256]")
+    check_attention_rolling(device, rg_records)
     # phase 3: dense weights, the fused KV path's three kernels
     dense = serve_full_width(device, layers=28)
     fused_tokens = [r.tokens for r in dense["reqs"]]
@@ -1748,6 +2067,9 @@ def main() -> int:
     verify_packed(rt["snapshot"])
     del rt
     torch.cuda.empty_cache()
+    # recurrentgemma-9b at full width: rolling attention, RG-LRU layers,
+    # page eviction and state snapshots
+    rg_launches = recurrentgemma_phase(device)
     fused_smoke = smoke_vs_cpu(device)
     smoke_vs_cpu(device, roundtrip=True)
     smoke_vs_cpu(device, weights="apack-int8")
@@ -1756,6 +2078,10 @@ def main() -> int:
                              "the fused engine on the card")
     smoke_vs_cpu(device, kv="int8")
     smoke_vs_cpu(device, kv="bfloat16")
+    for arch in ("hetero-serve-smoke", "recurrentgemma-9b"):
+        smoke_vs_cpu(device, arch=arch)
+        smoke_vs_cpu(device, arch=arch, fused=False)
+        smoke_vs_cpu(device, arch=arch, kv="int8")
     sources = {"apack_decode": ("src/repro_torch/kernels/csrc/apack_decode.cu",
                                 "src/repro/kernels/apack_decode.py:34"),
                "apack_encode": ("src/repro_torch/kernels/csrc/apack_encode.cu",
@@ -1780,6 +2106,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    print("kernels at recurrentgemma-9b's page [16, 1, 256]: " + json.dumps(
+        {"records": rg_records, "serve_launches": rg_launches}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

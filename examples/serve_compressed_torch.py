@@ -13,8 +13,10 @@ compression line and the measured raw-vs-compressed KV traffic ratio.
     PYTHONPATH=src python examples/serve_compressed_torch.py --device cpu
     # raw-KV baseline for comparison:
     PYTHONPATH=src python examples/serve_compressed_torch.py --kv int8
-
-``--hetero`` (the global + rolling + recurrent stack) is not ported yet.
+    # heterogeneous stack (global + rolling + recurrent cycle): rolling
+    # layers evict whole pages as tokens leave the window, recurrent
+    # states stay dense on the hot path; per-stream ratios are printed
+    PYTHONPATH=src python examples/serve_compressed_torch.py --hetero
 """
 import os
 import subprocess
@@ -25,15 +27,19 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def main(argv: list[str]) -> int:
+    argv = list(argv)
     if "--hetero" in argv:
-        raise NotImplementedError(
-            "--hetero (heterogeneous stacks: rolling-window page eviction "
-            "and recurrent states) is not ported yet (ROADMAP open item "
-            "1.7, heterogeneous stacks)")
-    args = ["--arch", "qwen3-1.7b", "--smoke", "--requests", "12",
-            "--prompt-len", "16", "--max-new", "12", "--max-batch", "4"]
+        argv.remove("--hetero")
+        args = ["--arch", "hetero-serve-smoke", "--smoke", "--requests", "8",
+                "--prompt-len", "12", "--max-new", "16", "--max-batch", "4",
+                "--kv-page-size", "4"]
+    else:
+        args = ["--arch", "qwen3-1.7b", "--smoke", "--requests", "12",
+                "--prompt-len", "16", "--max-new", "12", "--max-batch", "4"]
     if not any(a == "--kv" or a.startswith("--kv=") for a in argv):
-        args += ["--kv", "apack-int8", "--kv-page-size", "8"]
+        args += ["--kv", "apack-int8"]
+        if "--kv-page-size" not in args:
+            args += ["--kv-page-size", "8"]
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO / "src")
     return subprocess.run(

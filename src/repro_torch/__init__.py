@@ -1,11 +1,13 @@
 """PyTorch + CUDA port of the APack reproduction (``repro``), for an NVIDIA
 H100.
 
-It serves qwen3-1.7b from the paged APack-compressed KV cache and, with
-``weights="apack-int8"``, from APack-packed weights (``serve.ServeEngine``,
-``launch/serve.py``) with four hand-written CUDA kernels for sm_90a: APack
-decode, APack encode, the fused paged gather-decode attention and the fused
-decompress-matmul (``kernels/``).  The JAX package ``repro`` is the reference it is held
+It serves qwen3-1.7b and recurrentgemma-9b (rolling-window attention and
+RG-LRU recurrent layers) from the paged APack-compressed KV cache and,
+with ``weights="apack-int8"`` on global-attention stacks, from
+APack-packed weights (``serve.ServeEngine``, ``launch/serve.py``) with
+five hand-written CUDA kernels for sm_90a: APack decode, APack encode,
+the fused paged gather-decode attention, the fused decompress-matmul and
+the gather decode (``kernels/``).  The JAX package ``repro`` is the reference it is held
 against; this package imports neither it nor JAX.
 """
 from __future__ import annotations

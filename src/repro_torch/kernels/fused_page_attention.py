@@ -126,6 +126,40 @@ def fused_page_attention_plain(q, page_idx, table_idx, meta, jobmeta,
             l_run.reshape(jn, hq))
 
 
+def fused_page_attention_f64(q, page_idx, table_idx, meta, jobmeta,
+                             planes: dict, *, n_steps: int,
+                             softcap: float = 0.0, bits: int = 8):
+    """The same unnormalized state in f64 over all pages at once, plus the
+    magnitude ``sum_k w_k |v_k|`` of each ``acc`` element: the size at
+    which the f32 sums of ``acc`` run, against which the kernel's and the
+    plain version's summation-order error is measured when a long page
+    table makes ``acc`` cancel toward zero.  For checks; returns ``(acc,
+    m, l, mag)``."""
+    jn, hq, dh = q.shape
+    ps, hkv = planes["tok_k"].shape[1:3]
+    kt, vt = _page_tiles(planes, page_idx, table_idx, meta[..., 0], n_steps,
+                         bits)
+    k = kt.double().reshape(jn, -1, hkv, dh)
+    v = vt.double().reshape(jn, -1, hkv, dh)
+    q3 = q.double().reshape(jn, hkv, hq // hkv, dh)
+    scores = torch.einsum("jkgd,jskd->jkgs", q3, k) * (dh ** -0.5)
+    pos = (meta[..., 1:2].long() + torch.arange(ps, device=q.device)
+           ).reshape(jn, -1)
+    qpos, window = jobmeta[:, 0:1].long(), jobmeta[:, 1:2].long()
+    valid = (pos < qpos) & (meta[..., 0] != PAGE_FREE).repeat_interleave(
+        ps, dim=1)
+    valid &= torch.where(window > 0, pos > qpos - window, True)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    m_all = scores.amax(-1)
+    w = torch.exp(scores - m_all[..., None]) * valid[:, None, None]
+    acc = torch.einsum("jkgs,jskd->jkgd", w, v)
+    mag = torch.einsum("jkgs,jskd->jkgd", w, v.abs())
+    return (acc.reshape(jn, hq, dh), m_all.reshape(jn, hq),
+            w.sum(-1).reshape(jn, hq), mag.reshape(jn, hq, dh))
+
+
 def combine_partials(acc, m, l):
     """Merge online-softmax partials ``acc [J, NB, Hq, dh]``, ``m`` and
     ``l [J, NB, Hq]`` of consecutive page chunks into the state of the

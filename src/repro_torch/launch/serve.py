@@ -6,6 +6,11 @@ Port of ``repro/launch/serve.py``.  On the card (the default):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --smoke --requests 16 --prompt-len 32 --max-new 16 --kv apack-int8
 
+``--arch`` takes qwen3-1.7b, recurrentgemma-9b (rolling attention and
+RG-LRU recurrent layers) or hetero-serve-smoke (a global + rolling +
+recurrent cycle after a recurrent prefix layer); ``--window-size`` sets
+the rolling layers' window, so a small one shows page eviction.
+
 By default (neither ``--weights`` nor ``--no-compress``) the weights make
 the checkpoint-style round trip first, as in the JAX CLI:
 ``compress_params`` int8-quantizes and APack-codes every large matrix
@@ -40,7 +45,6 @@ from repro_torch.serve import (Request, ServeEngine, compress_params,
 # flags of the JAX CLI that the port does not serve yet: (flag, value
 # that means "not asked for", ROADMAP item)
 UNPORTED = (
-    ("--window-size", None, "open item 1.7, heterogeneous stacks"),
     ("--kv-refresh", False, "open item 1.8, serving robustness"),
     ("--kv-refresh-every", None, "open item 1.8, serving robustness"),
     ("--kv-refresh-threshold", None, "open item 1.8, serving robustness"),
@@ -61,7 +65,6 @@ _FLAG_ARGS = {"--kv-refresh": dict(action="store_true"),
               "--kv-repack-budget": dict(type=int),
               "--slot-deadline": dict(type=int),
               "--prefill-chunk": dict(type=int),
-              "--window-size": dict(type=int),
               "--kv-refresh-threshold": dict(type=float),
               "--slo-ms": dict(type=float)}
 
@@ -94,6 +97,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "rebuilt from the pool every step) instead of the "
                          "default device-resident fused path")
     ap.add_argument("--kv-page-size", type=int, default=16)
+    ap.add_argument("--window-size", type=int, default=None,
+                    help="override the rolling-attention window (small "
+                         "values show page eviction on hybrid archs)")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default: worst case for "
                          "max_batch x max_len)")
@@ -121,6 +127,8 @@ def main(argv=None) -> None:
            else configs.get_config(args.arch))
     if args.kv:
         cfg = dataclasses.replace(cfg, kv_cache_dtype=args.kv)
+    if args.window_size is not None:
+        cfg = dataclasses.replace(cfg, window_size=args.window_size)
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(cfg, gen, device)
     if not args.no_compress and not args.weights:
@@ -128,7 +136,7 @@ def main(argv=None) -> None:
         # dense.  --weights apack-int8 supersedes it: the packed planes are
         # the weight store, no decompressed copy exists.
         t0 = time.time()
-        cp = compress_params(params, min_size=args.weight_min_size)
+        cp = compress_params(cfg, params, min_size=args.weight_min_size)
         print(f"APack weight compression: {cp.original_bytes/1e6:.1f} MB -> "
               f"{cp.compressed_bytes/1e6:.1f} MB "
               f"({cp.ratio:.2f}x, {time.time()-t0:.1f}s)")
@@ -185,6 +193,7 @@ def main(argv=None) -> None:
               f"(+{ks['kv_table_bytes']} B tables) "
               f"ratio={ratio} "
               f"packed_pages={ks['kv_pages_packed']} "
+              f"evicted_pages={ks['kv_pages_evicted']} "
               f"pool={ks['kv_pages_high_water']}/{ks['kv_pool_pages']} "
               "pages")
         for kind, st in ks["kv_streams"].items():

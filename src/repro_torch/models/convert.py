@@ -2,10 +2,12 @@
 
 ``params_from_numpy(cfg, tree, device)`` takes the JAX package's params as
 a numpy pytree (the caller runs ``jax.tree.map(np.asarray, params)``; this
-module imports no JAX) and returns the port's layout: the scanned
+module imports no JAX) and returns the port's layout: the unscanned
+``params["prefix"]`` layers come first, then the scanned
 ``params["blocks"]`` stacks, one per cycle position with a leading
 ``n_cycles`` axis, become one param dict per layer, in layer order
-``j * len(cycle) + c``.  Both packages then compute with the same numbers.
+``n_prefix + j * len(cycle) + c``.  Both packages then compute with the
+same numbers.
 """
 from __future__ import annotations
 
@@ -33,10 +35,10 @@ def _index(x, j: int):
 def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
     check_supported(cfg)
     dev = resolve(device)
-    stacks = tree["blocks"]
     n_cycle = len(cfg.cycle)
-    blocks = [_to_torch(_index(stacks[layer % n_cycle], layer // n_cycle),
-                        dev) for layer in range(cfg.num_layers)]
+    blocks = [_to_torch(p, dev) for p in tree.get("prefix", [])]
+    blocks += [_to_torch(_index(tree["blocks"][c], j), dev)
+               for j in range(cfg.n_cycles) for c in range(n_cycle)]
     return {"embed": _to_torch(tree["embed"], dev),
             "final_norm": _to_torch(tree["final_norm"], dev),
             "blocks": blocks}

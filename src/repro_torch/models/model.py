@@ -1,34 +1,38 @@
 """Model assembly and the paged APack KV cache of the port.
 
-Port of the serving parts of ``repro/models/model.py``: ``init_params``
-:77, ``block_full`` :130, ``block_step`` :184 and ``block_step_paged``
-:202, ``forward`` :273 (``true_len``/``last_only``), ``_head`` :310,
-``_init_block_cache``/``init_cache`` :352/:366, ``decode_step`` :380,
-``decode_step_paged`` :408, ``device_append`` :488,
-``_pack_quantize``/``pack_weights`` :544/:562, ``extend_caches`` :820,
-``prefill`` :844, ``DevicePoolPlanes`` :867 and ``PagedKVCache`` :944
-(with ``append_step_tokens`` :1335, ``snapshot_state``/``restore_state``
-:1865/:1898 and ``materialize`` :2465) for stacks of global attention
-layers.
+Port of the serving parts of ``repro/models/model.py``: ``_init_block``/
+``init_params`` :52/:77, ``block_full`` :130, ``block_step`` :184 and
+``block_step_paged`` :202, ``forward`` :273 (prefix layers, ``pad_mask``/
+``true_len``/``last_only``), ``_head`` :310, ``_init_block_cache``/
+``init_cache`` :352/:366, ``decode_step`` :380, ``decode_step_paged``
+:408 (with the state store), ``init_state_store``/``states_from_step``
+:457-486, ``device_append`` :488, ``_pack_quantize``/``pack_weights``
+:544/:562, ``extend_caches`` :820, ``prefill`` :844, ``_layer_kinds``
+:859, ``DevicePoolPlanes`` :867 and ``PagedKVCache`` :944 (with
+``evict_rolled`` :1287, ``append_step_tokens`` :1335, ``ingest_prefill``
+:1398, ``snapshot_state``/``restore_state`` :1865/:1898, the state store
+:2304-2337, ``step_meta`` :2362 and ``materialize`` :2465) for stacks of
+global and rolling attention layers and RG-LRU recurrent layers, prefix
+or cycled.
 
-Layers are a Python list of per-layer param dicts where JAX scans a
-stacked tree, and a dense decode cache is a list of per-layer dicts where
-JAX stacks one per cycle position.  The page pool's payload lives on the
-device (see ``modules.KVPagePool``): prefill ingest, the token append, the
-seal requantization and the APack encode all write it there, so no page
-payload crosses to the host.  What does cross is small and happens at page
-events: the calibration histograms of a sealed page (until its layer's
-tables exist), and the coded bit count and lossless check of each packed
-page.  Not ported here: table refresh and re-pack, the host spill tier,
-rolling (local) and recurrent layers and their state snapshots, and
-meshes.
+Layers are a Python list of per-layer param dicts, prefix layers first,
+where JAX scans one stacked tree per cycle position; a dense decode cache
+and the state store are per-layer lists the same way.  The page pool's
+payload lives on the device (see ``modules.KVPagePool``): prefill ingest,
+the token append, the seal requantization and the APack encode all write
+it there, so no page payload crosses to the host.  What does cross is
+small and happens at page events: the calibration histograms of a sealed
+page (until its layer's tables exist), and the coded bit count and
+lossless check of each packed page.  Not ported here: mLSTM/sLSTM layers,
+packed weights on stacks with rolling or recurrent layers, table refresh
+and re-pack, the host spill tier, and meshes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core import quant
+from repro_torch.core import byteplane, quant
 from repro_torch.core.tables import TABLE_OVERHEAD_BITS, find_table
 from repro_torch.device import resolve
 from repro_torch.kernels import apack_decode, apack_encode
@@ -43,27 +47,45 @@ F32 = torch.float32
 BF16 = torch.bfloat16
 
 
+ATTN_KINDS = ("global", "local")
+STATE_KINDS = ("recurrent",)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse, loudly, the layer kinds this slice does not port."""
-    if cfg.prefix_pattern or any(k != "global" for k in cfg.cycle):
+    """Refuse, loudly, the layer kinds and features the port does not
+    serve yet."""
+    kinds = set(cfg.prefix_pattern) | set(cfg.cycle)
+    other = sorted(kinds - set(ATTN_KINDS) - set(STATE_KINDS))
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: layer pattern {cfg.prefix_pattern + cfg.cycle} "
-            "needs local/recurrent layers, not ported yet (ROADMAP open "
-            "item 1.7, heterogeneous stacks)")
+            f"{cfg.name}: layer kinds {other} are not ported yet (ROADMAP "
+            "open item 1.9, remaining architectures)")
     if cfg.num_experts or cfg.frontend or cfg.parallel_block \
             or not cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: MoE, frontends, parallel blocks and untied heads "
             "are not ported yet (ROADMAP open item 1.9)")
+    cfg.n_cycles          # the scanned layers must divide into cycles
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Kind of every network layer (``_layer_kinds`` :859): prefix layers
+    first, then the cycle in layer order ``n_prefix + j * n_cycle + c``.
+    ``params["blocks"]`` and every per-layer cache list follow it."""
+    return list(cfg.prefix_pattern) + [
+        cfg.cycle[c] for _ in range(cfg.n_cycles)
+        for c in range(len(cfg.cycle))]
 
 
 # ------------------------------------------------------------------- init
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
-    """Random params with the JAX init's distributions (``model.py:77``,
-    ``modules.py:149-163, 449-458``): normal weights scaled by fan-in^-0.5,
-    zero norm scales, in ``cfg.param_dtype``.  The numbers differ from
-    ``jax.random``'s; tests that compare the two packages convert one
+    """Random params with the JAX init's distributions (``_init_block``
+    :52, ``init_params`` :77, ``modules.py:149-163, 449-458, 553``): normal
+    weights scaled by fan-in^-0.5, zero norm scales, in
+    ``cfg.param_dtype``; recurrent blocks as ``modules.init_recurrent``.
+    One dict per network layer, prefix layers first.  The numbers differ
+    from ``jax.random``'s; tests that compare the two packages convert one
     tree with ``convert.params_from_numpy``."""
     check_supported(cfg)
     dev = resolve(device)
@@ -79,14 +101,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return torch.zeros(n, dtype=dt, device=dev)
 
     blocks = []
-    for _ in range(cfg.num_layers):
-        inner = {"wq": normal((d, h, dh), d ** -0.5),
-                 "wk": normal((d, hkv, dh), d ** -0.5),
-                 "wv": normal((d, hkv, dh), d ** -0.5),
-                 "wo": normal((h, dh, d), d ** -0.5)}
-        if cfg.qk_norm:
-            inner["q_norm"] = zeros(dh)
-            inner["k_norm"] = zeros(dh)
+    for kind in layer_kinds(cfg):
+        if kind in ATTN_KINDS:
+            inner = {"wq": normal((d, h, dh), d ** -0.5),
+                     "wk": normal((d, hkv, dh), d ** -0.5),
+                     "wv": normal((d, hkv, dh), d ** -0.5),
+                     "wo": normal((h, dh, d), d ** -0.5)}
+            if cfg.qk_norm:
+                inner["q_norm"] = zeros(dh)
+                inner["k_norm"] = zeros(dh)
+        else:
+            inner = m.init_recurrent(cfg, generator, dev, dt)
         blocks.append({"norm1": zeros(d), "inner": inner, "norm2": zeros(d),
                        "ffn": {"w_up": normal((d, f), d ** -0.5),
                                "w_gate": normal((d, f), d ** -0.5),
@@ -99,12 +124,15 @@ def serving_params(params: dict) -> dict:
     """A copy for serving with every dense matrix in bf16, made once.  The
     JAX package casts each f32 weight to bf16 at its use
     (``modules.py:145``) and the embedding rows after the lookup; holding
-    the bf16 copy gives the same values.  Norm scales stay f32, and packed
-    weights (``pack_weights``) pass through as they are."""
+    the bf16 copy gives the same values.  Norm scales and the recurrent
+    gates' f32 params (``modules.RECURRENT_F32``) stay as they are, and so
+    do packed weights (``pack_weights``).  Idempotent: a tensor already in
+    bf16 is not copied."""
     def conv(k, v):
         if isinstance(v, dict):
             return {kk: conv(kk, vv) for kk, vv in v.items()}
-        if isinstance(v, m.PackedWeight) or "norm" in k:
+        if isinstance(v, m.PackedWeight) or "norm" in k \
+                or k in m.RECURRENT_F32:
             return v
         return v.to(BF16)
     return {"embed": params["embed"].to(BF16),
@@ -132,7 +160,8 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
                  tile_k: int | None = None) -> tuple[dict, dict]:
     """Convert each layer's large projection and FFN matrices to APack
     planes on the params' device (``modules.PackedWeight``), the live weight
-    store for serving (``pack_weights`` :562).
+    store for serving (``pack_weights`` :562), on stacks of global
+    attention layers.
 
     Packed sites: wq/wk/wv (contract d) and wo (contract h, dh), w_up/
     w_gate/w_down, each when it holds at least ``min_size`` elements;
@@ -145,6 +174,11 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
     Returns ``(packed_params, stats)`` with the JAX package's byte
     accounting.  It counts one packed tensor per scanned stack there, that
     is one per (site, cycle position), summed over the stack's layers."""
+    if cfg.prefix_pattern or any(k != "global" for k in cfg.cycle):
+        raise NotImplementedError(
+            f"{cfg.name}: packed weights (weights='apack-int8') on a stack "
+            "with prefix, local or recurrent layers are not ported yet "
+            "(ROADMAP open item 1.13, pack_weights by kind)")
     if min_size is None:
         min_size = dm.DEFAULT_WEIGHT_MIN_SIZE
     stats = {"packed_tensors": 0, "native_bytes": 0, "int8_bytes": 0,
@@ -181,19 +215,53 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
 
 # ------------------------------------------------------------------ block
 def _ffn_tail(cfg: ModelConfig, p: dict, h, inner):
-    """Residual + FFN.  The residual keeps the bf16 sum; the norm reads
-    the unrounded f32 sum, as the JAX package's compiled block does (XLA
-    drops the bf16 round trip between the add and the norm's f32 cast)."""
+    """Residual + FFN.  Returns the block's output twice: rounded to h's
+    bf16, and as the unrounded f32 sum of its last add.  The residual
+    keeps the bf16 sums; a norm that reads one reads the unrounded f32
+    sum, as the JAX package's compiled block does (XLA drops the bf16
+    round trip between the add and the norm's f32 cast): here the FFN's
+    norm, and the next layer's ``norm1`` where the compiled reference
+    fuses the two layers (``reads_unrounded``)."""
     hf = h.to(F32) + inner.to(F32)
     hn = m.rms_norm(hf, p["norm2"], cfg.norm_eps).to(h.dtype)
-    return hf.to(h.dtype) + m.mlp(p["ffn"], hn, cfg)
+    out = hf.to(h.dtype).to(F32) + m.mlp(p["ffn"], hn, cfg).to(F32)
+    return out.to(h.dtype), out
 
 
-def block_full(cfg: ModelConfig, p: dict, h: torch.Tensor):
-    """Full-sequence (prefill) block of a global layer: (h, cache)."""
-    hn = m.rms_norm(h, p["norm1"], cfg.norm_eps)
-    inner, cache = m.attention_full(p["inner"], hn, cfg)
-    return _ffn_tail(cfg, p, h, inner), cache
+def reads_unrounded(cfg: ModelConfig, layer: int) -> bool:
+    """Whether network layer ``layer``'s ``norm1`` reads the previous
+    layer's unrounded output (``_ffn_tail``).  The reference scans its
+    cycle: each iteration's carry is a materialized bf16 array, so the
+    first layer of a cycle reads the rounded value; the other layers of a
+    cycle, and prefix layers after the first, are fused with the layer
+    before them."""
+    n_prefix = len(cfg.prefix_pattern)
+    if layer < n_prefix:
+        return layer > 0
+    return (layer - n_prefix) % len(cfg.cycle) != 0
+
+
+def _norm1(cfg: ModelConfig, p: dict, h, hx):
+    x = h if hx is None else hx
+    return m.rms_norm(x, p["norm1"], cfg.norm_eps).to(h.dtype)
+
+
+def block_full(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
+               hx=None, pad_mask=None, true_len: int | None = None):
+    """Full-sequence (prefill) block of any served kind (``block_full``
+    :130): (h, unrounded h, cache); ``hx``, when given, is the unrounded
+    input its norm reads.  ``pad_mask``/``true_len``: the bucketed
+    prefill, where rolling rings and recurrent states stop at the true
+    end."""
+    hn = _norm1(cfg, p, h, hx)
+    if kind in ATTN_KINDS:
+        inner, cache = m.attention_full(p["inner"], hn, cfg,
+                                        local=kind == "local",
+                                        true_len=true_len)
+    else:
+        inner, cache = m.recurrent_full(p["inner"], hn, cfg,
+                                        pad_mask=pad_mask, true_len=true_len)
+    return (*_ffn_tail(cfg, p, h, inner), cache)
 
 
 def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -203,15 +271,23 @@ def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             last_only: bool = False, true_len: int | None = None):
-    """Prefill forward.  Returns ``(logits, caches)`` with one int8 cache
-    dict per layer.  ``true_len``: tokens are end-padded to a bucket and
-    only the first ``true_len`` are real; ``last_only`` then takes the
-    logits at ``true_len - 1`` (causal attention already keeps pad keys out
-    of every real query)."""
+    """Prefill forward (``forward`` :273).  Returns ``(logits, caches)``
+    with one cache dict per network layer.  ``true_len``: tokens are
+    end-padded to a bucket and only the first ``true_len`` are real; the
+    rolling rings and recurrent states are taken at the true end, pad
+    steps are inert in the recurrent scans (``pad_mask``), and
+    ``last_only`` takes the logits at ``true_len - 1`` (causal attention
+    already keeps pad keys out of every real query)."""
     h = params["embed"][tokens].to(BF16)
-    caches = []
-    for p in params["blocks"]:
-        h, cache = block_full(cfg, p, h)
+    pad_mask = None
+    if true_len is not None:
+        pad_mask = torch.arange(h.shape[1], device=h.device) >= true_len
+    caches, hx = [], None
+    for layer, (kind, p) in enumerate(zip(layer_kinds(cfg),
+                                          params["blocks"])):
+        h, hx, cache = block_full(
+            cfg, kind, p, h, hx=hx if reads_unrounded(cfg, layer) else None,
+            pad_mask=pad_mask, true_len=true_len)
         caches.append(cache)
     if last_only:
         t = h.shape[1] if true_len is None else int(true_len)
@@ -223,7 +299,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             max_len: int | None = None):
     """Process a prompt (``prefill`` :844): last-position logits and the
-    per-layer caches, padded to ``max_len`` positions when given."""
+    per-layer caches, global ones padded to ``max_len`` positions when
+    given."""
     logits, caches = forward(cfg, params, tokens, last_only=True)
     if max_len is not None:
         caches = extend_caches(cfg, caches, max_len)
@@ -231,85 +308,143 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 # ------------------------------------------------------------ dense cache
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
+                      dtype, device) -> dict:
+    if kind in ATTN_KINDS:
+        return m.init_attention_cache(cfg, batch, seq_len, device, dtype,
+                                      local=kind == "local")
+    return m.init_recurrent_cache(cfg, batch, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=BF16,
                device=None) -> list[dict]:
-    """Zero dense decode cache, one dict per layer (``init_cache`` :366,
-    ``_init_block_cache`` :352, global layers)."""
+    """Zero dense decode cache, one dict per network layer (``init_cache``
+    :366, ``_init_block_cache`` :352): ``seq_len`` positions for a global
+    layer, the ring for a rolling one, the fixed state for a recurrent
+    one."""
     check_supported(cfg)
     dev = resolve(device)
-    return [m.init_attention_cache(cfg, batch, seq_len, dev, dtype)
-            for _ in range(cfg.num_layers)]
+    return [_init_block_cache(cfg, kind, batch, seq_len, dtype, dev)
+            for kind in layer_kinds(cfg)]
 
 
 def extend_caches(cfg: ModelConfig, caches: list, max_len: int) -> list:
-    """Zero-pad prefill caches (position axis 1, length S) to decode
-    capacity ``max_len`` (``extend_caches`` :820, global layers)."""
+    """Zero-pad global-layer prefill caches (position axis 1, length S) to
+    decode capacity ``max_len`` (``extend_caches`` :820); rings and
+    recurrent states are fixed-size and pass through."""
     def pad(x):
         if x.shape[1] >= max_len:
             return x
         y = x.new_zeros(x.shape[0], max_len, *x.shape[2:])
         y[:, :x.shape[1]] = x
         return y
-    return [{f: pad(x) for f, x in c.items()} for c in caches]
+    return [{f: pad(x) for f, x in c.items()} if kind == "global" else c
+            for kind, c in zip(layer_kinds(cfg), caches)]
 
 
-def block_step(cfg: ModelConfig, p: dict, h: torch.Tensor, cache: dict,
-               pos: torch.Tensor):
-    """Single-token decode block of a global layer against its dense cache
-    (``block_step`` :184): (h, cache written in place)."""
-    hn = m.rms_norm(h, p["norm1"], cfg.norm_eps)
-    inner, cache = m.attention_step(p["inner"], hn, cache, pos, cfg)
-    return _ffn_tail(cfg, p, h, inner), cache
+def block_step(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
+               cache: dict, pos: torch.Tensor, hx=None):
+    """Single-token decode block against a dense cache (``block_step``
+    :184): (h, unrounded h, cache), attention caches written in place, a
+    recurrent layer's state replaced."""
+    hn = _norm1(cfg, p, h, hx)
+    if kind in ATTN_KINDS:
+        inner, cache = m.attention_step(p["inner"], hn, cache, pos, cfg,
+                                        local=kind == "local")
+    else:
+        inner, cache = m.recurrent_step(p["inner"], hn, cache, cfg)
+    return (*_ffn_tail(cfg, p, h, inner), cache)
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: list,
                 tokens: torch.Tensor, pos: torch.Tensor):
     """One decode step against the dense cache (``decode_step`` :380).
-    tokens [B, 1], pos [B] -> (logits [B, 1, V], caches), each layer's
-    cache written in place at slot ``pos``."""
+    tokens [B, 1], pos [B] -> (logits [B, 1, V], caches), each attention
+    layer's cache written in place at slot ``pos`` (``pos % ring`` for a
+    rolling one)."""
     h = params["embed"][tokens].to(BF16)
-    new = []
-    for p, c in zip(params["blocks"], caches):
-        h, c = block_step(cfg, p, h, c, pos)
+    new, hx = [], None
+    for layer, (kind, p, c) in enumerate(zip(layer_kinds(cfg),
+                                             params["blocks"], caches)):
+        h, hx, c = block_step(cfg, kind, p, h, c, pos,
+                              hx if reads_unrounded(cfg, layer) else None)
         new.append(c)
     h = m.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, h), new
 
 
-def block_step_paged(cfg: ModelConfig, p: dict, h: torch.Tensor,
-                     planes: dict, meta: dict, pos: torch.Tensor):
-    """Decode block against the paged KV pool: (h, new-token K/V)."""
-    hn = m.rms_norm(h, p["norm1"], cfg.norm_eps)
+def block_step_paged(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
+                     planes: dict, meta: dict, state: dict | None,
+                     pos: torch.Tensor, hx=None):
+    """Decode block against the paged KV pool (``block_step_paged`` :202):
+    an attention layer reads its pages through the fused kernel and
+    returns its new-token K/V; a recurrent layer steps its state from the
+    device state store.  Returns (h, unrounded h, new K/V or new
+    state)."""
+    if kind not in ATTN_KINDS:
+        return block_step(cfg, kind, p, h, state, pos, hx)
+    hn = _norm1(cfg, p, h, hx)
     inner, new_kv = m.paged_attention_step(p["inner"], hn, planes, meta, pos,
                                            cfg)
-    return _ffn_tail(cfg, p, h, inner), new_kv
+    return (*_ffn_tail(cfg, p, h, inner), new_kv)
 
 
 def decode_step_paged(cfg: ModelConfig, params: dict, planes: dict,
-                      meta: dict, tokens: torch.Tensor, pos: torch.Tensor):
-    """One decode step with the KV cache in page form on the device.
+                      meta: dict, states: list, tokens: torch.Tensor,
+                      pos: torch.Tensor):
+    """One decode step with the KV cache in page form on the device
+    (``decode_step_paged`` :408).
 
-    ``meta`` is ``PagedKVCache.step_meta``'s dict of per-layer stacks;
-    tokens [B, 1], pos [B].  Returns ``(logits [B, 1, V], new_kv)`` where
-    new_kv stacks every layer's quantized new-token K/V ([L, B, ...]) for
-    ``device_append``."""
+    ``meta`` is ``PagedKVCache.step_meta``'s dict of stacks over the
+    attention layers, in layer order; ``states`` the device state store
+    (``init_state_store``): one state dict per recurrent layer, None at
+    attention layers.  tokens [B, 1], pos [B].  Returns ``(logits [B, 1,
+    V], new_kv, new_states)``: new_kv stacks every attention layer's
+    quantized new-token K/V ([A, B, ...]) for ``device_append``, and
+    new_states is the state store after the step (``states_from_step``
+    :457)."""
     h = params["embed"][tokens].to(BF16)
-    news = []
-    for layer, p in enumerate(params["blocks"]):
-        lm = {k: meta[k][layer] for k in ("pid", "tid", "kmeta", "qw")}
-        h, new = block_step_paged(cfg, p, h, planes, lm, pos)
-        news.append(new)
+    news, new_states, hx = [], [], None
+    i = 0
+    for layer, (kind, p, st) in enumerate(zip(layer_kinds(cfg),
+                                              params["blocks"], states)):
+        lm = None
+        if kind in ATTN_KINDS:
+            lm = {k: meta[k][i] for k in ("pid", "tid", "kmeta", "qw")}
+            i += 1
+        h, hx, new = block_step_paged(
+            cfg, kind, p, h, planes, lm, st, pos,
+            hx if reads_unrounded(cfg, layer) else None)
+        if kind in ATTN_KINDS:
+            news.append(new)
+            new_states.append(None)
+        else:
+            new_states.append(new)
     h = m.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    new_kv = {f: torch.stack([n[f] for n in news]) for f in news[0]}
-    return _head(params, h), new_kv
+    new_kv = ({f: torch.stack([n[f] for n in news]) for f in news[0]}
+              if news else {})
+    return _head(params, h), new_kv, new_states
+
+
+def init_state_store(cfg: ModelConfig, batch: int, device=None) -> list:
+    """Device store of the recurrent layers' states (``init_state_store``
+    :457): a zero state per recurrent layer, None at attention layers
+    (their KV lives in the page pool)."""
+    dev = resolve(device)
+    return [None if kind in ATTN_KINDS
+            else m.init_recurrent_cache(cfg, batch, dev)
+            for kind in layer_kinds(cfg)]
 
 
 def device_append(planes: dict, new_kv: dict, targets: dict) -> None:
-    """On-device page append, in place: scatter each active (layer, slot)
-    new-token K/V into the HOT token planes at the (page, offset) slots
-    claimed by ``PagedKVCache.claim_append_targets``.  Idle slots are not
-    in ``targets`` (the host builds the index lists), so nothing is
-    dropped on the device and no mask needs a host round trip."""
+    """On-device page append (``device_append`` :488), in place: scatter
+    each active (attention layer, slot) new-token K/V into the HOT token
+    planes at the (page, offset) slots claimed by
+    ``PagedKVCache.claim_append_targets``.  Idle slots are not in
+    ``targets`` (the host builds the index lists), so nothing is dropped
+    on the device and no mask needs a host round trip."""
+    if not new_kv:
+        return
     rows, pid, off = targets["row"], targets["pid"], targets["off"]
     for f, name in (("k", "tok_k"), ("v", "tok_v"), ("k_scale", "tok_sk"),
                     ("v_scale", "tok_sv")):
@@ -343,15 +478,23 @@ class DevicePoolPlanes:
 
 class PagedKVCache:
     """Paged, APack-compressed KV cache for ``kv_cache_dtype="apack-int8"``
-    on stacks of global attention layers (``PagedKVCache`` :944).
+    (``PagedKVCache`` :944), over stacks of global and rolling (``local``)
+    attention layers and recurrent layers, prefix or cycled.
 
-    Each request owns a per-layer list of page ids; token ``t`` lives at
-    page ``t // page_size``, offset ``t % page_size``.  Each layer x {K, V}
-    gets its own activation-mode table, calibrated from the histogram of
-    the layer's first ``calib_pages`` sealed pages; pages sealed before
-    that stay COLD and are packed the moment the table exists.  Reads go
+    Each request owns a per-layer list of page ids; token ``t`` of a
+    global layer lives at page ``t // page_size``, offset ``t %
+    page_size``.  A rolling layer keeps the same layout past its
+    ``page_base`` (pages that have rolled out of the window return to the
+    pool, ``evict_rolled``), so it holds at most ``window_pages`` pages.
+    A recurrent layer's fixed-size state stays dense (``states``, or the
+    device state store in fused mode) and is APack-coded only at
+    snapshots (``snapshot_state``).  Each attention layer x {K, V} gets its
+    own activation-mode table, calibrated from the histogram of the
+    layer's first ``calib_pages`` sealed pages; pages sealed before that
+    stay COLD and are packed the moment the table exists.  Reads go
     through the fused gather-decode attention kernel; ``traffic`` counts
-    what they would move off-chip, compressed vs dense int8."""
+    what they would move off-chip, compressed vs dense int8, per stream
+    kind."""
 
     def __init__(self, cfg: ModelConfig, num_pages: int, *,
                  page_size: int = 16, calib_pages: int = 4,
@@ -361,8 +504,15 @@ class PagedKVCache:
         self.device = resolve(device)
         self.page_size = page_size
         self.calib_pages = calib_pages
-        self.n_layers = cfg.num_layers
-        self.attn_layers = list(range(self.n_layers))
+        self.layer_kinds = layer_kinds(cfg)
+        self.n_layers = len(self.layer_kinds)
+        self.attn_layers = [i for i, k in enumerate(self.layer_kinds)
+                            if k in ATTN_KINDS]
+        self.local_layers = [i for i, k in enumerate(self.layer_kinds)
+                             if k == "local"]
+        self.state_layers = [i for i, k in enumerate(self.layer_kinds)
+                             if k in STATE_KINDS]
+        self.window = cfg.window_size
         self.pool = m.KVPagePool(num_pages, page_size, cfg.num_kv_heads,
                                  cfg.head_dim, elems_per_stream,
                                  device=self.device)
@@ -373,20 +523,33 @@ class PagedKVCache:
         self._packed: list[set[int]] = [set() for _ in range(self.n_layers)]
         self._table_stack = None
         self.page_tables: dict[int, list[list[int]]] = {}
+        self.page_base: dict[int, list[int]] = {}     # evicted-page count
+        # rid -> {state layer -> {"h", "conv"}} (device tensors, no batch)
+        self.states: dict[int, dict[int, dict]] = {}
         self.seq_len: dict[int, int] = {}
         self.traffic = {"kv_raw_bytes": 0, "kv_read_bytes": 0,
                         "kv_table_bytes": 0, "kv_pages_packed": 0,
-                        "kv_raw_bytes_global": 0, "kv_read_bytes_global": 0}
+                        "kv_raw_bytes_global": 0, "kv_read_bytes_global": 0,
+                        "kv_raw_bytes_local": 0, "kv_read_bytes_local": 0,
+                        "state_raw_bytes": 0, "state_snapshot_bytes": 0,
+                        "state_snapshots": 0}
         # host<->device accounting: every KV-path transfer goes through
         # _fetch/_put
         self.transfers = {"h2d_bytes": 0, "d2h_bytes": 0,
                           "h2d_calls": 0, "d2h_calls": 0}
         self.dev: DevicePoolPlanes | None = None
+        self.dev_states: list | None = None
         self._tables_dirty = False
 
     # ------------------------------------------------------------ sizing
     def pages_per_seq(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
+
+    @property
+    def window_pages(self) -> int:
+        """Most live pages of a rolling layer: the window can straddle one
+        more page boundary than ``ceil(window / page_size)`` covers."""
+        return -(-self.window // self.page_size) + 1
 
     def pages_needed(self, n_tokens: int) -> int:
         return self.pages_for_config(self.cfg, n_tokens, self.page_size)
@@ -394,9 +557,18 @@ class PagedKVCache:
     @staticmethod
     def pages_for_config(cfg: ModelConfig, n_tokens: int,
                          page_size: int) -> int:
-        """Worst-case per-request page count: every global layer holds the
-        full sequence."""
-        return cfg.num_layers * -(-n_tokens // page_size)
+        """Worst-case per-request page count (``pages_for_config`` :1135):
+        a global layer holds the full sequence, a rolling one at most
+        ``window_pages``, a recurrent one none."""
+        full = -(-n_tokens // page_size)
+        rolling = min(full, -(-cfg.window_size // page_size) + 1)
+        kinds = layer_kinds(cfg)
+        return full * kinds.count("global") + rolling * kinds.count("local")
+
+    def _ring(self, max_len: int) -> int:
+        """A rolling layer's dense-cache width (``_ring`` :1331, as
+        ``init_attention_cache``)."""
+        return min(self.window, max_len)
 
     def kv_ratio(self) -> float | None:
         """Cumulative compressed-vs-raw KV read traffic (< 1.0 is a win);
@@ -408,10 +580,21 @@ class PagedKVCache:
                 + self.traffic["kv_table_bytes"]) / raw
 
     def stream_stats(self) -> dict:
-        raw = self.traffic["kv_raw_bytes_global"]
-        read = self.traffic["kv_read_bytes_global"]
-        return {"global": {"raw_bytes": raw, "read_bytes": read,
-                           "ratio": (read / raw) if raw else None}}
+        """Per-stream accounting (``stream_stats`` :1166): global and
+        rolling KV reads, recurrent-state snapshot bytes.  Stream ratios
+        are payload-only (table bytes count once, in ``kv_ratio``)."""
+        out = {}
+        for kind in ("global", "local"):
+            raw = self.traffic[f"kv_raw_bytes_{kind}"]
+            read = self.traffic[f"kv_read_bytes_{kind}"]
+            out[kind] = {"raw_bytes": raw, "read_bytes": read,
+                         "ratio": (read / raw) if raw else None}
+        raw = self.traffic["state_raw_bytes"]
+        comp = self.traffic["state_snapshot_bytes"]
+        out["state"] = {"raw_bytes": raw, "snapshot_bytes": comp,
+                        "snapshots": self.traffic["state_snapshots"],
+                        "ratio": (comp / raw) if raw else None}
+        return out
 
     # -------------------------------------------------------- transfers
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
@@ -436,6 +619,8 @@ class PagedKVCache:
         if rid in self.page_tables:
             raise ValueError(f"duplicate request id {rid}")
         self.page_tables[rid] = [[] for _ in range(self.n_layers)]
+        self.page_base[rid] = [0] * self.n_layers
+        self.states[rid] = {}
         self.seq_len[rid] = 0
 
     def release(self, rid: int) -> None:
@@ -446,6 +631,8 @@ class PagedKVCache:
                 self._packed[layer].discard(pid)
                 freed.append(pid)
         self.pool.free(freed)
+        del self.page_base[rid]
+        del self.states[rid]
         del self.seq_len[rid]
 
     # ------------------------------------------------------------ appends
@@ -454,10 +641,11 @@ class PagedKVCache:
         fresh one at page boundaries."""
         pids = self.page_tables[rid][layer]
         if t % self.page_size == 0:
-            if t // self.page_size != len(pids):
+            base = self.page_base[rid][layer]
+            if t // self.page_size != base + len(pids):
                 raise RuntimeError(
                     f"page-table desync for rid={rid} layer={layer}: token "
-                    f"{t} vs live={len(pids)}")
+                    f"{t} vs base={base} live={len(pids)}")
             pid = self.pool.alloc()
             if pid is None:
                 raise RuntimeError("page pool exhausted mid-flight "
@@ -466,8 +654,10 @@ class PagedKVCache:
         return pids[-1]
 
     def append_token(self, rid: int, kq, vq, ks, vs) -> None:
-        """Host append of one token's KV for every layer.  kq/vq:
-        [n_layers, H, dh] int8; ks/vs: [n_layers, H] f32."""
+        """Host append of one token's KV for every attention layer, then
+        rolling eviction (``append_token`` :1272).  kq/vq: [n_layers, H,
+        dh] int8; ks/vs: [n_layers, H] f32; rows of recurrent layers are
+        ignored."""
         t = self.seq_len[rid]
         events = []
         for layer in self.attn_layers:
@@ -478,35 +668,91 @@ class PagedKVCache:
                 events.append((layer, pid))
         self.seq_len[rid] = t + 1
         self._seal(events)
+        self.evict_rolled(rid)
+
+    def evict_rolled(self, rid: int) -> None:
+        """Rolling-window eviction (``evict_rolled`` :1287): free every
+        rolling-layer page whose tokens have all left the window.  With the
+        next decode position at ``qpos = seq_len`` the mask keeps ``kpos >
+        qpos - window``, so page ``p`` is dead once ``(p + 1) * ps - 1 <=
+        qpos - window``; only the oldest live pages can die, and they are
+        sealed.  All of a call's pages return in one pool call, in layer
+        and page order."""
+        qpos = self.seq_len[rid]
+        ps = self.page_size
+        gone = []
+        for layer in self.local_layers:
+            pids = self.page_tables[rid][layer]
+            base = self.page_base[rid][layer]
+            dead = 0
+            while dead < len(pids) and \
+                    (base + dead + 1) * ps - 1 <= qpos - self.window:
+                dead += 1
+            if not dead:
+                continue
+            for pid in pids[:dead]:
+                self._cold[layer].discard(pid)
+                self._packed[layer].discard(pid)
+                gone.append(pid)
+            del pids[:dead]
+            self.page_base[rid][layer] = base + dead
+        if gone:
+            self.pool.evict(gone)
 
     def ingest_prefill(self, rid: int, caches: list, s: int) -> None:
         """Chop a batch-1 prefill cache (one dict per layer, positions
         ``[0, s)`` real) into pages on the device, in token order; full
-        pages seal in page order."""
+        pages seal in page order (``ingest_prefill`` :1398-1475).
+
+        A rolling layer's cache is the ring of its last ``window``
+        positions: pages that have wholly rolled out are skipped
+        (``page_base`` starts past them), and positions of the first kept
+        page older than the window ingest as zeros, which count in the
+        page's fill, seal scale and calibration histogram as in the
+        reference.  A recurrent layer stores its final state.  Then the
+        rolled-out pages are evicted."""
         ps = self.page_size
-        n = self.pages_per_seq(s)
         events = []
         pool = self.pool
         for layer in self.attn_layers:
-            pids = [self._claim_page(rid, layer, i * ps) for i in range(n)]
-            idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
             c = caches[layer]
+            if self.layer_kinds[layer] == "local":
+                w = c["k"].shape[1]                  # ring width == window
+                first = max(0, s - w) // ps
+            else:
+                w, first = None, 0
+            self.page_base[rid][layer] = first
+            n = self.pages_per_seq(s) - first
+            t0 = first * ps
+            pids = [self._claim_page(rid, layer, t0 + i * ps)
+                    for i in range(n)]
+            idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+            t = torch.arange(t0, s, device=self.device)
+            if w is None:
+                src, dst = t, t - t0
+            else:
+                live = t >= s - w
+                src, dst = t[live] % w, t[live] - t0
             for kind, (q, sc) in enumerate(((c["k"], c["k_scale"]),
                                             (c["v"], c["v_scale"]))):
                 qbuf = q.new_zeros(n * ps, *q.shape[2:])
-                qbuf[:s] = q[0, :s]
+                qbuf[dst] = q[0, src]
                 sbuf = sc.new_zeros(n * ps, *sc.shape[2:])
-                sbuf[:s] = sc[0, :s]
+                sbuf[dst] = sc[0, src]
                 pool.tok_q[kind].index_copy_(
                     0, idx, qbuf.reshape(n, ps, *q.shape[2:]))
                 pool.tok_scale[kind].index_copy_(
                     0, idx, sbuf.reshape(n, ps, *sc.shape[2:]))
             for i, pid in enumerate(pids):
-                pool.fill[pid] = min(ps, s - i * ps)
+                pool.fill[pid] = min(ps, s - t0 - i * ps)
                 if pool.fill[pid] == ps:
                     events.append((layer, pid))
+        for layer in self.state_layers:
+            self.states[rid][layer] = {f: x[0] for f, x in
+                                       caches[layer].items()}
         self.seq_len[rid] = s
         self._seal(events)
+        self.evict_rolled(rid)
 
     # ------------------------------------------------- seal/calibrate/pack
     def _seal(self, events: list) -> None:
@@ -608,8 +854,8 @@ class PagedKVCache:
 
     def _tables_stacked(self):
         """np table arrays [2 * n_layers, ...] at row ``table_row(0, layer,
-        kind)``; rows of uncalibrated layers stay zero and are never
-        referenced (PACKED requires a table)."""
+        kind)``; rows of uncalibrated and recurrent layers stay zero and
+        are never referenced (PACKED requires a table)."""
         if self._table_stack is None:
             rows = self.n_table_rows
             vm = np.zeros((rows, 17), np.int32)
@@ -625,10 +871,15 @@ class PagedKVCache:
         return self._table_stack
 
     # ---------------------------------------------- device-resident mode
-    def enable_device_pool(self) -> None:
+    def enable_device_pool(self, max_batch: int | None = None) -> None:
         """Expose the pool to the fused kernel (``enable_device_pool``
-        :2079): kind-split plane views and the device table stack."""
+        :2079): kind-split plane views and the device table stack; with
+        ``max_batch``, also the device state store of the recurrent layers
+        (``init_state_store``), which the fused step carries."""
         self.dev = DevicePoolPlanes(self.pool, max(2, self.n_table_rows))
+        if max_batch is not None:
+            self.dev_states = init_state_store(self.cfg, max_batch,
+                                               self.device)
         self._tables_dirty = True
         self._flush_tables()
 
@@ -645,16 +896,18 @@ class PagedKVCache:
 
     def claim_append_targets(self, slot_rids: list) -> dict:
         """Host half of the on-device append: the (page, offset) each
-        active (layer, slot) writes, as index tensors for ``device_append``
-        (row = layer * B + slot into the stacked new-token K/V)."""
+        active (attention layer, slot) writes, as index tensors for
+        ``device_append`` (row = i * B + slot into the new-token K/V
+        stacked over the attention layers, i the layer's place among
+        them)."""
         b = len(slot_rids)
         rows, pids, offs = [], [], []
         for slot, rid in enumerate(slot_rids):
             if rid is None:
                 continue
             t = self.seq_len[rid]
-            for layer in self.attn_layers:
-                rows.append(layer * b + slot)
+            for i, layer in enumerate(self.attn_layers):
+                rows.append(i * b + slot)
                 pids.append(self._claim_page(rid, layer, t))
                 offs.append(t % self.page_size)
         buf = self._put(np.asarray([rows, pids, offs], np.int64))
@@ -662,8 +915,12 @@ class PagedKVCache:
 
     def note_appended(self, slot_rids: list) -> None:
         """Metadata half of the on-device append (``note_appended``
-        :2254): advance fills and sequence lengths and seal the pages that
-        just filled — their payload is already on the device."""
+        :2254): advance fills and sequence lengths, seal the pages that
+        just filled (their payload is already on the device) and evict
+        rolled-out pages.  Seals batch over the step's slots; with rolling
+        layers they run per slot, before that slot's eviction, as the
+        reference orders them (a calibration there may pack a page that a
+        later slot's eviction frees)."""
         events = []
         for slot, rid in enumerate(slot_rids):
             if rid is None:
@@ -674,45 +931,120 @@ class PagedKVCache:
                 if int(self.pool.fill[pid]) == self.page_size:
                     events.append((layer, pid))
             self.seq_len[rid] += 1
+            if self.local_layers:
+                self._seal(events)
+                events = []
+                self.evict_rolled(rid)
         self._seal(events)
 
     def append_step_tokens(self, caches: list, slot_rids: list,
                            positions) -> None:
         """Move what a dense decode step wrote back into pages
-        (``append_step_tokens`` :1335, global layers): each active slot's
-        token at ``positions[slot]`` of every layer's cache.  The JAX
-        package pulls the tokens to the host and calls ``append_token`` per
-        slot; here they stay on the device and take the fused path's
-        append (``claim_append_targets``, ``device_append``,
-        ``note_appended``), which claims the same pages in the same order
-        and seals them in one batch with the same per-page calibration
+        (``append_step_tokens`` :1335): each active slot's token at
+        ``positions[slot]`` (ring slot ``pos % ring`` on a rolling layer)
+        of every attention layer's cache, and the whole new state of every
+        recurrent layer.  The JAX package pulls the tokens to the host and
+        calls ``append_token`` per slot; here they stay on the device and
+        take the fused path's append (``claim_append_targets``,
+        ``device_append``, ``note_appended``), which claims the same pages
+        in the same order and seals them with the same calibration
         order."""
         b = len(slot_rids)
         pos = self._put(np.asarray(positions, np.int64))
         rows = torch.arange(b, device=self.device)
-        new_kv = {f: torch.stack([c[f] for c in caches])[:, rows, pos]
-                  for f in ("k", "v", "k_scale", "v_scale")}
+        new_kv = {}
+        if self.attn_layers:
+            slots = [pos % caches[layer]["k"].shape[1]
+                     if self.layer_kinds[layer] == "local" else pos
+                     for layer in self.attn_layers]
+            new_kv = {f: torch.stack([caches[layer][f][rows, sl] for layer, sl
+                                      in zip(self.attn_layers, slots)])
+                      for f in ("k", "v", "k_scale", "v_scale")}
         pool = self.pool
         planes = {"tok_k": pool.tok_q[0], "tok_v": pool.tok_q[1],
                   "tok_sk": pool.tok_scale[0], "tok_sv": pool.tok_scale[1]}
         device_append(planes, new_kv, self.claim_append_targets(slot_rids))
+        for slot, rid in enumerate(slot_rids):
+            if rid is None:
+                continue
+            for layer in self.state_layers:
+                self.states[rid][layer] = {
+                    f: x[slot].clone() for f, x in caches[layer].items()}
         self.note_appended(slot_rids)
+
+    # ------------------------------------------- device-resident states
+    def read_state_slot(self, slot: int) -> dict:
+        """One slot's recurrent states from the device store
+        (``read_state_slot`` :2304), copied: a preemption boundary, never
+        the steady-state step."""
+        return {layer: {f: x[slot].clone()
+                        for f, x in self.dev_states[layer].items()}
+                for layer in self.state_layers}
+
+    def write_state_slot(self, slot: int, rid: int) -> None:
+        """Write ``states[rid]`` (prefill ingest or snapshot restore) into
+        the device store at ``slot`` (``write_state_slot`` :2316)."""
+        for layer in self.state_layers:
+            st = self.states[rid].get(layer)
+            if st is None:
+                raise RuntimeError(
+                    f"request {rid} has no state for layer {layer} "
+                    "(prefill not ingested?)")
+            for f, v in st.items():
+                self.dev_states[layer][f][slot] = v
+
+    def _pull_states(self, slot_rids: list) -> None:
+        """Bring the device store's states of the active slots into
+        ``states`` (``_pull_states`` :2332)."""
+        if self.dev_states is None or not self.state_layers:
+            return
+        for slot, rid in enumerate(slot_rids):
+            if rid is not None and rid in self.states:
+                self.states[rid] = self.read_state_slot(slot)
 
     # ------------------------------------------------- state snapshots
     def snapshot_state(self, rid: int) -> dict:
-        """Preemption checkpoint of a request's fixed-size recurrent states
-        (``snapshot_state`` :1865).  Attention KV needs none: it already
-        lives compressed in the page pool.  The stacks this slice serves
-        hold global attention layers only (``check_supported`` refuses
-        state layers), so the blob is always the empty one."""
-        return {"manifest": [], "planes": None}
+        """Preemption checkpoint of a request's recurrent states
+        (``snapshot_state`` :1865): every state layer's fields, in layer
+        and sorted-field order, flattened into one f32 stream coded by
+        ``byteplane.compress_float(table_mode="weight")`` (the f32 byte
+        planes through the encode kernel on the card; the state is fully
+        profiled, so weight-mode tables need no slack).  Attention KV
+        needs none: it already lives compressed in the page pool."""
+        manifest: list[tuple[int, str, tuple[int, ...]]] = []
+        parts: list[torch.Tensor] = []
+        for layer in self.state_layers:
+            st = self.states[rid].get(layer)
+            if st is None:
+                raise RuntimeError(
+                    f"request {rid} has no state for layer {layer} "
+                    "(prefill not ingested?)")
+            for f in sorted(st):
+                arr = st[f].to(F32).contiguous()
+                manifest.append((layer, f, tuple(arr.shape)))
+                parts.append(arr.reshape(-1))
+        if not parts:
+            return {"manifest": [], "planes": None}
+        flat = torch.cat(parts)
+        planes = byteplane.compress_float(flat, table_mode="weight")
+        self.traffic["state_raw_bytes"] += flat.numel() * 4
+        self.traffic["state_snapshot_bytes"] += planes.total_bits // 8
+        self.traffic["state_snapshots"] += 1
+        return {"manifest": manifest, "planes": planes}
 
     def restore_state(self, rid: int, snap: dict) -> None:
-        """Inverse of :meth:`snapshot_state` (``restore_state`` :1898)."""
-        if snap["planes"] is not None or snap["manifest"]:
-            raise NotImplementedError(
-                "recurrent-state snapshots are not ported yet (ROADMAP open "
-                "item 1.7, heterogeneous stacks)")
+        """Decode a ``snapshot_state`` blob back into ``states[rid]``, bit
+        for bit (``restore_state`` :1898; the decode kernel on the
+        card)."""
+        if snap["planes"] is None:
+            return
+        flat = byteplane.decompress_float(snap["planes"], device=self.device)
+        off = 0
+        for layer, f, shape in snap["manifest"]:
+            n = int(np.prod(shape))
+            self.states[rid].setdefault(layer, {})[f] = \
+                flat[off:off + n].reshape(shape).clone()
+            off += n
 
     # --------------------------------------------------- step metadata
     def meta_pages(self, max_len: int, slot_rids: list) -> int:
@@ -729,61 +1061,88 @@ class PagedKVCache:
 
     def step_meta(self, slot_rids: list, max_len: int) -> dict:
         """Per-step page-table metadata (``step_meta`` :2362), stacked over
-        layers: ``pid``/``tid``/``state``/``t0`` int32 [L, B, P], ``qw``
-        int32 [L, B, 2] and the kernel's ``kmeta`` [L, B, P, 2] = (state,
-        t0).  One upload per step; also accrues the read traffic."""
+        the attention layers: ``pid``/``tid``/``state``/``t0`` int32 [A, B,
+        P], ``qw`` int32 [A, B, 2] = (qpos, window), the window being
+        ``_ring(max_len)`` on a rolling layer and 0 on a global one, and
+        the kernel's ``kmeta`` [A, B, P, 2] = (state, t0), ``t0`` counting
+        from the layer's ``page_base``.  One upload per step; also accrues
+        the read traffic."""
         b = len(slot_rids)
         pn = self.meta_pages(max_len, slot_rids)
-        nl, ps = self.n_layers, self.page_size
-        pid = np.zeros((nl, b, pn), np.int32)
+        na, nl, ps = len(self.attn_layers), self.n_layers, self.page_size
+        ring = self._ring(max_len)
+        pid = np.zeros((na, b, pn), np.int32)
         tid = np.broadcast_to(
-            (2 * np.arange(nl, dtype=np.int32))[:, None, None],
-            (nl, b, pn)).copy()
-        kmeta = np.zeros((nl, b, pn, 2), np.int32)        # FREE: masked
-        qw = np.zeros((nl, b, 2), np.int32)
+            (2 * np.asarray(self.attn_layers, np.int32))[:, None, None],
+            (na, b, pn)).copy()
+        kmeta = np.zeros((na, b, pn, 2), np.int32)        # FREE: masked
+        qw = np.zeros((na, b, 2), np.int32)
         for slot, rid in enumerate(slot_rids):
             if rid is None:
                 continue
             qw[:, slot, 0] = self.seq_len[rid]
-            for layer in self.attn_layers:
+            for i, layer in enumerate(self.attn_layers):
                 pids = self.page_tables[rid][layer]
                 k = len(pids)
-                pid[layer, slot, :k] = pids
-                tid[layer, slot, :k] = table_row(0, layer, 0, nl)
-                kmeta[layer, slot, :k, 0] = self.pool.state[pids]
-                kmeta[layer, slot, :k, 1] = np.arange(k) * ps
-        self._accrue_read_traffic(slot_rids)
+                base = self.page_base[rid][layer]
+                pid[i, slot, :k] = pids
+                tid[i, slot, :k] = table_row(0, layer, 0, nl)
+                kmeta[i, slot, :k, 0] = self.pool.state[pids]
+                kmeta[i, slot, :k, 1] = (base + np.arange(k)) * ps
+                if self.layer_kinds[layer] == "local":
+                    qw[i, slot, 1] = ring
+        self._accrue_read_traffic(slot_rids, max_len)
         flat = self._put(np.concatenate([pid.ravel(), tid.ravel(),
                                          kmeta.ravel(), qw.ravel()]))
         n1 = pid.size
-        out = {"pid": flat[:n1].view(nl, b, pn),
-               "tid": flat[n1:2 * n1].view(nl, b, pn),
-               "kmeta": flat[2 * n1:4 * n1].view(nl, b, pn, 2),
-               "qw": flat[4 * n1:].view(nl, b, 2)}
+        out = {"pid": flat[:n1].view(na, b, pn),
+               "tid": flat[n1:2 * n1].view(na, b, pn),
+               "kmeta": flat[2 * n1:4 * n1].view(na, b, pn, 2),
+               "qw": flat[4 * n1:].view(na, b, 2)}
         out["state"] = out["kmeta"][..., 0]
         out["t0"] = out["kmeta"][..., 1]
         return out
 
-    def _accrue_read_traffic(self, slot_rids: list) -> None:
-        """Charge the per-step KV read traffic: every page of every active
-        slot, compressed as stored vs dense int8 (``_accrue_read_traffic``
-        :2418, global layers)."""
-        pool = self.pool
-        raw = read = 0
+    def _accrue_read_traffic(self, slot_rids: list, max_len: int) -> None:
+        """Charge the per-step KV read traffic (``_accrue_read_traffic``
+        :2418): every page of every active slot, compressed as stored vs
+        dense int8, per stream kind.  A rolling layer's partly rolled-out
+        page charges only its live token range, ``ceil(bytes * live /
+        tokens)``."""
+        pool, ps = self.pool, self.page_size
+        ring = self._ring(max_len)
+        raw = {"global": 0, "local": 0}
+        read = {"global": 0, "local": 0}
         for rid in slot_rids:
             if rid is None:
                 continue
+            qpos = self.seq_len[rid]
             for layer in self.attn_layers:
-                for pid in self.page_tables[rid][layer]:
-                    n_tok = (int(pool.fill[pid])
-                             if pool.state[pid] == m.PAGE_HOT
-                             else self.page_size)
-                    raw += pool.dense_bytes(n_tok)
-                    read += pool.page_bytes(pid)
-        self.traffic["kv_raw_bytes_global"] += raw
-        self.traffic["kv_read_bytes_global"] += read
-        self.traffic["kv_raw_bytes"] += raw
-        self.traffic["kv_read_bytes"] += read
+                pids = np.asarray(self.page_tables[rid][layer], np.int64)
+                if not len(pids):
+                    continue
+                kind = self.layer_kinds[layer]
+                n_tok = np.where(pool.state[pids] == m.PAGE_HOT,
+                                 pool.fill[pids], ps).astype(np.int64)
+                charged = pool.page_bytes(pids)
+                if kind == "local":
+                    t0 = (self.page_base[rid][layer]
+                          + np.arange(len(pids))) * ps
+                    lo = np.maximum(t0, qpos - ring)
+                    n_live = np.clip(t0 + n_tok - lo, 0, n_tok)
+                    part = n_live < n_tok
+                    charged = np.where(part, -(-charged * n_live
+                                               // np.maximum(n_tok, 1)),
+                                       charged)
+                else:
+                    n_live = n_tok
+                raw[kind] += int(pool.dense_bytes(n_live).sum())
+                read[kind] += int(charged.sum())
+        for kind in ("global", "local"):
+            self.traffic[f"kv_raw_bytes_{kind}"] += raw[kind]
+            self.traffic[f"kv_read_bytes_{kind}"] += read[kind]
+        self.traffic["kv_raw_bytes"] += raw["global"] + raw["local"]
+        self.traffic["kv_read_bytes"] += read["global"] + read["local"]
 
     # -------------------------------------------------------- materialize
     def _device_tables(self):
@@ -796,19 +1155,25 @@ class PagedKVCache:
 
     def materialize(self, slot_rids: list, max_len: int, *,
                     decode=gather_decode) -> list[dict]:
-        """Rebuild the dense int8 cache of the active batch from the pool,
-        one dict per layer of ``k``/``v`` int8 [B, max_len, H, dh] and
-        ``k_scale``/``v_scale`` f32 [B, max_len, H] (``materialize``
-        :2465, global layers).  Also accrues the step's read traffic, as
+        """Rebuild the dense cache of the active batch from the pool, one
+        dict per network layer (``materialize`` :2465): for an attention
+        layer ``k``/``v`` int8 [B, span, H, dh] and ``k_scale``/
+        ``v_scale`` f32 [B, span, H], span ``max_len`` on a global layer and
+        ``_ring(max_len)`` on a rolling one; for a recurrent layer its
+        state ``{"h", "conv"}`` stacked over the slots (zeros, the init
+        state, for an idle slot).  Also accrues the step's read traffic, as
         the fused path's ``step_meta`` does.
 
-        Token ``t`` of a page lands at absolute position ``t0 + t``: HOT
-        tokens with their per-token scales, COLD tokens with the page's
-        scale per head, and PACKED pages decoded, all layers in one
-        ``decode`` call per K/V kind (the gather-decode kernel), the page
-        and table-row vectors padded to ``gather_bucket`` by repeating the
-        last entry.  ``decode`` is there so a check can build the same
-        cache through the plain version; the engine never passes it.
+        Token ``t`` of a page lands at position ``t`` of a global layer and
+        ring slot ``t % ring`` of a rolling one, where only the live
+        positions ``t >= qpos - ring`` are placed: HOT tokens with their
+        per-token scales, COLD tokens with the page's scale per head, and
+        PACKED pages decoded, all layers in one ``decode`` call per K/V
+        kind (the gather-decode kernel), the page and table-row vectors
+        padded to ``gather_bucket`` by repeating the last entry.
+        ``decode`` is there so a check can build the same cache through
+        the plain version; the engine never passes it.  In fused mode the
+        states come from the device store first (``_pull_states``).
 
         The JAX package materializes from its host mirror and first pulls
         the device-resident HOT pages into it (``sync_hot_to_host``); this
@@ -816,48 +1181,83 @@ class PagedKVCache:
         built on the device from the pool's own tensors, with a few batched
         index writes per step and no per-page copies."""
         pool = self.pool
-        self._accrue_read_traffic(slot_rids)
-        b, nl = len(slot_rids), self.n_layers
+        self._pull_states(slot_rids)
+        self._accrue_read_traffic(slot_rids, max_len)
+        b, na = len(slot_rids), len(self.attn_layers)
         h, dh, ps = pool.kv_heads, pool.head_dim, self.page_size
-        kq = torch.zeros(2, nl, b, max_len, h, dh, dtype=torch.int8,
+        ring = self._ring(max_len)
+        span = max_len if "global" in self.layer_kinds else ring
+        kq = torch.zeros(2, na, b, span, h, dh, dtype=torch.int8,
                          device=self.device)
-        ks = torch.zeros(2, nl, b, max_len, h, dtype=F32, device=self.device)
-        # one row per page: (state, layer, slot, t0, n_tok, pid, job), job
-        # = the page's place in the gather list (PACKED pages only)
+        ks = torch.zeros(2, na, b, span, h, dtype=F32, device=self.device)
+        # one row per page: (state, attention index, slot, t0, n_tok, pid,
+        # job, ring (0: global), qpos), job = the page's place in the
+        # gather list (PACKED pages only)
         pages, jobs = [], []
         for slot, rid in enumerate(slot_rids):
             if rid is None:
                 continue
-            for layer in self.attn_layers:
+            qpos = self.seq_len[rid]
+            for i, layer in enumerate(self.attn_layers):
+                local = self.layer_kinds[layer] == "local"
+                base = self.page_base[rid][layer]
                 for k_, pid in enumerate(self.page_tables[rid][layer]):
                     st = int(pool.state[pid])
                     n_tok = int(pool.fill[pid]) if st == m.PAGE_HOT else ps
-                    t0 = k_ * ps
-                    pages.append((st, layer, slot, t0,
-                                  min(n_tok, max_len - t0), pid,
-                                  len(jobs) if st == m.PAGE_PACKED else 0))
+                    t0 = (base + k_) * ps
+                    if not local:
+                        n_tok = min(n_tok, max_len - t0)
+                    pages.append((st, i, slot, t0, n_tok, pid,
+                                  len(jobs) if st == m.PAGE_PACKED else 0,
+                                  ring if local else 0, qpos))
                     if st == m.PAGE_PACKED:
                         jobs.append((layer, pid))
         if pages:
             self._place(kq, ks, np.asarray(pages, np.int64), jobs, decode)
-        return [{"k": kq[0, layer], "v": kq[1, layer],
-                 "k_scale": ks[0, layer], "v_scale": ks[1, layer]}
-                for layer in range(nl)]
+        out = []
+        i = 0
+        for layer, kind in enumerate(self.layer_kinds):
+            if kind in ATTN_KINDS:
+                n = span if kind == "global" else ring
+                out.append({"k": kq[0, i, :, :n], "v": kq[1, i, :, :n],
+                            "k_scale": ks[0, i, :, :n],
+                            "v_scale": ks[1, i, :, :n]})
+                i += 1
+            else:
+                out.append(self._state_leaves(layer, slot_rids))
+        return out
+
+    def _state_leaves(self, layer: int, slot_rids: list) -> dict:
+        """A recurrent layer's states stacked over the slots, the init
+        (zero) state where a slot is idle or has none."""
+        zero = m.init_recurrent_cache(self.cfg, 1, self.device)
+        rows = {f: [] for f in zero}
+        for rid in slot_rids:
+            st = self.states[rid].get(layer) if rid is not None else None
+            for f, z in zero.items():
+                rows[f].append(st[f] if st is not None else z[0])
+        return {f: torch.stack(v) for f, v in rows.items()}
 
     def _place(self, kq, ks, pages: np.ndarray, jobs: list, decode) -> None:
-        """Write every token of ``pages`` into the dense cache: one upload
-        of the token index rows, then per page state one gather and one
-        index write for the values and one of each for the scales."""
+        """Write every live token of ``pages`` into the dense cache: one
+        upload of the token index rows, then per page state one gather and
+        one index write for the values and one of each for the scales."""
         pool = self.pool
         n_tok = pages[:, 4]
         tok = np.repeat(pages, n_tok, axis=0)
         start = np.repeat(np.cumsum(n_tok) - n_tok, n_tok)
         off = np.arange(len(tok)) - start
+        posn = tok[:, 3] + off
+        ring = tok[:, 7]
+        rolling = ring > 0
+        keep = ~rolling | (posn >= tok[:, 8] - ring)
+        posn = np.where(rolling, posn % np.maximum(ring, 1), posn)
+        tok, off, posn = tok[keep], off[keep], posn[keep]
         order = np.argsort(tok[:, 0], kind="stable")
-        tok, off = tok[order], off[order]
+        tok, off, posn = tok[order], off[order], posn[order]
         counts = np.bincount(tok[:, 0], minlength=4)
-        # rows: layer, slot, position, pid, in-page offset, job
-        idx = self._put(np.stack([tok[:, 1], tok[:, 2], tok[:, 3] + off,
+        # rows: attention index, slot, position, pid, in-page offset, job
+        idx = self._put(np.stack([tok[:, 1], tok[:, 2], posn,
                                   tok[:, 5], off, tok[:, 6]]))
         dec = None
         if jobs:
@@ -867,7 +1267,7 @@ class PagedKVCache:
             hi = lo + int(counts[st])
             if hi == lo:
                 continue
-            layer, slot, posn, pid, o, job = idx[:, lo:hi]
+            layer, slot, posn_, pid, o, job = idx[:, lo:hi]
             lo = hi
             if st == m.PAGE_HOT:
                 q, sc = pool.tok_q[:, pid, o], pool.tok_scale[:, pid, o]
@@ -875,8 +1275,8 @@ class PagedKVCache:
                 q, sc = pool.cold_q[:, pid, o], pool.page_scale[:, pid]
             else:
                 q, sc = dec[:, job, o], pool.page_scale[:, pid]
-            kq[:, layer, slot, posn] = q
-            ks[:, layer, slot, posn] = sc
+            kq[:, layer, slot, posn_] = q
+            ks[:, layer, slot, posn_] = sc
 
     def _decode_jobs(self, jobs: list, decode) -> torch.Tensor:
         """Decode every PACKED page of ``jobs`` ((layer, pid) pairs), both

@@ -2,13 +2,17 @@
 dicts of tensors, plus the KV page pool.
 
 Port of the parts of ``repro/models/modules.py`` that serving qwen3-1.7b
-from the paged APack KV cache runs: ``rms_norm`` :25, ``rope`` :31,
-``_kv_quantize``/``_kv_dequantize`` :44/:54, ``PackedWeight`` :69,
-``packed_proj`` :100 (single device), ``proj`` :139, ``attention_full`` :175
-and ``attention_step`` :267 (global layers), ``paged_attention_step`` :326
-(single device), ``init_attention_cache`` :436 (global), ``mlp`` :461
-(swiglu), the page lifecycle ``PAGE_*``/``PAGE_TRANSITIONS`` :916-950
-and ``KVPagePool`` :1077 (no spill tier, one shard).
+and recurrentgemma-9b from the paged APack KV cache runs: ``rms_norm``
+:25, ``rope`` :31, ``_kv_quantize``/``_kv_dequantize`` :44/:54,
+``PackedWeight`` :69, ``packed_proj`` :100 (single device), ``proj`` :139,
+``_mask`` :166, ``attention_full`` :175 and ``attention_step`` :267
+(global and rolling layers), ``paged_attention_step`` :326 (single
+device), ``init_attention_cache`` :436, ``mlp`` :461 (swiglu, geglu), the
+RG-LRU recurrent block ``init_recurrent`` :553, ``_rglru_coeffs`` :571,
+``recurrent_full`` :582, ``recurrent_step`` :628 and
+``init_recurrent_cache`` :641, the page lifecycle
+``PAGE_*``/``PAGE_TRANSITIONS`` :916-950 and ``KVPagePool`` :1077 with
+``evict`` :1208 (no spill tier, one shard).
 
 dtype placement follows the JAX package exactly, since it decides the KV
 bytes: activations and projections in bf16 (each weight cast to bf16 before
@@ -131,14 +135,16 @@ def proj(x: torch.Tensor, w, n_contract: int = 1) -> torch.Tensor:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in a's dtype with f32 accumulation.  On the card this is
+    """``a @ b`` in a's dtype with f32 accumulation, b cast to a's dtype
+    first as the reference casts each weight at its use.  On the card this is
     cuBLAS in bf16.  On the CPU the product runs in f32 and rounds once,
     which is how XLA's CPU backend evaluates the JAX package's bf16 dots;
     PyTorch's CPU bf16 GEMM rounds differently in the last bit, and that
     bit changes int8 KV values downstream."""
+    b = b.to(a.dtype)
     if a.device.type == "cpu":
         return torch.matmul(a.to(F32), b.to(F32)).to(a.dtype)
-    return torch.matmul(a, b.to(a.dtype))
+    return torch.matmul(a, b)
 
 
 # --------------------------------------------------------------- attention
@@ -153,14 +159,31 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """Prefill attention of a global layer, chunked over queries
-    (``attention_full`` :175).  Returns ``(y [B, S, D], cache)`` with the
-    cache of every position: int8 ``{k, v, k_scale, v_scale}`` when
-    ``cfg.kv_int8``, else the unquantized ``{k, v}``."""
+def _ring_cache(arr: torch.Tensor, w: int, t: int) -> torch.Tensor:
+    """The rolling cache of one K or V tensor [B, S, H, dh] at the true end
+    ``t`` (``attention_full`` :234-257): slot ``j`` holds the latest
+    position ``p < t`` with ``p % w == j``, zeros where no such position
+    exists.  One construction covers the reference's three branches
+    (unpadded ``s >= w``, unpadded ``s < w`` and the bucketed ring): left-
+    padding by ``w`` zeros and rolling the ``w`` positions before ``t`` by
+    ``t % w`` gives all three bit for bit."""
+    ap = torch.cat([arr.new_zeros(arr.shape[0], w, *arr.shape[2:]), arr], 1)
+    return torch.roll(ap[:, t:t + w], t % w, dims=1)
+
+
+def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                   local: bool = False, true_len: int | None = None):
+    """Prefill attention of a global or rolling (``local``) layer, chunked
+    over queries (``attention_full`` :175, mask ``_mask`` :166).  Returns
+    ``(y [B, S, D], cache)``: every position for a global layer, the
+    rolling ring of ``window`` slots at the true end ``true_len`` (the
+    sequence end when None) for a local one.  The cache is int8 ``{k, v,
+    k_scale, v_scale}`` when ``cfg.kv_int8``, else the unquantized
+    ``{k, v}``."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
+    window = cfg.window_size if local else 0
     pos = torch.arange(s, device=x.device)
     q, k, v = _qkv(p, x, cfg, pos[None, :])
     kf, vf = k.to(F32), v.to(F32)
@@ -172,6 +195,8 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig):
         scores = torch.einsum("bckgd,bskd->bkgcs", qc.to(F32), kf) * scale
         qpos = start + torch.arange(c, device=x.device)
         mask = pos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= pos[None, :] > qpos[:, None] - window
         scores = torch.where(mask, scores, NEG_INF)
         if cfg.logit_softcap > 0:
             cap = cfg.logit_softcap
@@ -180,6 +205,10 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig):
         outs.append(torch.einsum("bkgcs,bskd->bckgd", w, vf).to(x.dtype))
     out = torch.cat(outs, dim=1).reshape(b, s, h, dh)
     y = proj(out, p["wo"], 2)
+    if local:
+        t = s if true_len is None else int(true_len)
+        k = _ring_cache(k, cfg.window_size, t)
+        v = _ring_cache(v, cfg.window_size, t)
     if not cfg.kv_int8:
         return y, {"k": k, "v": v}
     qk, sk = kv_quantize(k)
@@ -188,35 +217,43 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def attention_step(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
-                   cfg: ModelConfig):
-    """Single-token decode step of a global layer against a dense cache
-    (``attention_step`` :267).  x [B, 1, D]; cache k/v [B, Sc, Hkv, dh],
-    int8 with per-(position, head) ``k_scale``/``v_scale`` or in the cache
-    dtype; pos [B], each slot's own position.
+                   cfg: ModelConfig, *, local: bool = False):
+    """Single-token decode step of a global or rolling layer against a
+    dense cache (``attention_step`` :267).  x [B, 1, D]; cache k/v [B, Sc,
+    Hkv, dh], int8 with per-(position, head) ``k_scale``/``v_scale`` or in
+    the cache dtype; pos [B], each slot's own position.
 
-    Slot ``pos`` of every row is written, then the whole cache is read
-    under the causal mask ``index <= pos``.  The JAX function returns an
-    updated copy; the port writes the cache's tensors in place, so a step
-    holds one cache, and returns the same dict."""
+    A global layer writes slot ``pos`` and reads under ``index <= pos``; a
+    rolling one writes the ring slot ``pos % Sc`` and reads the slots whose
+    absolute position ``pos - ((pos - j) mod Sc)`` is in ``[0, pos]``.  The
+    JAX function returns an updated copy; the port writes the cache's
+    tensors in place, so a step holds one cache, and returns the same
+    dict."""
     b = x.shape[0]
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
     q, k, v = _qkv(p, x, cfg, pos[:, None])
     rows = torch.arange(b, device=x.device)
+    sc = cache["k"].shape[1]
+    slot = pos % sc if local else pos
     if "k_scale" in cache:
         qk, sk = kv_quantize(k[:, 0])
         qv, sv = kv_quantize(v[:, 0])
         for f, val in (("k", qk), ("v", qv), ("k_scale", sk),
                        ("v_scale", sv)):
-            cache[f][rows, pos] = val
+            cache[f][rows, slot] = val
         kc = kv_dequantize(cache["k"], cache["k_scale"])
         vc = kv_dequantize(cache["v"], cache["v_scale"])
     else:
-        cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
         kc, vc = cache["k"], cache["v"]
-    sc = cache["k"].shape[1]
-    valid = torch.arange(sc, device=x.device)[None, :] <= pos[:, None]
+    idx = torch.arange(sc, device=x.device)[None, :]
+    if local:
+        abs_pos = pos[:, None] - torch.remainder(pos[:, None] - idx, sc)
+        valid = (abs_pos >= 0) & (abs_pos <= pos[:, None])
+    else:
+        valid = idx <= pos[:, None]
     scores = torch.einsum("bkgd,bskd->bkgs",
                           q.reshape(b, hkv, g, dh).to(F32), kc.to(F32)) \
         * (dh ** -0.5)
@@ -230,11 +267,14 @@ def attention_step(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                         device, dtype=BF16) -> dict:
-    """Zero dense cache of a global layer (``init_attention_cache`` :436):
-    int8 K/V with f32 per-(position, head) scales when ``cfg.kv_int8``,
-    else K/V in ``dtype``."""
-    shape = (batch, seq_len, cfg.num_kv_heads, cfg.head_dim)
+                         device, dtype=BF16, *, local: bool = False) -> dict:
+    """Zero dense cache of an attention layer (``init_attention_cache``
+    :436): ``seq_len`` positions for a global layer, ``min(window,
+    seq_len)`` ring slots for a rolling one; int8 K/V with f32
+    per-(position, head) scales when ``cfg.kv_int8``, else K/V in
+    ``dtype``."""
+    sc = min(cfg.window_size, seq_len) if local else seq_len
+    shape = (batch, sc, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_int8:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -288,18 +328,169 @@ def paged_attention_step(p: dict, x: torch.Tensor, planes: dict,
 
 
 # --------------------------------------------------------------------- mlp
+_SQRT_2_OVER_PI = float(np.float32(np.sqrt(2 / np.pi)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default ``approximate=True``, the tanh form)
+    as the compiled JAX model evaluates it: op by op in x's dtype, every
+    intermediate rounded (for bf16, each op computes in f32 and rounds),
+    with the constants cast to x's dtype first as the reference does.  A
+    fused f32 gelu rounds once and differs in the last bf16 bit."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = c(_SQRT_2_OVER_PI) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if cfg.mlp_variant != "swiglu":
+    """The gated FFN (``mlp`` :461): swiglu or geglu."""
+    if cfg.mlp_variant not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"mlp_variant={cfg.mlp_variant!r} is not ported yet (ROADMAP "
             "open item 1.9, remaining architectures)")
     up = proj(x, p["w_up"])
     gate = proj(x, p["w_gate"])
+    if cfg.mlp_variant == "geglu":
+        return proj(gelu(gate) * up, p["w_down"])
     # silu as the JAX package evaluates it in bf16 (x * logistic(x), the
     # logistic as 1 / (1 + exp(-x))), every op rounded to bf16; a fused
     # f32 silu rounds once and differs in the last bf16 bit
     hid = gate * (1.0 / (1.0 + torch.exp(-gate))) * up
     return proj(hid, p["w_down"])
+
+
+# ------------------------------------------------------------------ RG-LRU
+# params of a recurrent block the reference uses in f32 (the rest are cast
+# to the activations' bf16 at their use)
+RECURRENT_F32 = ("a_param", "w_input_gate", "w_a_gate")
+
+
+def init_recurrent(cfg: ModelConfig, generator: torch.Generator, device,
+                   dtype) -> dict:
+    """Griffin recurrent block params with the JAX init's distributions
+    (``init_recurrent`` :553): two input branches, a width-4 temporal
+    conv, the RG-LRU gates and ``a_param`` (f32, the softplus inverse of
+    ``8 c`` for ``c`` uniform in [0.8, 0.9]), the output projection."""
+    d = cfg.d_model
+    w = cfg.lru_width or d
+
+    def normal(shape, scale):
+        x = torch.randn(*shape, generator=generator, device=device)
+        return (x * scale).to(dtype)
+
+    s = d ** -0.5
+    c = 0.8 + 0.1 * torch.rand(w, generator=generator, device=device)
+    return {"w_x": normal((d, w), s), "w_gate": normal((d, w), s),
+            "w_out": normal((w, d), w ** -0.5),
+            "conv_w": normal((4, w), 0.5),
+            "a_param": torch.log(torch.exp(8.0 * c) - 1.0).to(F32),
+            "w_input_gate": normal((w,), 0.1),
+            "w_a_gate": normal((w,), 0.1)}
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(-|x|))``, not PyTorch's thresholded ``log1p(exp(x))``."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _rglru_coeffs(p: dict, xw: torch.Tensor):
+    """Per-step RG-LRU gates (``_rglru_coeffs`` :571), in f32: the decay
+    ``a`` and the gated input ``beta * i * xw``.  ``sigmoid`` is XLA's
+    ``logistic``; ``torch.sigmoid`` is the closest CPU twin (both differ
+    from ``1 / (1 + exp(-x))`` in the last bit)."""
+    xf = xw.to(F32)
+    r = torch.sigmoid(xf * p["w_a_gate"].to(F32))
+    i = torch.sigmoid(xf * p["w_input_gate"].to(F32))
+    log_a = -8.0 * r * softplus(p["a_param"].to(F32))
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+    return a, beta * i * xf
+
+
+def _scan_combine(a1, b1, a2, b2):
+    """The RG-LRU scan's operator, ``(a1 a2, a2 b1 + b2)``; XLA's CPU
+    backend contracts ``a2 * b1 + b2`` into one FMA, which ``addcmul``
+    is on the CPU."""
+    return a1 * a2, torch.addcmul(b2, a2, b1)
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of ``h_t = a_t h_{t-1} + b_t`` (``h_{-1} = 0``) along
+    axis 1 in ``jax.lax.associative_scan``'s odd/even recursion, so that
+    the f32 products and sums associate as the reference's do: combine
+    adjacent pairs, scan those, then fill in the even positions.  Log
+    depth in tensor ops; returns ``(prod a, h)``."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = linear_scan(*_scan_combine(a[:, 0:n - 1:2], b[:, 0:n - 1:2],
+                                        a[:, 1::2], b[:, 1::2]))
+    m = (n - 1) // 2
+    ea, eb = _scan_combine(oa[:, :m], ob[:, :m], a[:, 2::2], b[:, 2::2])
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+    for out, first, even, odd in ((out_a, a, ea, oa), (out_b, b, eb, ob)):
+        out[:, 0] = first[:, 0]
+        out[:, 2::2] = even
+        out[:, 1::2] = odd
+    return out_a, out_b
+
+
+def _conv(hist: torch.Tensor, conv_w: torch.Tensor, s: int) -> torch.Tensor:
+    """Causal width-4 temporal conv over ``hist`` [B, s + 3, W] (bf16):
+    ``sum_i hist[:, i:i + s] * conv_w[i]``, summed left to right as the
+    reference's Python ``sum``, returned in f32 for the gates.  Products
+    and the first two sums round to bf16; the last sum does not, because
+    the compiled reference feeds it straight to the gates' f32 cast and
+    XLA drops that bf16 round trip."""
+    w = conv_w.to(hist.dtype)
+    out = hist[:, 0:s] * w[0] + hist[:, 1:s + 1] * w[1] \
+        + hist[:, 2:s + 2] * w[2]
+    return out.to(F32) + (hist[:, 3:s + 3] * w[3]).to(F32)
+
+
+def recurrent_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                   pad_mask: torch.Tensor | None = None,
+                   true_len: int | None = None):
+    """Griffin recurrent block over a full sequence (``recurrent_full``
+    :582).  ``pad_mask`` ([S] bool, True past ``true_len``) makes pad steps
+    inert (a = 1, input 0), so the final state is the unpadded one, and
+    the conv history is the three inputs before ``true_len``.  Returns
+    ``(y [B, S, D], {"h": f32 [B, W], "conv": f32 [B, 3, W]})``."""
+    b, s, _ = x.shape
+    xw = matmul(x, p["w_x"])                                    # [B, S, W]
+    gate = gelu(matmul(x, p["w_gate"]))
+    xp = torch.cat([xw.new_zeros(b, 3, xw.shape[-1]), xw], 1)
+    a, bx = _rglru_coeffs(p, _conv(xp, p["conv_w"], s))
+    if pad_mask is not None:
+        pad3 = pad_mask[None, :, None]
+        a = torch.where(pad3, 1.0, a)
+        bx = torch.where(pad3, 0.0, bx)
+    _, h = linear_scan(a, bx)
+    y = matmul(h.to(x.dtype) * gate, p["w_out"])
+    t = s if true_len is None else int(true_len)
+    return y, {"h": h[:, -1].to(F32), "conv": xp[:, t:t + 3].to(F32)}
+
+
+def recurrent_step(p: dict, x: torch.Tensor, cache: dict,
+                   cfg: ModelConfig):
+    """Single-token recurrent step (``recurrent_step`` :628): x [B, 1, D],
+    cache ``{"h", "conv"}`` -> (y [B, 1, D], the new cache)."""
+    xw = matmul(x[:, 0], p["w_x"])                              # [B, W]
+    gate = gelu(matmul(x[:, 0], p["w_gate"]))
+    hist = torch.cat([cache["conv"].to(xw.dtype), xw[:, None]], 1)
+    a, bx = _rglru_coeffs(p, _conv(hist, p["conv_w"], 1)[:, 0])
+    h = torch.addcmul(bx, a, cache["h"])
+    y = matmul(h.to(x.dtype) * gate, p["w_out"])[:, None]
+    return y, {"h": h, "conv": hist[:, 1:].to(F32)}
+
+
+def init_recurrent_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    """Zero recurrent state (``init_recurrent_cache`` :641)."""
+    w = cfg.lru_width or cfg.d_model
+    return {"h": torch.zeros(batch, w, dtype=F32, device=device),
+            "conv": torch.zeros(batch, 3, w, dtype=F32, device=device)}
 
 
 # ------------------------------------------------------------ KV page pool
@@ -312,15 +503,17 @@ PAGE_FREE, PAGE_HOT, PAGE_COLD, PAGE_PACKED = 0, 1, 2, 3
 PAGE_STATE_NAMES = {PAGE_FREE: "FREE", PAGE_HOT: "HOT", PAGE_COLD: "COLD",
                     PAGE_PACKED: "PACKED"}
 
-# The lifecycle transition table (the JAX package's, less the spill/evict/
-# adopt/repack edges this slice does not port); every state-changing pool
-# method validates its edge here before writing.
+# The lifecycle transition table (the JAX package's, less the spill/
+# adopt/repack edges the port does not serve yet); every state-changing
+# pool method validates its edge here before writing.  Rolling-window
+# eviction frees only sealed pages: the newest tokens live in a HOT one.
 PAGE_TRANSITIONS = {
     "alloc": ((PAGE_FREE, PAGE_HOT),),
     "free":  ((PAGE_HOT, PAGE_FREE), (PAGE_COLD, PAGE_FREE),
               (PAGE_PACKED, PAGE_FREE)),
     "seal":  ((PAGE_HOT, PAGE_COLD),),
     "pack":  ((PAGE_COLD, PAGE_PACKED),),
+    "evict": ((PAGE_COLD, PAGE_FREE), (PAGE_PACKED, PAGE_FREE)),
 }
 
 
@@ -375,6 +568,7 @@ class KVPagePool:
         self.free_list: list[int] = list(range(p - 1, -1, -1))
         self.alloc_count = 0
         self.high_water = 0
+        self.evict_count = 0                         # rolling-window evictions
 
     def _page_state(self, pid: int) -> str:
         st = int(self.state[pid])
@@ -429,6 +623,20 @@ class KVPagePool:
             self.fill[pid] = 0
             self.packed_bits[pid] = 0
             self.free_list.append(pid)
+
+    def evict(self, pids) -> None:
+        """Rolling-window eviction (``evict`` :1208): return sealed pages
+        whose every token has left their layer's attention window.  HOT
+        or FREE pages raise: an eviction policy that names one is
+        corrupt."""
+        pids = [int(p) for p in pids]
+        for pid in pids:
+            self._require_transition(
+                pid, "evict", PAGE_FREE, exc=RuntimeError,
+                detail="evict of live HOT (or already-FREE) page; rolling "
+                       "eviction may only free sealed COLD/PACKED pages")
+        self.free(pids)
+        self.evict_count += len(pids)
 
     def write_token(self, pid: int, kq, vq, ks, vs) -> int:
         """Append one token's [H, dh] int8 K/V and [H] scales (host append
@@ -498,16 +706,19 @@ class KVPagePool:
         h, dh = self.kv_heads, self.head_dim
         return 2 * (n_tokens * h * dh + n_tokens * h * 4)
 
-    def page_bytes(self, pid: int) -> int:
-        """Off-chip footprint of a page in its current state."""
+    def page_bytes(self, pids: np.ndarray) -> np.ndarray:
+        """Off-chip footprint of each of ``pids`` in its current state
+        (int64): a HOT page's dense tokens, a COLD page's int8 payload and
+        page scales, a PACKED page's coded bits, stream directory and
+        page scales."""
         h, dh = self.kv_heads, self.head_dim
-        st = self.state[pid]
-        if st == PAGE_HOT:
-            return self.dense_bytes(int(self.fill[pid]))
-        if st == PAGE_COLD:
-            return 2 * (self.page_size * h * dh + h * 4)
-        if st == PAGE_PACKED:
-            directory = 2 * self.n_streams * DIR_BITS_PER_STREAM
-            return (int(self.packed_bits[pid]) + directory + 7) // 8 \
-                + 2 * h * 4
-        return 0
+        st = self.state[pids]
+        out = np.zeros(len(pids), np.int64)
+        hot = st == PAGE_HOT
+        out[hot] = self.dense_bytes(self.fill[pids][hot].astype(np.int64))
+        out[st == PAGE_COLD] = 2 * (self.page_size * h * dh + h * 4)
+        packed = st == PAGE_PACKED
+        directory = 2 * self.n_streams * DIR_BITS_PER_STREAM
+        out[packed] = (self.packed_bits[pids][packed] + directory + 7) // 8 \
+            + 2 * h * 4
+        return out

@@ -8,10 +8,12 @@ Port of the single-device, ``scheduler="sync"`` path of
 ``_write_prefill_cache`` :710, ``preempt`` :730 (no spill tier),
 ``_resume_into_slot`` :778, ``_retire`` :800, ``latency_stats`` :831,
 ``step`` :895, ``_step_decode`` :936-990 (fused, materialize and dense
-branches), ``run_until_drained`` :1283, ``weight_stats`` :1308 and
+branches, the fused one carrying the recurrent layers' device state
+store), ``run_until_drained`` :1283, ``weight_stats`` :1308 and
 ``kv_stats`` :1333; and the checkpoint-style weight round trip,
 ``CompressedParams`` :146, ``compress_params`` :160 and
-``decompress_params`` :196.
+``decompress_params`` :196.  The stacks are any mix of global and rolling
+attention layers and RG-LRU recurrent layers, prefix or cycled.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
@@ -28,10 +30,15 @@ on the device.  Three decode modes:
   runs the dense decode step over it and moves the new token back into
   pages.
 - ``kv_cache_dtype="int8"`` or ``"bfloat16"``: no pool; the batch holds
-  one dense cache of ``max_len`` positions per slot, the raw-KV baseline.
+  one dense cache of ``max_len`` positions per slot (a ring on a rolling
+  layer), the raw-KV baseline.
 
-``preempt`` parks an active request with its pages and reservation kept
-and resumes it at the same position, without a new prefill.
+Admission reserves pages per layer kind (``PagedKVCache.pages_needed``):
+the full sequence on a global layer, ``window_pages`` on a rolling one,
+none on a recurrent one, whose state lives in a per-slot state store.
+``preempt`` parks an active request with its pages and reservation kept,
+its recurrent states APack-coded into a snapshot, and resumes it at the
+same position without a new prefill.
 """
 from __future__ import annotations
 
@@ -88,13 +95,16 @@ KV_CACHE_DTYPES = ("apack-int8", "int8", "bfloat16")
 class CompressedParams:
     """APack-compressed int8 view of a param tree (large matrices only), in
     the JAX package's layout: one entry per leaf of its stacked tree, keyed
-    by the leaf's path (``blocks/0/ffn/w_up``), in its flatten order
-    (``paths``).  A host object, like the JAX package's: containers are
-    ``core.format.CompressedTensor``s with numpy scales, small leaves CPU
-    tensors."""
+    by the leaf's path (``blocks/0/ffn/w_up``, ``prefix/1/inner/w_x``), in
+    its flatten order (``paths``).  A host object, like the JAX package's:
+    containers are ``core.format.CompressedTensor``s with numpy scales,
+    small leaves CPU tensors.  ``n_prefix``/``n_cycle``/``n_layers`` place
+    the leaves back into the port's per-layer list."""
     containers: dict            # path -> (CompressedTensor, scale, dtype)
     passthrough: dict           # path -> stacked leaf (CPU tensor)
     paths: list[str]
+    n_prefix: int
+    n_cycle: int
     n_layers: int
     original_bytes: int
     compressed_bytes: int
@@ -104,14 +114,14 @@ class CompressedParams:
         return self.original_bytes / max(self.compressed_bytes, 1)
 
 
-def _stacked_leaves(params: dict):
+def _stacked_leaves(cfg: ModelConfig, params: dict):
     """``(path, thunk)`` of every leaf of the JAX package's tree for the
     port's ``params``, in ``jax.tree.flatten`` order (dict keys sorted):
-    ``params["blocks"]``, one dict per layer, becomes the one stack
-    ``blocks/0`` of every layer along a leading axis, the JAX layout of a
-    config whose cycle is one layer kind (``check_supported`` refuses the
-    others).  A thunk builds its stacked leaf on demand, so that one stack
-    at a time lives on the device."""
+    cycle position ``c``'s layers ``n_prefix + j * n_cycle + c`` become
+    the one stack ``blocks/c`` along a leading axis, and each prefix layer
+    ``i`` its own ``prefix/i``, the layout ``cfg`` gives the JAX tree
+    (``init_params`` :77).  A thunk builds its leaf on demand, so that one
+    stack at a time lives on the device."""
     def walk(node, path, get):
         if isinstance(node, dict):
             for k in sorted(node):
@@ -119,39 +129,50 @@ def _stacked_leaves(params: dict):
                                 lambda b, k=k, get=get: get(b)[k])
         else:
             yield path, get
-    for key in sorted(params):
-        if key != "blocks":
+    n_prefix, n_cycle = len(cfg.prefix_pattern), len(cfg.cycle)
+    layers = params["blocks"]
+    keys = ["blocks", "embed", "final_norm"] + (["prefix"] if n_prefix
+                                                 else [])
+    for key in sorted(keys):
+        if key == "blocks":
+            for c in range(n_cycle):
+                stack = layers[n_prefix + c::n_cycle]
+                for path, get in walk(stack[0], f"blocks/{c}", lambda b: b):
+                    yield path, (lambda get=get, stack=stack: torch.stack(
+                        [get(b) for b in stack]))
+        elif key == "prefix":
+            for i in range(n_prefix):
+                for path, get in walk(layers[i], f"prefix/{i}", lambda b: b):
+                    yield path, (lambda get=get, i=i: get(layers[i]))
+        else:
             yield key, (lambda key=key: params[key])
-            continue
-        layers = params["blocks"]
-        for path, get in walk(layers[0], "blocks/0", lambda b: b):
-            yield path, (lambda get=get: torch.stack(
-                [get(b) for b in layers]))
 
 
-def compress_params(params: dict, min_size: int = DEFAULT_WEIGHT_MIN_SIZE,
-                    *, timings: dict | None = None) -> CompressedParams:
+def compress_params(cfg: ModelConfig, params: dict,
+                    min_size: int = DEFAULT_WEIGHT_MIN_SIZE, *,
+                    timings: dict | None = None) -> CompressedParams:
     """int8-quantize and APack-compress every large matrix of a param tree.
 
-    The leaves are the JAX package's stacked ones (``_stacked_leaves``),
-    and that sets the numbers: ``quantize_symmetric(axis=-1)`` gives one
-    scale per last-axis channel shared by every layer of a stack, the table
-    and the streams cover the whole stack, and a stack of norm scales
-    [L, d] is a matrix past ``min_size`` where one layer's [d] would not
-    be.  Each leaf is quantized on its device (a true division, as the
-    eager JAX call makes it), its histogram taken there with
-    ``torch.bincount`` and pulled, the weight-mode table searched on the
-    host, and the streams coded by ``fastpath.compress_tensor``: the encode
-    kernel on the card, the plain encoder on the CPU.  Byte counts are the
-    JAX package's: ceil bytes of each container's ``total_bits`` plus its
-    scale.  ``timings`` (a dict) gets the seconds of ``stack``,
-    ``quantize_histogram``, ``find_table`` and ``fastpath``'s parts."""
+    The leaves are the JAX package's stacked ones (``_stacked_leaves``,
+    laid out by ``cfg``), and that sets the numbers:
+    ``quantize_symmetric(axis=-1)`` gives one scale per last-axis channel
+    shared by every layer of a stack, the table and the streams cover the
+    whole stack, and a stack of norm scales [L, d] is a matrix past
+    ``min_size`` where one layer's [d] would not be.  Each leaf is
+    quantized on its device (a true division, as the eager JAX call makes
+    it), its histogram taken there with ``torch.bincount`` and pulled, the
+    weight-mode table searched on the host, and the streams coded by
+    ``fastpath.compress_tensor``: the encode kernel on the card, the plain
+    encoder on the CPU.  Byte counts are the JAX package's: ceil bytes of
+    each container's ``total_bits`` plus its scale.  ``timings`` (a dict)
+    gets the seconds of ``stack``, ``quantize_histogram``, ``find_table``
+    and ``fastpath``'s parts."""
     containers: dict = {}
     passthrough: dict = {}
     paths = []
     orig = comp = 0
     dev = params["embed"].device
-    for path, leaf_fn in _stacked_leaves(params):
+    for path, leaf_fn in _stacked_leaves(cfg, params):
         paths.append(path)
         with fastpath.timed(timings, "stack", dev):
             leaf = leaf_fn()
@@ -182,7 +203,9 @@ def compress_params(params: dict, min_size: int = DEFAULT_WEIGHT_MIN_SIZE,
         # payload
         comp += -(-ct.total_bits // 8) + scale.nbytes
     return CompressedParams(containers=containers, passthrough=passthrough,
-                            paths=paths, n_layers=len(params["blocks"]),
+                            paths=paths, n_prefix=len(cfg.prefix_pattern),
+                            n_cycle=len(cfg.cycle),
+                            n_layers=len(params["blocks"]),
                             original_bytes=orig,
                             compressed_bytes=comp)
 
@@ -212,13 +235,20 @@ def decompress_params(cp: CompressedParams, device=None, *,
                         ).to(getattr(torch, dtype))
                 del q
         keys = path.split("/")
-        if keys[0] != "blocks":
+        if keys[0] == "blocks":
+            c = int(keys[1])
+            placed = [(cp.n_prefix + j * cp.n_cycle + c, leaf[j])
+                      for j in range(leaf.shape[0])]
+        elif keys[0] == "prefix":
+            placed = [(int(keys[1]), leaf)]
+        else:
             tree[keys[0]] = leaf
             continue
-        for layer, node in enumerate(blocks):
+        for layer, value in placed:
+            node = blocks[layer]
             for k in keys[2:-1]:
                 node = node.setdefault(k, {})
-            node[keys[-1]] = leaf[layer]
+            node[keys[-1]] = value
     return tree
 
 
@@ -294,9 +324,10 @@ class ServeEngine:
             self.kv = M.PagedKVCache(cfg, kv_pages, page_size=kv_page_size,
                                      calib_pages=kv_calib_pages,
                                      device=self.device)
-            # both paged modes read the device pool; the oracle uses its
-            # table stack for the gather decode
-            self.kv.enable_device_pool()
+            # both paged modes read the device pool (the oracle uses its
+            # table stack for the gather decode); the fused step also
+            # carries the recurrent layers' device state store
+            self.kv.enable_device_pool(max_batch if self.fused else None)
         else:
             self.cache = M.init_cache(cfg, max_batch, max_len,
                                       device=self.device)
@@ -323,13 +354,16 @@ class ServeEngine:
     def preempt(self, slot: int, *, spill: bool = False,
                 requeue: str = "head") -> dict:
         """Kick the request in ``slot`` out of its decode slot and back to
-        the queue, at its ``requeue`` end ("head" or "tail").  Its KV stays
-        in the page pool, compressed as it is, and its reservation is
-        held; its fixed-size layer states would be snapshot here, and this
-        slice's stacks have none.  Re-admission resumes at the same
-        position without a new prefill, so the continuation is identical.
-        Returns the snapshot.  ``spill=True`` (park the pages in the host
-        spill tier and release the reservation) is not ported."""
+        the queue, at its ``requeue`` end ("head" or "tail") (``preempt``
+        :730).  Its KV stays in the page pool, compressed as it is, and its
+        reservation is held; its recurrent states (from the device state
+        store in fused mode) are APack-coded into a snapshot
+        (``PagedKVCache.snapshot_state``) and the dense copy is dropped,
+        so the snapshot is their only home until re-admission restores it
+        and resumes at the same position, without a new prefill: the
+        continuation is identical.  Returns the snapshot.  ``spill=True``
+        (park the pages in the host spill tier and release the
+        reservation) is not ported."""
         if not self.paged:
             raise RuntimeError("preempt requires the paged apack-int8 KV")
         if spill:
@@ -341,7 +375,10 @@ class ServeEngine:
         req = self.active[slot]
         if req is None:
             raise ValueError(f"slot {slot} is idle, nothing to preempt")
+        if self.fused and self.kv.state_layers:
+            self.kv.states[req.rid] = self.kv.read_state_slot(slot)
         snap = self.kv.snapshot_state(req.rid)
+        self.kv.states[req.rid] = {}
         self._preempted[req.rid] = (snap, int(self.positions[slot]),
                                     int(self.last_tokens[slot, 0]))
         self.active[slot] = None
@@ -355,6 +392,8 @@ class ServeEngine:
     def _resume_into_slot(self, slot: int, req: Request) -> None:
         snap, pos, last = self._preempted.pop(req.rid)
         self.kv.restore_state(req.rid, snap)
+        if self.fused and self.kv.state_layers:
+            self.kv.write_state_slot(slot, req.rid)
         self.active[slot] = req
         self.positions[slot] = pos
         self.last_tokens[slot, 0] = last
@@ -414,6 +453,8 @@ class ServeEngine:
             self._reserved[req.rid] = need
             self._reserved_total += need
             self.kv.ingest_prefill(req.rid, caches, s)
+            if self.fused and self.kv.state_layers:
+                self.kv.write_state_slot(slot, req.rid)
         else:
             self._write_prefill_cache(slot, caches)
         next_tok = int(logits[0, -1].argmax())   # admission event
@@ -423,8 +464,8 @@ class ServeEngine:
         self.last_tokens[slot, 0] = next_tok
 
     def _write_prefill_cache(self, slot: int, caches: list) -> None:
-        """Write one request's prefill cache, padded to ``max_len``, into
-        row ``slot`` of the batch cache (dense modes)."""
+        """Write one request's prefill cache, global layers padded to
+        ``max_len``, into row ``slot`` of the batch cache (dense modes)."""
         for batch, one in zip(self.cache,
                               M.extend_caches(self.cfg, caches,
                                               self.max_len)):
@@ -488,9 +529,9 @@ class ServeEngine:
         positions = torch.as_tensor(self.positions, device=self.device)
         if self.fused:
             meta = kv.step_meta(slot_rids, self.max_len)
-            logits, new_kv = M.decode_step_paged(
-                self.cfg, self.params, kv.dev.planes, meta, tokens,
-                positions)
+            logits, new_kv, kv.dev_states = M.decode_step_paged(
+                self.cfg, self.params, kv.dev.planes, meta, kv.dev_states,
+                tokens, positions)
             targets = kv.claim_append_targets(slot_rids)
             M.device_append(kv.dev.planes, new_kv, targets)
             kv.note_appended(slot_rids)
@@ -555,6 +596,7 @@ class ServeEngine:
         out["kv_pool_pages"] = self.kv.pool.num_pages
         out["kv_pages_allocated"] = self.kv.pool.alloc_count
         out["kv_pages_high_water"] = self.kv.pool.high_water
+        out["kv_pages_evicted"] = self.kv.pool.evict_count
         out["kv_fused"] = self.fused
         out["transfers"] = dict(self.kv.transfers)
         return out

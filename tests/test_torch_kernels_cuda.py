@@ -81,14 +81,16 @@ def test_cuda_gather_decode_kernel():
     assert torch.equal(got, vals[pidx.long()])
 
 
-def _gather_pool(rng, pages, n_rows, dev):
-    """``pages`` full-width KV pages (128 streams x 128 values, six noisy
-    streams a page that the coder stores) coded with the encode kernel
-    under ``n_rows`` table rows, page p under row p % n_rows."""
+def _gather_pool(rng, pages, n_rows, dev, streams=128):
+    """``pages`` full-width KV pages (``streams`` streams x 128 values: 128
+    at qwen3-1.7b's [16, 8, 128] page, 32 at recurrentgemma-9b's
+    [16, 1, 256]; six noisy streams a page that the coder stores) coded
+    with the encode kernel under ``n_rows`` table rows, page p under row
+    p % n_rows."""
     from repro_torch.core.tables import find_table, histogram
     from repro_torch.kernels import apack_encode
-    v = (np.clip(np.round(rng.laplace(0, 18, (pages, 128, 128))), -127, 127)
-         .astype(np.int64) & 0xFF)
+    v = (np.clip(np.round(rng.laplace(0, 18, (pages, streams, 128))), -127,
+                 127).astype(np.int64) & 0xFF)
     v[:, :6] = rng.integers(0, 256, (pages, 6, 128))
     rows = np.arange(pages) % n_rows
     tabs = [find_table(histogram(v[rows == r], 8), 8, True).as_arrays()
@@ -105,9 +107,11 @@ def _gather_pool(rng, pages, n_rows, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_ids", [1, 3, 1024])
-def test_cuda_gather_decode_sizes_and_id_places(n_ids):
+@pytest.mark.parametrize("streams", [128, 32])
+def test_cuda_gather_decode_sizes_and_id_places(n_ids, streams):
     """G = 1, 3 (padded to 4 by a duplicate) and 1024 gathered pages with
-    duplicates and mixed table rows: the wrapper with the ids on the host
+    duplicates and mixed table rows, at qwen3-1.7b's page (128 streams)
+    and recurrentgemma-9b's (32): the wrapper with the ids on the host
     (numpy, as ``materialize`` passes them) and on the card, and the
     kernel's launch alone, all equal the plain version bit for bit;
     out-of-range host ids raise ``IndexError``."""
@@ -116,7 +120,8 @@ def test_cuda_gather_decode_sizes_and_id_places(n_ids):
     from repro_torch.kernels import paged_decode as pd
     rng = np.random.default_rng(n_ids)
     dev = torch.device("cuda")
-    vals, rows, sym, ofs, st, (vm, ol, cm) = _gather_pool(rng, 24, 4, dev)
+    vals, rows, sym, ofs, st, (vm, ol, cm) = _gather_pool(rng, 24, 4, dev,
+                                                          streams)
     g = pd.gather_bucket(n_ids)
     idx = np.pad(rng.integers(0, 24, n_ids), (0, g - n_ids), mode="edge")
     idx = idx.astype(np.int32)
@@ -149,6 +154,9 @@ ENCODE_CASES = {
     "stored": ((4, 128, 128), 8, "uniform"),
     # the serve's pack of a decode step's seal: [2 kinds, 28 pages, ...]
     "pack28": ((2, 28, 128, 128), 8, "laplace"),
+    # recurrentgemma-9b's page [16, 1, 256]: 32 streams of 128 values, 12
+    # rolling layers' pages sealed in one step
+    "pack12_s32": ((2, 12, 32, 128), 8, "laplace"),
 }
 
 
@@ -193,7 +201,8 @@ def test_cuda_encode_kernel(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(ENCODE_CASES) + ["pack28_rows"])
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES)
+                         + ["pack28_rows", "pack12_s32_rows"])
 def test_cuda_decode_kernel(case):
     """The decode kernel equals the plain decoder bit for bit, and gives
     back the values, on the encode kernel's planes in every encode case
@@ -308,6 +317,50 @@ def test_cuda_fused_page_attention_kernel(shape, slots, softcap):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
     assert (got[2][-1] == 0).all() and (got[2][:-1] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qpos_off", [7, 16, 2047])
+def test_cuda_fused_page_attention_rolling_window(qpos_off):
+    """recurrentgemma-9b's local layer: page [16, 1, 256] (MQA, Hq 16 over
+    one KV head, 32 streams a PACKED page), J = 4 jobs, 130 page slots
+    past three evicted pages, window 2048, against the plain version at
+    f32 rtol 1e-5 / atol 1e-6, ``acc``'s relative part against sum(w |v|)
+    (``fused_page_attention_f64``).  ``qpos - window`` falls inside the oldest
+    page (7: it is partly rolled out), exactly on a page boundary (16: the
+    oldest page and the next one's first token are masked), or leaves the
+    window over the whole table but its last page (2047)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import fused_page_attention as fpa
+    ps, h, dh, hq, s, slots, window = 16, 1, 256, 16, 32, 130, 2048
+    rng = np.random.default_rng(qpos_off)
+    dev = torch.device("cuda")
+    planes, e = _attention_pool(rng, ps, h, dh, s, 40, dev)
+    jobs, base = 4, 3
+    pid = rng.integers(0, 40, (jobs, slots))
+    state = rng.integers(2, 4, (jobs, slots))           # COLD and PACKED
+    state[:, -1] = 1                                    # the HOT last page
+    t0 = np.broadcast_to((base + np.arange(slots)) * ps, (jobs, slots))
+    meta = np.stack([state, t0], -1)
+    qpos = np.full(jobs, base * ps + window + qpos_off)
+    qpos[-1] = base * ps + slots * ps - 3               # a fuller HOT page
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (pid, np.zeros_like(pid), meta,
+                      np.stack([qpos, np.full(jobs, window)], -1))]
+    q = torch.from_numpy(rng.normal(0, 1, (jobs, hq, dh))
+                         .astype(np.float32)).to(dev)
+    got = fpa.fused_page_attention(q, *args, planes, n_steps=e)
+    want = fpa.fused_page_attention_plain(q, *args, planes, n_steps=e)
+    mag = fpa.fused_page_attention_f64(q, *args, planes, n_steps=e)[3]
+    torch.cuda.synchronize()
+    # acc cancels toward zero over ~2000 keys: its relative part is taken
+    # against the magnitude of its f32 sums, sum(w |v|)
+    assert ((got[0] - want[0]).abs()
+            <= 1e-5 * mag.float() + 1e-6).all()
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert (got[2] > 0).all()
 
 
 ROUNDTRIP_CASES = {"b4_odd": (4, 37 * 64 - 5, 64, "fitted"),

@@ -67,7 +67,7 @@ def test_cli_serves_the_oracle_and_dense_cache(extra, path, capsys):
     ["--weights", "apack-int8", "--kv-refresh"],
     ["--weights", "apack-int8", "--kv-refresh-every", "4"],
     ["--weights", "apack-int8", "--kv-pressure", "--slot-deadline", "6"],
-    ["--weights", "apack-int8", "--window-size", "8"],
+    ["--weights", "apack-int8", "--arch", "hetero-serve-smoke"],
 ])
 def test_cli_refuses_unported_flags(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -96,7 +96,7 @@ def test_cli_default_path_runs_the_weight_round_trip(capsys):
     cfg = dataclasses.replace(configs.get_smoke_config("qwen3-1.7b"),
                               kv_cache_dtype="apack-int8")
     params = M.init_params(cfg, torch.Generator("cpu").manual_seed(0), "cpu")
-    cp = compress_params(params)
+    cp = compress_params(cfg, params)
     line = [ln for ln in lines if ln.startswith("APack weight compression:")]
     assert len(line) == 1, lines
     assert line[0].startswith(

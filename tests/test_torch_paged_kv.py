@@ -104,7 +104,7 @@ def test_pool_planes_and_traffic_match_reference():
 
 def test_unported_layer_kinds_are_refused():
     cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
-                              block_pattern=("global", "local"),
+                              block_pattern=("global", "mlstm"),
                               num_layers=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PM.PagedKVCache(cfg, 8, device="cpu")

@@ -42,10 +42,10 @@ def smoke():
 def round_trips(smoke):
     """``min_size -> (JAX CompressedParams, port CompressedParams)``, and
     the parts' seconds of the port's call at the default min size."""
-    _, _, params, _, tp = smoke
+    _, cfg, params, _, tp = smoke
     tc: dict = {}
     return {m: (jcompress_params(params, min_size=m),
-                compress_params(tp, min_size=m, timings=tc if m ==
+                compress_params(cfg, tp, min_size=m, timings=tc if m ==
                                 DEFAULT_WEIGHT_MIN_SIZE else None))
             for m in (DEFAULT_WEIGHT_MIN_SIZE, 64)}, tc
 
