@@ -35,7 +35,10 @@ Phases (any failure exits non-zero):
    G = 1024, 1 and 3, and fused attention with 16 query heads over one
    KV head, J = 4, 130 page slots and window 2048 (a job whose oldest
    page is partly rolled out, one whose ``qpos - window`` sits on a page
-   boundary), each timed with its bound and yardstick;
+   boundary), each timed with its bound and yardstick; kernels 1 and 2 at
+   a re-pack batch of 32 qwen3 pages with per-page table rows, and kernel
+   5 at recurrentgemma-9b's packed sites (wq, wk, w_up, w_down at M = 4,
+   w_up at M = 77) against the plain version, f64 and ``torch.matmul``;
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
@@ -55,6 +58,8 @@ Phases (any failure exits non-zero):
    against the plain decode and the fused attention kernel at the first
    and last layer against dense attention over the materialized cache;
    print token agreement with the fused serve; profile steady steps;
+   phase 3's engine then serves phase B of the refresh serve (8 requests
+   of one hot prompt), the frozen control of (a);
 6. serve them on the fused path with slot 0 preempted after ten decode
    steps and resumed: the tokens must equal phase 3's;
 7. serve them from a dense int8 KV cache, the uncompressed baseline, and
@@ -69,6 +74,18 @@ Phases (any failure exits non-zero):
    distinct container shape; then serve the 8 requests from the
    round-tripped weights on the fused paged APack KV path, with the token
    agreement against phase 3 printed;
+   (a) table refresh at 28 layers: phase 3's requests then phase B on one
+   engine with ``REFRESH_KW``; tokens equal to phase 3's and to the frozen
+   control's, refresh fired and re-packed (kernels 1 and 2 once each a
+   batch, as their wrappers count them, per-page table rows), every step
+   that re-packs in one batch and seals nothing one device-to-host call
+   (a step of more batches one a batch, counted apart), and
+   ``oracle_gates`` at a step where PACKED pages of two generations
+   coexist; the phase-B KV ratios and both engines' median steps printed;
+   (b) pool pressure at 28 layers: 560 pages (two requests fit),
+   ``kv_pressure`` and a 16-step slot deadline; tokens equal to phase 3's,
+   pages spilled and every one read back, none quarantined, none failed,
+   the pool free at the end; the spill ratio and seconds printed;
 9. serve recurrentgemma-9b at published widths and depth (38 layers: 2
    recurrent prefix layers + 12 x (recurrent, recurrent, local), window
    2048, seed-0 random f32 weights served from their bf16 copy; the
@@ -81,19 +98,29 @@ Phases (any failure exits non-zero):
    step with PACKED pages, fused attention against dense attention over
    the ring), and the fused path with slot 0 preempted and resumed (its
    recurrent states through a byte-plane snapshot, kernels 2 and 1,
-   restored bit for bit; tokens equal to the fused serve's);
+   restored bit for bit; tokens equal to the fused serve's); (c) then
+   from packed weights (the f32 draw again, packed by layer kind): one
+   local layer's attention sites and one recurrent layer's FFN against
+   f32 and f64 products at M = 4 and 77, ``weight_stats()``, packing
+   seconds and the token agreement with the fused serve printed;
 10. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
     caches, and the fused one on round-tripped weights, whose
     ``compress_params`` containers must match too; and fused, oracle and
     dense int8 engines on ``hetero-serve-smoke`` and recurrentgemma-9b
-    SMOKE with window 8, whose KV stats must match too) on the card
-    against the same engines on the CPU, and the oracle's tokens against
-    the fused engine's on the card;
+    SMOKE with window 8, whose KV stats must match too, and packed weights
+    on both) on the card against the same engines on the CPU, and the
+    oracle's tokens against the fused engine's on the card; (d) SMOKE
+    refresh, pressure and fault engines (a flipped bit of a spilled record
+    fails only its owner) card against CPU: tokens, ``kv_ratio``, refresh
+    and spill counters;
 11. after each paged serve, decode every PACKED KV page captured mid-serve
     with the decode kernel and with the plain decoder, and re-encode a
     sample with the plain encoder;
-12. print the phase-2 records at recurrentgemma-9b's page, the
-    ``kernels`` JSON line, then the result line.
+12. print the phase-2 records at recurrentgemma-9b's page, at the re-pack
+    batch and at recurrentgemma-9b's packed sites, the script's seconds,
+    the ``kernels`` JSON line (kernels 1 and 2 with their re-pack launches
+    a step of (a), kernel 5 with its launches a step of (c)), then the
+    result line.
 
 It exits non-zero without a result when CUDA is unavailable or when it is
 not run from a checkout of the repository.
@@ -886,6 +913,62 @@ def check_attention_rolling(device, records):
         records["fused_page_attention [16, 1, 256]"]))
 
 
+def check_repack_batch(device, records, n=32):
+    """Kernels 1 and 2 at a table refresh's re-pack batch: ``n`` qwen3-1.7b
+    pages [2 kinds, n, 128 streams, 128 values], each page with its own
+    table rows, packed under old rows (one of four fitted to a Laplace
+    body) and re-packed under new ones (fitted to a narrower body): one
+    decode launch with the old rows, one encode launch with the new,
+    ``PagedKVCache.launch_repack``'s two launches.  Bit-exact against the
+    plain versions and the original values, timed as device time per call
+    over a CUDA graph of 20."""
+    import torch
+    vals = kv_like_values(2 * n, 128, 128, device)
+    (vm, ol, cm), rows = table_rows(vals, 4)
+    narrow = (kv_like_values(2 * n, 128, 128, device) // 4) & 0xFF
+    (nvm, nol, ncm), _ = table_rows(narrow, 4)
+    shape = (2, n, 128, 128)
+    vals = vals.reshape(shape)
+    old = tuple(t[rows].reshape(2, n, -1) for t in (vm, ol, cm))
+    new = tuple(t[rows].reshape(2, n, -1) for t in (nvm, nol, ncm))
+    packed = check_encode(f"re-pack n={n} (old rows)", vals, old, 8)
+    dec = check_decode(f"re-pack n={n}", packed, old, 8, vals)
+    repacked = check_encode(f"re-pack n={n} (new rows)", dec, new, 8)
+    back = check_decode(f"re-pack n={n} (new rows)", repacked, new, 8, vals)
+    if not torch.equal(back, vals):
+        raise AssertionError("re-pack: the re-packed planes do not decode "
+                             "to the original values")
+    records[f"apack_decode repack n={n}"] = decode_timing(packed, old, 8, dec)
+    records[f"apack_encode repack n={n}"] = encode_timing(dec, new, 8,
+                                                          repacked)
+    for k in ("apack_decode", "apack_encode"):
+        print(f"{k} re-pack batch n={n} (per-page rows): bit-exact; "
+              + json.dumps(records[f"{k} repack n={n}"]))
+
+
+def check_rg_matmul(device, records):
+    """Kernel 5 at recurrentgemma-9b's packed sites (``matmul_rows``),
+    quantized from normal weights as ``pack_weights`` does: wq [4096,
+    4096], wk/wv [4096, 256], w_up/w_gate [4096, 12288] and w_down [12288,
+    4096] at M = 4 (a decode step), and w_up at M = 77 (a prefill)."""
+    import torch
+    from repro_torch.core import quant
+    g = torch.Generator(device=device).manual_seed(8)
+    for name, k, n, ms_ in (("wq", 4096, 4096, (4,)),
+                            ("wk", 4096, 256, (4,)),
+                            ("w_up", 4096, 12288, (4, 77)),
+                            ("w_down", 12288, 4096, (4,))):
+        w = torch.randn(k, n, generator=g, device=device) * k ** -0.5
+        q, qp = quant.quantize_symmetric(w, axis=-1)
+        del w
+        _, rows = matmul_rows(name, q, qp.scale.reshape(-1), ms_, g)
+        for row in rows:
+            records[f"decompress_matmul {name} M={row['shape'][0]}"] = row
+            print("decompress_matmul recurrentgemma-9b: " + json.dumps(row))
+        del q, rows
+        torch.cuda.empty_cache()
+
+
 def weight_cases(device):
     """int8 codes and scales at the main path's largest matmul shapes
     (qwen3-1.7b w_up [2048, 6144] and w_down [6144, 2048], quantized from
@@ -938,34 +1021,90 @@ def exact_matmul_check(name, q, cw, m, g):
                              "integer inputs with unit scales")
 
 
+def matmul_rows(name, q, scale, ms_, g, detail=False):
+    """Kernel 5 on the int8 weight ``q`` [K, N] with per-column ``scale``
+    against its plain version on the card, at each M of ``ms_``, TF32 off:
+
+    - within the worst-case rounding bound of a K-term f32 sum,
+      K * 2^-24 * (|x| @ |W|) per output, since the two sum inside a K tile
+      in different orders (sequential fused multiply-adds against a cuBLAS
+      f32 GEMM) and across K tiles in the same kt order;
+    - with its largest error against an f64 product at most
+      ``F64_ERR_RATIO`` times that of cuBLAS f32 on the same inputs.
+
+    Timed as device time per call over a CUDA graph of 20, with its bound
+    and ``torch.matmul`` on the dequantized weight.  ``detail`` adds the
+    integer-exact check (``exact_matmul_check``) and the eager and
+    staging-only times.  Returns the packed weight and a row for each M."""
+    import torch
+    from repro_torch.kernels import apack_encode, decompress_matmul as dm
+    cw = dm.compress_quantized(q, scale, min(dm.DEFAULT_TILE_K, q.shape[0]))
+    # the coded words that every stream's decoder reads, from the encode
+    # kernel's bit counts
+    _, _, sb, ob, _ = apack_encode.encode(
+        dm.tile_streams(q, cw.tile_k), cw.v_min, cw.ol, cw.cum,
+        n_steps=cw.tile_k, bits=8)
+    coded = 4 * int(coded_words(sb, ob, cw.sym_plane.shape[0],
+                                cw.ofs_plane.shape[0]).sum())
+    del sb, ob
+    wf = q.to(torch.float32) * scale[None, :]
+    rows = []
+    for m in ms_:
+        if detail:
+            exact_matmul_check(name, q, cw, m, g)
+        x = torch.randn(m, cw.k, generator=g, device=q.device)
+        y = dm.compressed_matmul(x, cw)
+        y_plain = dm.compressed_matmul_plain(x, cw)
+        bound = cw.k * 2.0 ** -24 * (x.abs().double() @ wf.abs().double())
+        err = (y.double() - y_plain.double()).abs()
+        ratio = f64_err_ratio(y, x, wf)
+        if not (bool((err <= bound).all()) and bool(torch.isfinite(y).all())
+                and ratio <= F64_ERR_RATIO):
+            raise AssertionError(
+                f"decompress_matmul {name} [{m}, {cw.k}, {cw.n}]: off by "
+                f"{err.max().item():.3g} (bound {bound.min().item():.3g}), "
+                f"error against f64 {ratio:.3g}x cuBLAS f32's (limit "
+                f"{F64_ERR_RATIO})")
+        row = dict(name=name, shape=[m, cw.k, cw.n],
+                   ms=graph_ms(lambda: dm.compressed_matmul(x, cw), 20))
+        if detail:
+            row["eager_ms"] = cuda_ms(lambda: dm.compressed_matmul(x, cw), 20)
+            # the kernel up to its staging of the planes: the rest of ms is
+            # the decode chain (and, past 8 rows, the tile product)
+            row["stage_ms"] = graph_ms(lambda: dm.compressed_matmul(
+                x, cw, stage_only=True), 20)
+        # the coded words, the stored flags, tables, scales, x and the
+        # output, each once
+        nb = coded + nbytes(cw.stored, cw.v_min, cw.ol, cw.cum, cw.scale, x,
+                            y)
+        t_b, t_f = nb / HBM_BYTES_PER_S, 2 * m * cw.k * cw.n / F32_FLOPS
+        row.update(
+            plain_ms=cuda_ms(lambda: dm.compressed_matmul_plain(x, cw), 1),
+            library_ms=graph_ms(lambda: torch.matmul(x, wf), 20),
+            bound_ms=max(t_b, t_f) * 1e3,
+            bound_by="bytes" if t_b >= t_f else "operations",
+            max_abs_err=err.max().item(), f64_err_ratio=ratio,
+            payload_bits=cw.payload_bits)
+        rows.append(row)
+    return cw, rows
+
+
 def check_decompress_matmul(device, records):
-    """The decompress-matmul kernel against its plain version on the card,
-    at M = 4 (a decode step's batch), M = 1 and 8 (the ends of the
-    kernel's register path), 9 (the first on its shared-memory tile) and 77
-    (a prefill).  Three checks, TF32 off:
-
-    - bit-exact on integer inputs with unit scales (``exact_matmul_check``);
-    - the worst-case rounding bound of a K-term f32 sum,
-      K * 2^-24 * (|x| @ |W|) per output, against the plain version, since
-      the two sum inside a K tile in different orders (sequential fused
-      multiply-adds against a cuBLAS f32 GEMM) and across K tiles in the
-      same kt order;
-    - its largest error against an f64 product at most ``F64_ERR_RATIO``
-      times that of cuBLAS f32 on the same inputs.
-
-    The encode kernel's planes for the same streams are held bit-exact
-    against the plain encoder."""
+    """The decompress-matmul kernel against its plain version on the card
+    (``matmul_rows`` with ``detail``), at M = 4 (a decode step's batch),
+    M = 1 and 8 (the ends of the kernel's register path), 9 (the first on
+    its shared-memory tile) and 77 (a prefill).  The encode kernel's planes
+    for the same streams are held bit-exact against the plain encoder."""
     import torch
     from repro_torch.kernels import apack_encode, decompress_matmul as dm
     g = torch.Generator(device=device).manual_seed(3)
     rows = []
     for name, q, scale in weight_cases(device):
-        cw = dm.compress_quantized(q, scale,
-                                   min(dm.DEFAULT_TILE_K, q.shape[0]))
-        streams = dm.tile_streams(q, cw.tile_k)
-        tabs = (cw.v_min, cw.ol, cw.cum)
-        sym, ofs, sb, ob, st = apack_encode.encode_plain(
-            streams, *tabs, n_steps=cw.tile_k, bits=8)
+        cw, got = matmul_rows(name, q, scale, (1, 4, 8, 9, 77), g,
+                              detail=True)
+        sym, ofs, _, _, st = apack_encode.encode_plain(
+            dm.tile_streams(q, cw.tile_k), cw.v_min, cw.ol, cw.cum,
+            n_steps=cw.tile_k, bits=8)
         if not (torch.equal(sym, cw.sym_plane) and torch.equal(ofs, cw.ofs_plane)
                 and torch.equal(st.to(torch.int32), cw.stored)):
             raise AssertionError(f"decompress_matmul {name}: encode kernel "
@@ -974,48 +1113,10 @@ def check_decompress_matmul(device, records):
         if (name == "stored") != (n_stored == st.numel()):
             raise AssertionError(f"{name}: {n_stored} of {st.numel()} "
                                  "streams stored")
-        wf = (q.to(torch.float32) * scale[None, :])
-        coded = 4 * int(coded_words(sb, ob, sym.shape[0], ofs.shape[0]).sum())
-        for m in (1, 4, 8, 9, 77):
-            exact_matmul_check(name, q, cw, m, g)
-            x = torch.randn(m, cw.k, generator=g, device=device)
-            y = dm.compressed_matmul(x, cw)
-            y_plain = dm.compressed_matmul_plain(x, cw)
-            torch.cuda.synchronize()
-            bound = cw.k * 2.0 ** -24 * (x.abs().double() @ wf.abs().double())
-            err = (y.double() - y_plain.double()).abs()
-            if not bool((err <= bound).all()) or not torch.isfinite(y).all():
-                raise AssertionError(
-                    f"decompress_matmul {name} M={m}: off by "
-                    f"{err.max().item():.3g} (bound {bound.min().item():.3g})")
-            ratio = f64_err_ratio(y, x, wf)
-            if not ratio <= F64_ERR_RATIO:
-                raise AssertionError(
-                    f"decompress_matmul {name} M={m}: error against f64 is "
-                    f"{ratio:.3g}x cuBLAS f32's (limit {F64_ERR_RATIO})")
-            ms = graph_ms(lambda: dm.compressed_matmul(x, cw), 20)
-            eager = cuda_ms(lambda: dm.compressed_matmul(x, cw), 20)
-            # the kernel up to its staging of the planes: the rest of ms is
-            # the decode chain (and, past 8 rows, the tile product)
-            stage_ms = graph_ms(lambda: dm.compressed_matmul(
-                x, cw, stage_only=True), 20)
-            plain = cuda_ms(lambda: dm.compressed_matmul_plain(x, cw), 1)
-            lib = graph_ms(lambda: torch.matmul(x, wf), 20)
-            # coded words of every stream (+1 word its window reaches), the
-            # stored flags, table, scales, x and the output, each once
-            nbytes_ = coded + nbytes(cw.stored, *tabs, cw.scale, x, y)
-            flops = 2 * m * cw.k * cw.n
-            t_b, t_f = nbytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS
-            row = dict(name=name, shape=[m, cw.k, cw.n], ms=ms,
-                       eager_ms=eager, stage_ms=stage_ms, plain_ms=plain,
-                       library_ms=lib,
-                       bound_ms=max(t_b, t_f) * 1e3,
-                       bound_by="bytes" if t_b >= t_f else "operations",
-                       max_abs_err=err.max().item(), f64_err_ratio=ratio,
-                       exact_on_integers=True, stored=n_stored,
-                       payload_bits=cw.payload_bits)
-            rows.append(row)
+        for row in got:
+            row.update(exact_on_integers=True, stored=n_stored)
             print("decompress_matmul: " + json.dumps(row))
+        rows += got
     main_row = next(r for r in rows         # w_up at M = 4, a decode step
                     if r["name"] == "w_up" and r["shape"][0] == 4)
     records["decompress_matmul"] = dict(
@@ -1092,7 +1193,8 @@ def oracle_stores(packed_params, host_weights):
 def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                      fused=True, calib_pages=4, hook=None, params=None,
                      label=None, arch="qwen3-1.7b", max_len=160,
-                     requests=None):
+                     requests=None, engine_kw=None, setup=None,
+                     keep_sites=None):
     """Serve the 8 requests (``serve_requests``, or ``requests(cfg, rng)``)
     at ``arch``'s published widths and ``layers`` layers (its own depth
     when None), from dense or packed weights (the seed-0 draw, or
@@ -1101,12 +1203,16 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
     "int8"), with the launch counts reset just before the serve and read
     just after.  ``hook(eng, i)``, when given, runs after step ``i``; its
     time is not serving time, its kernel launches (checks) are taken out
-    of the counts and its memory out of the peak.  Returns a dict with the summary, the counts, a snapshot
-    of the PACKED KV pages, the first step's logits, the engine, the
+    of the counts and its memory out of the peak (``drive`` times the
+    steps).  Returns a dict with the summary, the counts, a snapshot of
+    the PACKED KV pages, the first step's logits, the engine, the
     requests and (packed weights only) a host copy of the original f32
-    weight of every packed site, from which the checks after the serve
-    build their oracle stores; nothing but the engine is on the card while
-    it serves, so ``max_memory_gb`` is the engine's."""
+    weight of every packed site (of ``keep_sites``, (layer, group, name)
+    triples, when given), from which the checks after the serve build
+    their oracle stores; nothing but the engine is on the card while it
+    serves, so ``max_memory_gb`` is the engine's.  ``engine_kw`` adds
+    engine options (refresh, pressure); ``setup(eng)`` runs once the engine
+    is built."""
     import dataclasses
     import numpy as np
     import torch
@@ -1127,55 +1233,37 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
         params = M.init_params(cfg, gen, device)
     eng = ServeEngine(cfg, params, max_batch=4, max_len=max_len,
                       kv_page_size=16, kv_calib_pages=calib_pages,
-                      kv_fused=fused, weights=weights, device=device)
+                      kv_fused=fused, weights=weights, device=device,
+                      **(engine_kw or {}))
     host_weights = {(i, grp, name): params["blocks"][i][grp][name].cpu()
-                    for i, grp, name, _ in packed_sites(eng.params)}
+                    for i, grp, name, _ in packed_sites(eng.params)
+                    if keep_sites is None or (i, grp, name) in keep_sites}
     del params
+    if setup is not None:
+        setup(eng)
     torch.cuda.synchronize()
     print(f"{tag}: d_model {cfg.d_model} built in "
           f"{time.perf_counter() - t0:.1f} s (weight packing "
           f"{eng.weight_pack_s:.1f} s)")
     rng = np.random.default_rng(0)
     reqs = (requests or serve_requests)(cfg, rng)
-    for r in reqs:
-        eng.submit(r)
+    seen: dict = {}
+
+    def after(e, i):
+        if "first_logits" not in seen:
+            seen["first_logits"] = e.last_logits.float().cpu()
+        if e.paged and "snapshot" not in seen and not e.queue:
+            seen["snapshot"] = capture_packed(e)
+        if hook is not None:
+            hook(e, i)
     repro_torch.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    snapshot = first_logits = None
-    checks = dict.fromkeys(repro_torch.launch_counts(), 0)
-    peak = 0                        # the engine's, checks left out
-    step_s = []
-    paused = 0.0                    # snapshot copies and checks
-    t0 = time.perf_counter()
-    while True:
-        ts = time.perf_counter()
-        n = eng.step()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - ts)
-        if n == 0 and not eng.queue:
-            break
-        tc = time.perf_counter()
-        if first_logits is None:
-            first_logits = eng.last_logits.float().cpu()
-        if eng.paged and snapshot is None and not eng.queue:
-            snapshot = capture_packed(eng)
-        if hook is not None:
-            peak = max(peak, torch.cuda.max_memory_allocated())
-            before = repro_torch.launch_counts()
-            hook(eng, len(step_s) - 1)
-            for k, v in repro_torch.launch_counts().items():
-                checks[k] += v - before[k]
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        paused += time.perf_counter() - tc
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0 - paused
-    launches = {k: v - checks[k]
+    d = drive(eng, reqs, after, tag)
+    launches = {k: v - d["check_launches"][k]
                 for k, v in repro_torch.launch_counts().items()}
+    snapshot, first_logits = seen.get("snapshot"), seen["first_logits"]
+    wall = d["wall_s"]
     gen_tokens = sum(len(r.tokens) for r in reqs)
-    if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
-        raise AssertionError(f"{tag}: not every request completed")
     path = ["decompress_matmul"] if weights else []
     if eng.paged:
         path += ["apack_decode", "apack_encode",
@@ -1184,20 +1272,18 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
         raise AssertionError(f"{tag}: a kernel was not launched: {launches}")
     if not torch.isfinite(eng.last_logits).all():
         raise AssertionError(f"{tag}: non-finite logits")
-    decode_steps = step_s[1:]                     # step 0 admits + calibrates
     summary = {"layers": layers, "weights": label,
                "kv": mode, "requests": len(reqs),
                "generated_tokens": gen_tokens,
                "wall_s": wall, "tokens_per_s": gen_tokens / wall,
                "steps": eng.stats["steps"],
-               "median_step_ms": float(np.median(decode_steps) * 1e3),
-               "first_step_s": step_s[0],
+               "median_step_ms": d["median_step_ms"],
+               "first_step_s": d["first_step_s"],
                "weight_pack_s": eng.weight_pack_s, "launches": launches,
                "launches_per_step": {k: v / eng.stats["steps"]
                                      for k, v in launches.items()},
-               "check_launches": checks,
-               "max_memory_gb": max(peak, torch.cuda.max_memory_allocated())
-               / 1e9}
+               "check_launches": d["check_launches"],
+               "max_memory_gb": d["max_memory_gb"]}
     if eng.paged:
         stats = eng.kv_stats()
         if stats["kv_pages_packed"] <= 0:
@@ -1223,22 +1309,402 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                 first_logits=first_logits, summary=summary)
 
 
-def check_packed_sites(eng, stores):
-    """Every packed site of the first and the last layer of the served
-    model, through the kernel, against one f32 product on the same
-    dequantized weight (``stores["oracle32"]``), at M = 4 and a prefill M:
-    within the K-term f32 rounding bound of ``check_decompress_matmul``,
-    and with an error against the f64 product at most ``F64_ERR_RATIO``
-    times cuBLAS f32's."""
+# ------------------------------------------------- robustness (slice 9)
+# the refresh serve's settings: refresh fires on the every-M-pages trigger
+# (32 sealed pages a layer); the regression threshold is set out of reach
+# so that the serve's cost of table searches stays bounded
+REFRESH_KW = dict(kv_refresh=True, kv_refresh_min_pages=8,
+                  kv_repack_budget=32, kv_refresh_every_pages=32,
+                  kv_refresh_threshold=1.0)
+# the pressure serve: half the pages of 4 slots at full context, 560 at
+# page 16 (a request reserves 196-252), a slot deadline of 16 steps
+PRESSURE_KW = dict(kv_pressure=True, slot_deadline_steps=16)
+
+
+def hot_requests(cfg, rng):
+    """Phase B of the refresh serve: 8 requests of one hot prompt, a single
+    token id repeated 64-96 times, 48 new tokens each (the traffic narrows
+    to a hot workload, ``tests/test_table_refresh.py``'s drift)."""
+    import numpy as np
+    from repro_torch.serve import Request
+    tok = int(rng.integers(0, cfg.vocab_size))
+    return [Request(100 + i, np.full(int(rng.integers(64, 97)), tok,
+                                     np.int64), max_new_tokens=48)
+            for i in range(8)]
+
+
+def drive(eng, reqs, hook=None, tag="drive") -> dict:
+    """Submit ``reqs`` to ``eng`` and step it until drained, each step timed
+    to the card's end; ``hook(eng, i)`` after step ``i``, outside the
+    timing, its kernel launches (checks) counted apart and its memory left
+    out of the peak.  Returns the tokens, the wall and median step time
+    (step 0 admits and calibrates, so the median leaves it out), the
+    hooks' launches, the peak memory and (paged KV) this serve's KV read
+    ratio, tables included."""
+    import numpy as np
     import torch
-    blocks = eng.params["blocks"]
+    import repro_torch
+    t_kv = dict(eng.kv.traffic) if eng.paged else None
+    for r in reqs:
+        eng.submit(r)
+    checks = dict.fromkeys(repro_torch.launch_counts(), 0)
+    peak = 0
+    step_s = []
+    paused = 0.0
+    t0 = time.perf_counter()
+    while True:
+        ts = time.perf_counter()
+        n = eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - ts)
+        if n == 0 and not eng.queue:
+            break
+        if hook is not None:
+            tc = time.perf_counter()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            before = repro_torch.launch_counts()
+            hook(eng, len(step_s) - 1)
+            for k, v in repro_torch.launch_counts().items():
+                checks[k] += v - before[k]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            paused += time.perf_counter() - tc
+    wall = time.perf_counter() - t0 - paused
+    if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
+        raise AssertionError(f"{tag}: not every request completed")
+    out = {"tokens": [r.tokens for r in reqs], "wall_s": wall,
+           "median_step_ms": float(np.median(step_s[1:]) * 1e3),
+           "first_step_s": step_s[0], "check_launches": checks,
+           "max_memory_gb": max(peak, torch.cuda.max_memory_allocated())
+           / 1e9}
+    if eng.paged:
+        d = {k: eng.kv.traffic[k] - t_kv[k] for k in t_kv}
+        out["kv_ratio"] = ((d["kv_read_bytes"] + d["kv_table_bytes"])
+                           / d["kv_raw_bytes"])
+    return out
+
+
+def count_repack_launches(rec: dict):
+    """``setup(eng)`` for the refresh serve: wrap its cache's
+    ``launch_repack`` so that each re-pack batch it queues records the
+    launches that kernel 1's and kernel 2's wrappers counted meanwhile, a
+    (decode, encode) pair in ``rec["batches"]``."""
+    import repro_torch
+    kernels = ("apack_decode", "apack_encode")
+
+    def setup(eng):
+        launch = eng.kv.launch_repack
+
+        def counted(*a, **k):
+            before = repro_torch.launch_counts()
+            job = launch(*a, **k)
+            after = repro_torch.launch_counts()
+            d = tuple(after[n] - before[n] for n in kernels)
+            if job is not None:
+                rec.setdefault("batches", []).append(d)
+            elif any(d):
+                raise AssertionError(f"re-pack: launches {d} and no batch")
+            return job
+        eng.kv.launch_repack = counted
+    return setup
+
+
+def refresh_hook(rec: dict):
+    """After each step of the refresh serve: record, for a step that
+    re-packed and sealed nothing, its device-to-host calls and its re-pack
+    batches (``rec["repack_only_steps"]``); and once, at a step where the
+    active requests' PACKED pages span two table generations,
+    ``oracle_gates``: ``materialize`` through the gather kernel (per-page
+    rows of both generations) bit-exact against the plain decode, and the
+    fused attention kernel against f64 dense attention."""
+    from repro_torch.models.modules import PAGE_PACKED
+
+    def state(eng):
+        kv = eng.kv
+        return (kv.transfers["d2h_calls"], len(rec.get("batches", ())),
+                kv.traffic["kv_pages_packed"], int(kv.hist_pages.sum()))
+
+    def hook(eng, i):
+        cur = state(eng)
+        prev = rec.get("prev")
+        rec["prev"] = cur
+        if prev is not None:
+            d2h, batches, packed, hist = (a - b for a, b in zip(cur, prev))
+            if batches and not packed and not hist:
+                rec.setdefault("repack_only_steps", []).append(
+                    (d2h, batches))
+        kv = eng.kv
+        gens = {int(kv.page_gen[p]) for r in eng.active if r is not None
+                for pids in kv.page_tables[r.rid] for p in pids
+                if kv.pool.state[p] == PAGE_PACKED}
+        if "gates" not in rec and len(gens) >= 2:
+            rec["gates"] = oracle_gates(eng, f"PACKED generations "
+                                             f"{sorted(gens)}")
+            rec["prev"] = state(eng)
+    return hook
+
+
+def refresh_phase(device, frozen: dict, fused_tokens: list) -> dict:
+    """(a) qwen3-1.7b at 28 layers with table refresh: phase A the 8
+    requests of the fused serve, phase B 8 requests of one hot prompt, on
+    one engine (``REFRESH_KW``).  Gates: tokens equal to the frozen
+    control's (phase 3's engine, refresh off, extended by phase B); refresh
+    fired and re-packed (``generation`` >= 1); each re-pack batch launched
+    kernels 1 and 2 once each, as their wrappers counted them
+    (``count_repack_launches``); a step that re-packed and sealed nothing
+    in one batch made one device-to-host call, and one that took more
+    batches (a page queued twice ends a batch) one call a batch, counted
+    and printed apart; ``refresh_hook``'s oracle gates.  Prints the
+    phase-B KV ratio against the frozen one's and both engines' median
+    step.  Returns the re-pack launches a step of kernels 1 and 2."""
+    import numpy as np
+    rec: dict = {}
+    run = serve_full_width(device, layers=28, engine_kw=REFRESH_KW,
+                           setup=count_repack_launches(rec),
+                           hook=refresh_hook(rec), label="dense, refresh")
+    eng = run["eng"]
+    if [r.tokens for r in run["reqs"]] != fused_tokens:
+        raise AssertionError("refresh serve phase A: tokens differ from the "
+                             "frozen fused serve")
+    b = drive(eng, hot_requests(run["cfg"], np.random.default_rng(5)),
+              refresh_hook(rec), "refresh serve phase B")
+    if b["tokens"] != frozen["tokens"]:
+        raise AssertionError("refresh serve phase B: tokens differ from the "
+                             "frozen control")
+    st, kv = eng.stats, eng.kv
+    batches = rec.get("batches", [])
+    steps = rec.get("repack_only_steps", [])
+    one = [d for d, n in steps if n == 1]
+    more = [(d, n) for d, n in steps if n > 1]
+    per_step = {k: sum(bt[i] for bt in batches) / st["steps"]
+                for i, k in enumerate(("apack_decode", "apack_encode"))}
+    res = {"settings": REFRESH_KW, "kv_refreshes": st["kv_refreshes"],
+           "kv_pages_repacked": st["kv_pages_repacked"],
+           "generation": kv.generation, "gen_rows": kv.gen_rows,
+           "kv_repack": eng.kv_stats()["kv_repack"],
+           "repack_batches": len(batches),
+           "repack_batch_launches": sorted(set(batches)),
+           "repack_launches_per_step": per_step, "steps": st["steps"],
+           "repack_only_steps": len(steps),
+           "one_batch_steps_d2h": sorted(set(one)),
+           "multi_batch_steps": len(more),
+           "multi_batch_steps_d2h_batches": more,
+           "phase_b_kv_ratio": {"refresh": b["kv_ratio"],
+                                "frozen": frozen["kv_ratio"]},
+           "median_step_ms": {
+               "refresh": {"A": run["summary"]["median_step_ms"],
+                           "B": b["median_step_ms"]},
+               "frozen": {"A": frozen["a_median_step_ms"],
+                          "B": frozen["median_step_ms"]}},
+           "oracle_gates": rec.get("gates")}
+    print("refresh serve [qwen3-1.7b, 28 layers]: " + json.dumps(res))
+    if not (st["kv_refreshes"] > 0 and st["kv_pages_repacked"] > 0
+            and kv.generation >= 1):
+        raise AssertionError("refresh serve: no refresh or re-pack")
+    if not batches or set(batches) != {(1, 1)}:
+        raise AssertionError(f"refresh serve: re-pack batches launched "
+                             f"{sorted(set(batches))} (decode, encode), "
+                             "expected one of each")
+    if "gates" not in rec:
+        raise AssertionError("refresh serve: PACKED pages of two "
+                             "generations never coexisted")
+    if not one or set(one) != {1}:
+        raise AssertionError(f"refresh serve: one-batch re-pack-only steps "
+                             f"made {sorted(set(one))} d2h calls, expected 1")
+    if any(d != n for d, n in more):
+        raise AssertionError(f"refresh serve: multi-batch re-pack-only steps "
+                             f"(d2h, batches) {more[:8]}: expected one pull "
+                             "a batch")
+    return per_step
+
+
+def pressure_phase(device, fused_tokens: list, layers: int = 28) -> None:
+    """(b) qwen3-1.7b at 28 layers under pool pressure: 560 pages (half of
+    4 slots at full context), so two requests fit at once,
+    ``kv_pressure`` and a 16-step slot deadline: requests rotate through
+    the host spill tier.  Gates: tokens equal to phase 3's (the
+    uncontended control), pages spilled, every one read back, none
+    quarantined, no request failed, the pool free at the end.  Prints the
+    spill ratio and the spill and readahead seconds."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import PagedKVCache
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=layers)
+    pages = 4 * PagedKVCache.pages_for_config(cfg, 160, 16) // 2
+    timing = {"spill_s": 0.0, "readahead_s": 0.0}
+
+    def timed(fn, key):
+        def f(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timing[key] += time.perf_counter() - t0
+            return out
+        return f
+
+    def setup(eng):
+        eng.kv.spill_request = timed(eng.kv.spill_request, "spill_s")
+        eng.kv.unspill_request = timed(eng.kv.unspill_request,
+                                       "readahead_s")
+
+    run = serve_full_width(device, layers=layers, setup=setup,
+                           engine_kw=dict(kv_pages=pages, **PRESSURE_KW),
+                           label="dense, pressure")
+    eng = run["eng"]
+    ks, st = eng.kv_stats(), eng.stats
+    sp = ks["kv_spill"]
+    res = {"kv_pages": pages, **PRESSURE_KW,
+           **{k: st[k] for k in ("preempted", "resumed", "spilled_requests",
+                                 "pressure_preempted", "deadline_preempted",
+                                 "failed", "kv_admission_blocked")},
+           "kv_pages_spilled": ks["kv_pages_spilled"],
+           "kv_pages_unspilled": ks["kv_pages_unspilled"],
+           "spill": sp, **timing,
+           "median_step_ms": run["summary"]["median_step_ms"],
+           "tokens_per_s": run["summary"]["tokens_per_s"]}
+    print("pressure serve [qwen3-1.7b, 28 layers]: " + json.dumps(res))
+    if [r.tokens for r in run["reqs"]] != fused_tokens:
+        raise AssertionError("pressure serve: tokens differ from the "
+                             "uncontended fused serve")
+    if not (sp["pages"] > 0 and sp["readahead_pages"] == sp["pages"]
+            and sp["quarantined"] == 0 and st["failed"] == 0
+            and eng.kv.pool.free_count == eng.kv.pool.num_pages):
+        raise AssertionError("pressure serve: spill/readahead gates failed")
+
+
+def smoke_robustness_vs_cpu(device) -> None:
+    """(d) SMOKE qwen3-1.7b engines on the card against the same engines on
+    the CPU: the two-phase refresh serve (``tests/test_torch_refresh_
+    engine.py``'s workload, 12 new tokens a request), the pressure rotation through an undersized
+    pool, and a fault run where one flipped bit of a spilled record fails
+    only its owner (the other request's tokens equal its control's, on
+    each device).  Tokens, ``kv_ratio`` and the refresh, spill and eviction
+    counters must be equal."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import PagedKVCache, init_params
+    from repro_torch.serve import FaultInjector, Request, ServeEngine
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              kv_cache_dtype="apack-int8")
+    base = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    per_req = PagedKVCache.pages_for_config(cfg, 12, 4)
+
+    def on(dev):
+        return {"embed": base["embed"].to(dev),
+                "final_norm": base["final_norm"].to(dev),
+                "blocks": [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                                if isinstance(v, dict) else v.to(dev))
+                            for k, v in b.items()} for b in base["blocks"]]}
+
+    def two_phase(dev):
+        eng = ServeEngine(cfg, on(dev), device=dev, max_batch=4, max_len=96,
+                          kv_page_size=4, kv_calib_pages=1, kv_refresh=True,
+                          kv_refresh_every_pages=16, kv_refresh_min_pages=8,
+                          kv_repack_budget=32)
+        rng = np.random.default_rng(11)
+        phases = ([rng.integers(0, cfg.vocab_size, 9) for _ in range(4)],
+                  [np.full(9, 7) for _ in range(4)])
+        reqs = []
+        for p, prompts in enumerate(phases):
+            batch = [Request(100 * p + i, x, max_new_tokens=12)
+                     for i, x in enumerate(prompts)]
+            for r in batch:
+                eng.submit(r)
+            eng.run_until_drained()
+            reqs += batch
+        return eng, reqs
+
+    def pressure(dev):
+        eng = ServeEngine(cfg, on(dev), device=dev, max_batch=3, max_len=16,
+                          kv_page_size=4, kv_calib_pages=2,
+                          kv_pages=max(per_req, 3 * per_req // 2),
+                          kv_pressure=True, slot_deadline_steps=4)
+        rng = np.random.default_rng(11)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, 8),
+                        max_new_tokens=4) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained(max_steps=400)
+        return eng, reqs
+
+    def fault(dev, corrupt=True):
+        eng = ServeEngine(cfg, on(dev), device=dev, max_batch=2, max_len=40,
+                          kv_page_size=4, kv_calib_pages=2)
+        rng = np.random.default_rng(9)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, 8),
+                        max_new_tokens=8) for i in range(2)]
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(4):
+            eng.step()
+        eng.preempt(0, spill=True)
+        if corrupt:
+            handle = next(-e - 1 for pids in eng.kv.page_tables[0]
+                          for e in pids if e < 0)
+            FaultInjector().flip_bit(eng.kv.spill_tier, handle)
+        eng.run_until_drained(max_steps=200)
+        return eng, reqs
+
+    keys = ("kv_refreshes", "kv_pages_repacked", "spilled_requests",
+            "preempted", "resumed", "failed", "pressure_preempted",
+            "deadline_preempted")
+    for name, fn in (("refresh two-phase", two_phase),
+                     ("pressure", pressure), ("fault", fault)):
+        out = {}
+        for dev in ("cpu", device):
+            eng, reqs = fn(dev)
+            ks = eng.kv_stats()
+            out[dev] = {"tokens": [r.tokens for r in reqs],
+                        "errors": [r.error for r in reqs],
+                        "stats": {k: eng.stats[k] for k in keys},
+                        "generation": eng.kv.generation,
+                        **{k: ks[k] for k in (
+                            "kv_ratio", "kv_repack", "kv_spill",
+                            "kv_pages_evicted", "kv_pages_spilled",
+                            "kv_pages_unspilled")}}
+            if name == "fault":
+                ctrl = fault(dev, corrupt=False)[1]
+                if not (reqs[0].error and "checksum" in reqs[0].error
+                        and reqs[1].error is None
+                        and reqs[1].tokens == ctrl[1].tokens):
+                    raise AssertionError(f"SMOKE fault run on {dev}: the "
+                                         "flip did not fail only its owner")
+        same = out["cpu"] == out[device]
+        c = out[device]
+        print(f"smoke robustness [{name}] card vs cpu: equal {same}; "
+              + json.dumps({k: c[k] for k in ("stats", "generation",
+                                              "kv_ratio", "kv_repack",
+                                              "kv_spill")}))
+        if not same:
+            raise AssertionError(f"SMOKE {name} on the card disagrees with "
+                                 "the CPU")
+        if name == "refresh two-phase" and not (
+                c["generation"] >= 1 and c["stats"]["kv_pages_repacked"] > 0):
+            raise AssertionError("SMOKE refresh serve: no refresh")
+        if name == "pressure" and not c["kv_spill"]["pages"] > 0:
+            raise AssertionError("SMOKE pressure serve: nothing spilled")
+
+
+def check_packed_sites(eng, weight_of, tag):
+    """Each packed site of the served model for which
+    ``weight_of(layer, group, name, packed)`` gives a weight (the f32
+    dequantized weight on the card, else None), through the kernel,
+    against one f32 product on that weight, at M = 4 and a prefill M (77):
+    within the K-term f32 rounding bound of ``matmul_rows``, and with an
+    error against the f64 product at most ``F64_ERR_RATIO`` times cuBLAS
+    f32's.  Returns the sites checked."""
+    import torch
     g = torch.Generator(device=eng.device).manual_seed(4)
-    last = len(blocks) - 1
     worst = worst_ratio = 0.0
+    sites = []
     for i, grp, name, pw in packed_sites(eng.params):
-        if i not in (0, last):
+        w = weight_of(i, grp, name, pw)
+        if w is None:
             continue
-        w = stores["oracle32"]["blocks"][i][grp][name].w
         for m in (4, 77):
             x = torch.randn(m, pw.cw.k, generator=g, device=w.device)
             y = pw.matmul(x)
@@ -1248,14 +1714,16 @@ def check_packed_sites(eng, stores):
             ratio = f64_err_ratio(y, x, w)
             if not bool((err <= bound).all()) or not ratio <= F64_ERR_RATIO:
                 raise AssertionError(
-                    f"packed {name} layer {i} M={m}: off by {err.max()}, "
-                    f"{ratio:.3g}x cuBLAS f32's error against f64")
+                    f"{tag}: packed {name} layer {i} M={m}: off by "
+                    f"{err.max()}, {ratio:.3g}x cuBLAS f32's error against "
+                    "f64")
             worst = max(worst, (err / bound).max().item())
             worst_ratio = max(worst_ratio, ratio)
-    print(f"packed sites: layers 0 and {last}, every site, M = 4 and 77, "
-          f"within the f32 bound (worst {worst:.3g} of it); error against "
-          f"f64 at most {worst_ratio:.3g}x cuBLAS f32's "
-          f"(limit {F64_ERR_RATIO})")
+        sites.append(f"{i}/{grp}/{name}")
+    print(f"{tag} packed sites {sites}: M = 4 and 77 within the f32 bound "
+          f"(worst {worst:.3g} of it); error against f64 at most "
+          f"{worst_ratio:.3g}x cuBLAS f32's (limit {F64_ERR_RATIO})")
+    return sites
 
 
 def teacher_forced(run, stores):
@@ -1725,10 +2193,16 @@ def recurrentgemma_phase(device):
     the fused paged APack KV path, the materialize oracle (gated at one
     step with PACKED pages) and the fused path with slot 0 preempted and
     resumed (tokens equal to the fused serve's, states restored bit for
-    bit).  Returns the fused serve's launch counts."""
+    bit).  Then (c) serves them from APack-packed weights (packed by layer
+    kind from the f32 draw), checks the packed sites of one local layer's
+    attention and one recurrent layer's FFN against f32 and f64 products,
+    and prints ``weight_stats()``, the packing seconds and the token
+    agreement with the dense fused serve.  Returns the fused serve's launch
+    counts and kernel 5's launches a step of the packed serve."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core import quant
     from repro_torch.models import model as M
     t_phase = time.perf_counter()
     cfg = get_config("recurrentgemma-9b")
@@ -1755,7 +2229,8 @@ def recurrentgemma_phase(device):
     print("recurrentgemma-9b fused: " + json.dumps({
         "tokens_per_s": s["tokens_per_s"],
         "median_step_ms": s["median_step_ms"], "kv_ratio": s["kv_ratio"],
-        "stream_ratios": {k: v["ratio"] for k, v in s["kv_streams"].items()},
+        "stream_ratios": {k: v["ratio"] for k, v in s["kv_streams"].items()
+                          if "ratio" in v and k != "spill"},
         "kv_pages_evicted": s["kv_pages_evicted"],
         "max_memory_gb": s["max_memory_gb"]}))
     verify_packed(fused["snapshot"])
@@ -1797,8 +2272,53 @@ def recurrentgemma_phase(device):
                              "differ from the uninterrupted fused serve")
     del pre, params, kw
     torch.cuda.empty_cache()
+    # (c) from packed weights: the f32 draw again, packed by layer kind
+    # before anything else holds the card (the bf16 copy is gone)
+    kinds = M.layer_kinds(cfg)
+    local = kinds.index("local")
+    rec = next(i for i, k in enumerate(kinds)
+               if k == "recurrent" and i >= len(cfg.prefix_pattern))
+    sites = {(local, "inner", n) for n in ("wq", "wk", "wv", "wo")} | \
+        {(rec, "ffn", n) for n in ("w_up", "w_gate", "w_down")}
+    torch.cuda.reset_peak_memory_stats()
+    packed = serve_full_width(
+        device, arch="recurrentgemma-9b", max_len=2176, requests=rg_requests,
+        weights="apack-int8", keep_sites=sites,
+        params=M.init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0), device))
+    eng, s = packed["eng"], packed["summary"]
+    host = packed.pop("host_weights")
+
+    def dequantized(i, grp, name, pw):
+        if (i, grp, name) not in host:
+            return None
+        q, qp = quant.quantize_symmetric(host[i, grp, name].to(eng.device),
+                                         axis=-1)
+        return quant.dequantize_symmetric(q, qp).reshape(pw.cw.k, pw.cw.n)
+    if len(check_packed_sites(eng, dequantized, "recurrentgemma-9b")) \
+            != len(host):
+        raise AssertionError(f"recurrentgemma-9b: a site of {sorted(host)} "
+                             "was not checked")
+    ws = s["weight_stats"]
+    print("recurrentgemma-9b packed: " + json.dumps({
+        **{k: ws[k] for k in ("weight_ratio", "native_ratio",
+                              "packed_tensors", "payload_bytes",
+                              "int8_bytes", "native_bytes")},
+        "weight_pack_s": eng.weight_pack_s,
+        "median_step_ms": s["median_step_ms"],
+        "tokens_per_s": s["tokens_per_s"], "kv_ratio": s["kv_ratio"],
+        "kv_pages_evicted": s["kv_pages_evicted"],
+        "max_memory_gb": s["max_memory_gb"],
+        "decompress_matmul_launches_per_step":
+            s["launches_per_step"]["decompress_matmul"],
+        "token_agreement_with_dense": token_agreement(
+            [r.tokens for r in packed["reqs"]], fused_tokens)}))
+    rg_k5 = s["launches_per_step"]["decompress_matmul"]
+    verify_packed(packed["snapshot"])
+    del packed, eng
+    torch.cuda.empty_cache()
     print(f"recurrentgemma-9b phase: {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, rg_k5
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1955,6 +2475,7 @@ def verify_packed(snapshot):
 
 def main() -> int:
     import torch
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is False")
     src = os.path.join(HERE, "src")
@@ -1972,6 +2493,13 @@ def main() -> int:
           else f"nvidia-smi: {smi.stderr.strip()}")
     print(host_line())
     device = torch.device("cuda", 0)
+    laps: dict = {}
+    t_lap = [t_script]
+
+    def lap(name):                  # seconds of each phase, printed at the end
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in built.items()})}"
@@ -1982,6 +2510,7 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"ptxas {name}: {line.strip()}")
+    lap("1 build")
     records: dict = {}
     check_codec(device, records)
     check_fastpath_shapes(device, records)
@@ -1993,18 +2522,33 @@ def main() -> int:
     check_rg_codec(device, rg_records)
     check_gather(device, rg_records, s=32, key="gather_decode [16, 1, 256]")
     check_attention_rolling(device, rg_records)
+    # kernels 1 and 2 at a re-pack batch, kernel 5 at recurrentgemma-9b's
+    # packed sites
+    new_records: dict = {}
+    check_repack_batch(device, new_records)
+    check_rg_matmul(device, new_records)
+    lap("2 kernel checks")
     # phase 3: dense weights, the fused KV path's three kernels
     dense = serve_full_width(device, layers=28)
     fused_tokens = [r.tokens for r in dense["reqs"]]
     fused_first = dense["first_logits"]
+    # the refresh serve's frozen control: phase B on the same engine
+    import numpy as np
+    frozen = drive(dense["eng"], hot_requests(dense["cfg"],
+                                              np.random.default_rng(5)))
+    frozen["a_median_step_ms"] = dense["summary"]["median_step_ms"]
     profile_steady_steps(dense["eng"], dense["cfg"], dense["rng"], "dense")
     verify_packed(dense["snapshot"])
     del dense
     torch.cuda.empty_cache()
+    lap("3 fused serve, frozen phase B")
     # phase 4: the main path, packed weights at full depth
     packed = serve_full_width(device, layers=28, weights="apack-int8")
     stores = oracle_stores(packed["eng"].params, packed.pop("host_weights"))
-    check_packed_sites(packed["eng"], stores)
+    ends = (0, len(stores["oracle32"]["blocks"]) - 1)
+    check_packed_sites(packed["eng"], lambda i, grp, name, pw: (
+        stores["oracle32"]["blocks"][i][grp][name].w if i in ends else None),
+        "qwen3-1.7b, layers 0 and 27,")
     teacher_forced(packed, stores)
     del stores
     torch.cuda.empty_cache()
@@ -2014,6 +2558,7 @@ def main() -> int:
     launches = packed["launches"]
     del packed
     torch.cuda.empty_cache()
+    lap("4 packed serve")
     # phase 5: the materialize oracle, calibrated from 20 pages so that
     # its first decode steps read HOT and COLD pages, its later ones HOT
     # and PACKED pages through the gather-decode kernel
@@ -2035,6 +2580,7 @@ def main() -> int:
     launches["gather_decode"] = oracle["launches"]["gather_decode"]
     del oracle
     torch.cuda.empty_cache()
+    lap("5 oracle serve")
     # phase 6: preempt and resume on the fused path
     pre = serve_full_width(device, layers=28, hook=preempt_hook)
     st = pre["eng"].stats
@@ -2048,12 +2594,14 @@ def main() -> int:
                              "uninterrupted fused serve")
     del pre
     torch.cuda.empty_cache()
+    lap("6 preempt serve")
     # phase 7: the uncompressed baseline, a dense int8 KV cache
     dense8 = serve_full_width(device, layers=28, kv="int8")
     profile_steady_steps(dense8["eng"], dense8["cfg"], dense8["rng"],
                          "int8 KV")
     del dense8
     torch.cuda.empty_cache()
+    lap("7 int8 KV serve")
     # phase 8: the JAX CLI's default weight path, compress_params ->
     # decompress_params, then a fused serve from the round-tripped weights
     rt = serve_full_width(device, layers=28,
@@ -2067,9 +2615,18 @@ def main() -> int:
     verify_packed(rt["snapshot"])
     del rt
     torch.cuda.empty_cache()
+    lap("8 round trip")
+    # (a) table refresh and re-pack, (b) pool pressure and the spill tier
+    refresh = refresh_phase(device, frozen, fused_tokens)
+    torch.cuda.empty_cache()
+    lap("(a) refresh serve")
+    pressure_phase(device, fused_tokens)
+    torch.cuda.empty_cache()
+    lap("(b) pressure serve")
     # recurrentgemma-9b at full width: rolling attention, RG-LRU layers,
-    # page eviction and state snapshots
-    rg_launches = recurrentgemma_phase(device)
+    # page eviction and state snapshots; (c) from packed weights
+    rg_launches, rg_k5 = recurrentgemma_phase(device)
+    lap("9 recurrentgemma-9b, (c)")
     fused_smoke = smoke_vs_cpu(device)
     smoke_vs_cpu(device, roundtrip=True)
     smoke_vs_cpu(device, weights="apack-int8")
@@ -2078,10 +2635,16 @@ def main() -> int:
                              "the fused engine on the card")
     smoke_vs_cpu(device, kv="int8")
     smoke_vs_cpu(device, kv="bfloat16")
+    lap("10 SMOKE qwen3")
     for arch in ("hetero-serve-smoke", "recurrentgemma-9b"):
         smoke_vs_cpu(device, arch=arch)
         smoke_vs_cpu(device, arch=arch, fused=False)
         smoke_vs_cpu(device, arch=arch, kv="int8")
+        smoke_vs_cpu(device, arch=arch, weights="apack-int8")
+    lap("10 SMOKE heterogeneous")
+    # (d) refresh, pressure and a fault run, card against CPU
+    smoke_robustness_vs_cpu(device)
+    lap("(d) SMOKE robustness")
     sources = {"apack_decode": ("src/repro_torch/kernels/csrc/apack_decode.cu",
                                 "src/repro/kernels/apack_decode.py:34"),
                "apack_encode": ("src/repro_torch/kernels/csrc/apack_encode.cu",
@@ -2095,6 +2658,15 @@ def main() -> int:
                "gather_decode": (
                    "src/repro_torch/kernels/csrc/gather_decode.cu",
                    "src/repro/kernels/paged_decode.py:150")}
+    # launches a step of this slice's paths: the re-pack batches of the
+    # refresh serve (one launch of kernels 1 and 2 each), kernel 5 in the
+    # packed recurrentgemma-9b serve
+    extra = {"apack_decode": {"repack_launches_per_step":
+                              refresh["apack_decode"]},
+             "apack_encode": {"repack_launches_per_step":
+                              refresh["apack_encode"]},
+             "decompress_matmul": {"recurrentgemma_launches_per_step":
+                                   rg_k5}}
     kernels = []
     for name in _build.KERNELS:
         r = records[name]
@@ -2105,9 +2677,14 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **extra.get(name, {})})
     print("kernels at recurrentgemma-9b's page [16, 1, 256]: " + json.dumps(
         {"records": rg_records, "serve_launches": rg_launches}))
+    print("kernels at the re-pack batch and recurrentgemma-9b's packed "
+          "sites: " + json.dumps(new_records))
+    print(f"phase seconds: {json.dumps(laps)}")
+    print(f"script: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

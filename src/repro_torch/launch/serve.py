@@ -17,14 +17,19 @@ the checkpoint-style round trip first, as in the JAX CLI:
 (the encode kernel), prints the compression line, and
 ``decompress_params`` decodes them back to dense (the decode kernel).
 ``--weights apack-int8`` serves from APack-packed weights instead, every
-matmul on them through the decompress-matmul kernel; ``--no-compress``
-serves the dense weights as they are.  ``--kv-materialize`` serves the
+matmul on them through the decompress-matmul kernel, on any served
+stack; ``--no-compress`` serves the dense weights as they are.  ``--kv-materialize`` serves the
 paged cache through the materialize oracle (a dense int8 cache rebuilt
 from the pool every step) instead of the fused path; ``--kv int8`` or
 ``--kv bfloat16`` serves a dense cache, the raw-KV baseline.  ``--device
-cpu`` runs the same paths through the kernels' plain versions.  The JAX
-CLI's other flags are accepted and refused with ``NotImplementedError``
-naming their ROADMAP item.
+cpu`` runs the same paths through the kernels' plain versions.
+``--kv-refresh`` (with ``--kv-refresh-every``, ``--kv-refresh-threshold``
+and ``--kv-repack-budget``) re-fits the KV tables to drifting traffic and
+re-packs pages under them; ``--kv-pages`` below the worst case with
+``--kv-pressure`` and ``--slot-deadline`` serves under pool pressure
+through the host spill tier.  The JAX CLI's other flags (``--scheduler
+async``, ``--prefill-chunk``, ``--slo-ms``, ``--mesh``) are accepted and
+refused with ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -45,12 +50,6 @@ from repro_torch.serve import (Request, ServeEngine, compress_params,
 # flags of the JAX CLI that the port does not serve yet: (flag, value
 # that means "not asked for", ROADMAP item)
 UNPORTED = (
-    ("--kv-refresh", False, "open item 1.8, serving robustness"),
-    ("--kv-refresh-every", None, "open item 1.8, serving robustness"),
-    ("--kv-refresh-threshold", None, "open item 1.8, serving robustness"),
-    ("--kv-repack-budget", None, "open item 1.8, serving robustness"),
-    ("--kv-pressure", False, "open item 1.8, serving robustness"),
-    ("--slot-deadline", None, "open item 1.8, serving robustness"),
     ("--scheduler", "sync", "open item 1.8, serving robustness (async "
      "scheduler)"),
     ("--prefill-chunk", None, "open item 1.8, serving robustness (async "
@@ -58,14 +57,8 @@ UNPORTED = (
     ("--slo-ms", None, "open item 1.8, serving robustness (SLO admission)"),
     ("--mesh", None, "open item 1.10, multi-device serving"),
 )
-_FLAG_ARGS = {"--kv-refresh": dict(action="store_true"),
-              "--kv-pressure": dict(action="store_true"),
-              "--scheduler": dict(default="sync"),
-              "--kv-refresh-every": dict(type=int),
-              "--kv-repack-budget": dict(type=int),
-              "--slot-deadline": dict(type=int),
+_FLAG_ARGS = {"--scheduler": dict(default="sync"),
               "--prefill-chunk": dict(type=int),
-              "--kv-refresh-threshold": dict(type=float),
               "--slo-ms": dict(type=float)}
 
 
@@ -100,9 +93,33 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--window-size", type=int, default=None,
                     help="override the rolling-attention window (small "
                          "values show page eviction on hybrid archs)")
+    ap.add_argument("--kv-refresh", action="store_true",
+                    help="adaptive table refresh: re-calibrate activation "
+                         "tables from drift sketches and re-pack pages "
+                         "when serving traffic drifts")
+    ap.add_argument("--kv-refresh-every", type=int, default=None,
+                    metavar="PAGES",
+                    help="also refresh unconditionally every PAGES sealed "
+                         "pages per layer (default: regression trigger "
+                         "only)")
+    ap.add_argument("--kv-refresh-threshold", type=float, default=0.15,
+                    help="refresh when the drift sketch's expected coded "
+                         "size regresses this fraction past the "
+                         "calibration-time expectation")
+    ap.add_argument("--kv-repack-budget", type=int, default=4,
+                    help="most pages re-packed per decode step")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size (default: worst case for "
-                         "max_batch x max_len)")
+                         "max_batch x max_len; smaller values exercise the "
+                         "pressure/spill path)")
+    ap.add_argument("--kv-pressure", action="store_true",
+                    help="pressure escalation: blocked admission may "
+                         "preempt active slots with spill (compressed host "
+                         "spill tier, exponential backoff)")
+    ap.add_argument("--slot-deadline", type=int, default=None,
+                    metavar="STEPS",
+                    help="preempt with spill any slot that decodes this "
+                         "many steps while other requests queue")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions (without a card, cuda raises)")
@@ -147,7 +164,14 @@ def main(argv=None) -> None:
                          weight_min_size=args.weight_min_size,
                          kv_page_size=args.kv_page_size,
                          kv_pages=args.kv_pages,
-                         kv_fused=not args.kv_materialize, device=device)
+                         kv_fused=not args.kv_materialize,
+                         kv_refresh=args.kv_refresh,
+                         kv_refresh_every_pages=args.kv_refresh_every,
+                         kv_refresh_threshold=args.kv_refresh_threshold,
+                         kv_repack_budget=args.kv_repack_budget,
+                         kv_pressure=args.kv_pressure,
+                         slot_deadline_steps=args.slot_deadline,
+                         device=device)
     del params
     if args.weights:
         print(f"packed the weights in {engine.weight_pack_s:.1f}s")
@@ -197,11 +221,34 @@ def main(argv=None) -> None:
               f"pool={ks['kv_pages_high_water']}/{ks['kv_pool_pages']} "
               "pages")
         for kind, st in ks["kv_streams"].items():
+            if kind in ("repack", "spill"):          # their lines below
+                continue
             r = st.get("ratio")
             print(f"  stream {kind:7s}: "
                   + " ".join(f"{k}={v}" for k, v in st.items()
                              if k != "ratio")
                   + (f" ratio={r:.3f}" if r is not None else " ratio=n/a"))
+        rp = ks["kv_repack"]
+        print(f"table refresh: {'on' if args.kv_refresh else 'off'}; "
+              f"generation={rp['generation']} "
+              f"refreshes={rp['refreshes']} "
+              f"repacked={rp['pages']} pages "
+              f"({rp['read_bytes']/1e3:.1f} kB read + "
+              f"{rp['write_bytes']/1e3:.1f} kB written, "
+              f"{rp['pending']} pending)")
+        sp = ks["kv_spill"]
+        spr = sp.get("ratio")
+        print(f"spill tier: {sp['pages']} pages spilled "
+              f"({sp['spill_bytes']/1e3:.1f} kB compressed vs "
+              f"{sp['raw_bytes']/1e3:.1f} kB dense, "
+              + (f"ratio={spr:.3f}" if spr is not None else "ratio=n/a")
+              + f"); readahead {sp['readahead_pages']} pages "
+              f"{sp['readahead_bytes']/1e3:.1f} kB; "
+              f"parked={sp['live_records']} "
+              f"quarantined={sp['quarantined']}; "
+              f"spill_preempt={engine.stats['pressure_preempted']}"
+              f"+{engine.stats['deadline_preempted']}ddl "
+              f"failed={engine.stats['failed']}")
         tr = ks["transfers"]
         mode = ("fused (device-resident)" if ks["kv_fused"]
                 else "materialize")

@@ -8,12 +8,14 @@ Port of the serving parts of ``repro/models/model.py``: ``_init_block``/
 :408 (with the state store), ``init_state_store``/``states_from_step``
 :457-486, ``device_append`` :488, ``_pack_quantize``/``pack_weights``
 :544/:562, ``extend_caches`` :820, ``prefill`` :844, ``_layer_kinds``
-:859, ``DevicePoolPlanes`` :867 and ``PagedKVCache`` :944 (with
-``evict_rolled`` :1287, ``append_step_tokens`` :1335, ``ingest_prefill``
-:1398, ``snapshot_state``/``restore_state`` :1865/:1898, the state store
-:2304-2337, ``step_meta`` :2362 and ``materialize`` :2465) for stacks of
-global and rolling attention layers and RG-LRU recurrent layers, prefix
-or cycled.
+:859, ``DevicePoolPlanes`` :867 (with ``ensure_table_capacity`` :925)
+and ``PagedKVCache`` :944 (with ``evict_rolled`` :1287,
+``append_step_tokens`` :1335, ``ingest_prefill`` :1398, the drift sketch,
+generation-versioned table rows, refresh and re-pack :1477-1862,
+``snapshot_state``/``restore_state`` :1865/:1898, the host spill tier
+:1913-2036, the transfer guard :2039, the state store :2304-2337,
+``step_meta`` :2362 and ``materialize`` :2465) for stacks of global and
+rolling attention layers and RG-LRU recurrent layers, prefix or cycled.
 
 Layers are a Python list of per-layer param dicts, prefix layers first,
 where JAX scans one stacked tree per cycle position; a dense decode cache
@@ -23,17 +25,21 @@ the token append, the seal requantization and the APack encode all write
 it there, so no page payload crosses to the host.  What does cross is
 small and happens at page events: the calibration histograms of a sealed
 page (until its layer's tables exist), and the coded bit count and
-lossless check of each packed page.  Not ported here: mLSTM/sLSTM layers,
-packed weights on stacks with rolling or recurrent layers, table refresh
-and re-pack, the host spill tier, and meshes.
+lossless check of each packed page, and the drift sketch of pages sealed
+after calibration; a re-pack's verdicts and bit counts; a spilled
+request's pages.  Not ported here: mLSTM/sLSTM layers and meshes.
 """
 from __future__ import annotations
+
+import time
+from collections import deque
 
 import numpy as np
 import torch
 
 from repro_torch.core import byteplane, quant
-from repro_torch.core.tables import TABLE_OVERHEAD_BITS, find_table
+from repro_torch.core.tables import (TABLE_OVERHEAD_BITS,
+                                     expected_bits_per_value, find_table)
 from repro_torch.device import resolve
 from repro_torch.kernels import apack_decode, apack_encode
 from repro_torch.kernels import decompress_matmul as dm
@@ -160,29 +166,28 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
                  tile_k: int | None = None) -> tuple[dict, dict]:
     """Convert each layer's large projection and FFN matrices to APack
     planes on the params' device (``modules.PackedWeight``), the live weight
-    store for serving (``pack_weights`` :562), on stacks of global
-    attention layers.
+    store for serving (``pack_weights`` :562), by layer kind.
 
-    Packed sites: wq/wk/wv (contract d) and wo (contract h, dh), w_up/
-    w_gate/w_down, each when it holds at least ``min_size`` elements;
-    ``tile_k = min(512, K)`` unless given.  The tied head and the embedding
-    stay dense.  Each layer gets its own weight-mode table.  ``params``
-    must be the original (f32) tree, not ``serving_params``' bf16 copy: the
-    quantization reads the original values and ``native_bytes`` counts
-    their element size.
+    Packed sites: wq/wk/wv (contract d) and wo (contract h, dh) of global
+    and rolling attention layers, and w_up/w_gate/w_down of every layer,
+    recurrent and prefix layers included, each when one layer's tensor
+    holds at least ``min_size`` elements; ``tile_k = min(512, K)`` unless
+    given.  The recurrent block's own matrices, the tied head and the
+    embedding stay dense.  Each layer gets its own weight-mode table.
+    ``params`` must be the original (f32) tree, not ``serving_params``'
+    bf16 copy: the quantization reads the original values and
+    ``native_bytes`` counts their element size.
 
     Returns ``(packed_params, stats)`` with the JAX package's byte
-    accounting.  It counts one packed tensor per scanned stack there, that
-    is one per (site, cycle position), summed over the stack's layers."""
-    if cfg.prefix_pattern or any(k != "global" for k in cfg.cycle):
-        raise NotImplementedError(
-            f"{cfg.name}: packed weights (weights='apack-int8') on a stack "
-            "with prefix, local or recurrent layers are not ported yet "
-            "(ROADMAP open item 1.13, pack_weights by kind)")
+    accounting.  It counts one packed tensor per scanned stack, that is
+    one per (site, cycle position), summed over the stack's layers, and
+    one per tensor of a prefix layer, which the JAX package does not
+    stack."""
     if min_size is None:
         min_size = dm.DEFAULT_WEIGHT_MIN_SIZE
     stats = {"packed_tensors": 0, "native_bytes": 0, "int8_bytes": 0,
              "payload_bytes": 0, "slotted_bytes": 0, "scale_bytes": 0}
+    n_prefix, n_cycle = len(cfg.prefix_pattern), len(cfg.cycle)
 
     def pack(w: torch.Tensor, n_contract: int, first: bool):
         q2, sc = _pack_quantize(w, n_contract)
@@ -200,12 +205,16 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
                               str(w.dtype).removeprefix("torch."))
 
     blocks = []
-    for layer, blk in enumerate(params["blocks"]):
-        first = layer < len(cfg.cycle)
+    for layer, (kind, blk) in enumerate(zip(layer_kinds(cfg),
+                                            params["blocks"])):
+        # a prefix layer is its own tensor; a cycle position's stack counts
+        # once, at its first layer
+        first = layer < n_prefix + n_cycle
         inner, ffn = dict(blk["inner"]), dict(blk["ffn"])
-        for name, nc in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 2)):
-            if inner[name].numel() >= min_size:
-                inner[name] = pack(inner[name], nc, first)
+        if kind in ATTN_KINDS:
+            for name, nc in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 2)):
+                if inner[name].numel() >= min_size:
+                    inner[name] = pack(inner[name], nc, first)
         for name in ("w_up", "w_gate", "w_down"):
             if ffn[name].numel() >= min_size:
                 ffn[name] = pack(ffn[name], 1, first)
@@ -454,6 +463,59 @@ def device_append(planes: dict, new_kv: dict, targets: dict) -> None:
 
 
 # ------------------------------------------------------- paged APack KV
+def _pack_bytes(tree: dict):
+    """The arrays or tensors of ``tree`` (sorted keys) as one flat uint8
+    buffer of the same kind, each part padded to 8 bytes."""
+    parts = []
+    for k in sorted(tree):
+        x = tree[k]
+        if isinstance(x, np.ndarray):
+            b = np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+            parts += [b, np.zeros(-b.size % 8, np.uint8)]
+        else:
+            b = x.contiguous().reshape(-1).view(torch.uint8)
+            parts += [b, b.new_zeros(-b.numel() % 8)]
+    if parts and isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts)
+    return torch.cat(parts)
+
+
+def _unpack_bytes(like: dict, buf):
+    """Split a ``_pack_bytes`` buffer back into ``like``'s shapes and dtypes
+    (numpy arrays from a numpy buffer, tensors from a tensor).  Returns
+    ``(tree, bytes)``."""
+    out, off = {}, 0
+    for k in sorted(like):
+        x = like[k]
+        if isinstance(x, np.ndarray):
+            nb, shape = x.nbytes, x.shape
+            tdt = torch.from_numpy(np.zeros(0, x.dtype)).dtype
+            ndt = x.dtype
+        else:
+            nb, shape = x.numel() * x.element_size(), tuple(x.shape)
+            tdt = x.dtype
+            ndt = torch.zeros(0, dtype=x.dtype).numpy().dtype
+        part = buf[off:off + nb]
+        out[k] = (part.view(ndt).reshape(shape) if isinstance(buf, np.ndarray)
+                  else part.view(tdt).reshape(shape))
+        off += nb + (-nb % 8)
+    return out, off
+
+
+def _plane_tree(planes, page_scale) -> dict:
+    """A batch of pages' planes (sym, ofs, sym_bits, ofs_bits, stored, each
+    [2, n, ...]) and page scales [2, n, H] to pull for their checksums,
+    under the PACKED payload's keys."""
+    return {f"crc/{key}": t for (key, _, _), t in
+            zip(m.SPILL_FIELDS[m.PAGE_PACKED], (*planes, page_scale))}
+
+
+def _page_crc(pulled: dict, i: int) -> int:
+    """``payload_crc`` of page ``i`` of a pulled ``_plane_tree``, over the
+    JAX package's keys and dtypes (``_plane_crc`` :1559)."""
+    return m.payload_crc(m.payload_of(m.PAGE_PACKED, pulled, i, "crc/"))
+
+
 class DevicePoolPlanes:
     """The fused kernel's view of the pool: kind-split views of the pool's
     device payload tensors plus the stacked activation tables
@@ -462,6 +524,7 @@ class DevicePoolPlanes:
 
     def __init__(self, pool: m.KVPagePool, n_tables: int):
         dev = pool.device
+        self.n_tables = n_tables
         self.planes: dict[str, torch.Tensor] = {
             "tok_k": pool.tok_q[0], "tok_v": pool.tok_q[1],
             "tok_sk": pool.tok_scale[0], "tok_sv": pool.tok_scale[1],
@@ -474,6 +537,24 @@ class DevicePoolPlanes:
             "ol": torch.zeros(n_tables, 16, dtype=torch.int32, device=dev),
             "cum": torch.zeros(n_tables, 17, dtype=torch.int32, device=dev),
         }
+
+    def ensure_table_capacity(self, n_rows: int) -> bool:
+        """Grow the table planes to hold ``n_rows`` rows, doubling
+        (``ensure_table_capacity`` :925): a refresh that adds a generation
+        block past the capacity reallocates them, an event and never a
+        step.  Returns True if reallocated; the caller then uploads every
+        row."""
+        if n_rows <= self.n_tables:
+            return False
+        cap = self.n_tables
+        while cap < n_rows:
+            cap *= 2
+        self.n_tables = cap
+        dev = self.planes["vm"].device
+        for name, width in (("vm", 17), ("ol", 16), ("cum", 17)):
+            self.planes[name] = torch.zeros(cap, width, dtype=torch.int32,
+                                            device=dev)
+        return True
 
 
 class PagedKVCache:
@@ -491,19 +572,43 @@ class PagedKVCache:
     snapshots (``snapshot_state``).  Each attention layer x {K, V} gets its
     own activation-mode table, calibrated from the histogram of the
     layer's first ``calib_pages`` sealed pages; pages sealed before that
-    stay COLD and are packed the moment the table exists.  Reads go
-    through the fused gather-decode attention kernel; ``traffic`` counts
-    what they would move off-chip, compressed vs dense int8, per stream
-    kind."""
+    stay COLD and are packed the moment the table exists.  A refresh fits
+    new tables to the pages sealed since, under a new generation, and
+    re-packs the layer's pages in budgeted batches; a page decodes with the
+    generation it was coded under until then.  A preempted request's pages
+    can be parked in the host spill tier (``spill_request``) and read back,
+    CRC-checked (``unspill_request``).  Reads go through the fused
+    gather-decode attention kernel; ``traffic`` counts what they would move
+    off-chip, compressed vs dense int8, per stream kind, and the re-pack,
+    spill and readahead streams apart."""
 
     def __init__(self, cfg: ModelConfig, num_pages: int, *,
                  page_size: int = 16, calib_pages: int = 4,
-                 elems_per_stream: int = 128, device=None):
+                 elems_per_stream: int = 128,
+                 refresh_every_pages: int | None = None,
+                 refresh_threshold: float = 0.15,
+                 refresh_min_pages: int = 4,
+                 verify_on_repack: bool = False,
+                 transfer_retries: int = 2,
+                 drift_sketch: bool = True, device=None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve(device)
         self.page_size = page_size
         self.calib_pages = calib_pages
+        # table refresh (``__init__`` :998-1008): a layer's tables refresh
+        # when its drift sketch's expected coded size regresses
+        # ``refresh_threshold`` past the calibration-time expectation, or
+        # every ``refresh_every_pages`` sealed pages, once
+        # ``refresh_min_pages`` pages of sketch exist; checked only when
+        # ``maybe_refresh``/``refresh_step`` is called.  ``drift_sketch``:
+        # whether the pages sealed after calibration feed the sketch (their
+        # histograms ride the pack's pull); the engine turns it on with
+        # ``kv_refresh``.
+        self.refresh_every_pages = refresh_every_pages
+        self.refresh_threshold = refresh_threshold
+        self.refresh_min_pages = refresh_min_pages
+        self.drift_sketch = drift_sketch
         self.layer_kinds = layer_kinds(cfg)
         self.n_layers = len(self.layer_kinds)
         self.attn_layers = [i for i, k in enumerate(self.layer_kinds)
@@ -522,6 +627,36 @@ class PagedKVCache:
         self._cold: list[set[int]] = [set() for _ in range(self.n_layers)]
         self._packed: list[set[int]] = [set() for _ in range(self.n_layers)]
         self._table_stack = None
+        # generation-versioned tables: ``tables`` is the current generation,
+        # each refresh snapshots the previous set, and a PACKED page decodes
+        # with the generation it was coded under (``page_gen``) through the
+        # compacted row-block map ``gen_rows``
+        self.generation = 0
+        self._gen_snapshots: list[list[list]] = []
+        self.gen_rows: dict[int, int] = {0: 0}
+        self.table_gen = np.zeros(self.n_layers, np.int32)
+        self.page_gen = np.zeros(num_pages, np.int32)
+        # a PACKED page's plane checksum (stamped where its planes reach
+        # the host: a pack with ``verify_on_repack``, a re-pack, an unspill)
+        # and the read clock of its last read, the cold-first spill key
+        self.page_crc = np.zeros(num_pages, np.uint32)
+        self.page_last_read = np.zeros(num_pages, np.int64)
+        self._read_clock = 0
+        self.verify_on_repack = verify_on_repack
+        # host spill tier: pages of preempted requests parked off-pool; a
+        # page-table entry ``-handle - 1`` is SPILLED
+        self.spill_tier = m.HostSpillTier()
+        # fault injection (``serve/faults.py``) and bounded transfer retry
+        self.faults = None
+        self.transfer_retries = transfer_retries
+        # drift monitor: per-(layer, K/V) histogram of pages sealed since the
+        # layer's last (re)calibration, and the bits per value its current
+        # table promised on the histogram it was fitted to
+        self.drift_hists = np.zeros((self.n_layers, 2, 256), np.int64)
+        self.drift_pages = np.zeros(self.n_layers, np.int32)
+        self.calib_bits = np.zeros((self.n_layers, 2), np.float64)
+        self._drift_changed: set[int] = set()
+        self._repack_queue: deque[tuple[int, int]] = deque()
         self.page_tables: dict[int, list[list[int]]] = {}
         self.page_base: dict[int, list[int]] = {}     # evicted-page count
         # rid -> {state layer -> {"h", "conv"}} (device tensors, no batch)
@@ -532,7 +667,18 @@ class PagedKVCache:
                         "kv_raw_bytes_global": 0, "kv_read_bytes_global": 0,
                         "kv_raw_bytes_local": 0, "kv_read_bytes_local": 0,
                         "state_raw_bytes": 0, "state_snapshot_bytes": 0,
-                        "state_snapshots": 0}
+                        "state_snapshots": 0,
+                        # re-pack, spill and readahead: streams of their own,
+                        # never folded into the attention-read ratios
+                        "kv_repack_read_bytes": 0, "kv_repack_write_bytes": 0,
+                        "kv_repack_pages": 0, "kv_repack_kept": 0,
+                        "kv_refresh_count": 0,
+                        "kv_spill_bytes": 0, "kv_spill_raw_bytes": 0,
+                        "kv_spill_pages": 0, "kv_spill_calls": 0,
+                        "kv_readahead_bytes": 0, "kv_readahead_pages": 0,
+                        "kv_readahead_calls": 0,
+                        "kv_integrity_failures": 0, "kv_quarantined_pages": 0,
+                        "kv_transfer_drops": 0, "kv_transfer_retries": 0}
         # host<->device accounting: every KV-path transfer goes through
         # _fetch/_put
         self.transfers = {"h2d_bytes": 0, "d2h_bytes": 0,
@@ -594,25 +740,84 @@ class PagedKVCache:
         out["state"] = {"raw_bytes": raw, "snapshot_bytes": comp,
                         "snapshots": self.traffic["state_snapshots"],
                         "ratio": (comp / raw) if raw else None}
+        out["repack"] = {
+            "read_bytes": self.traffic["kv_repack_read_bytes"],
+            "write_bytes": self.traffic["kv_repack_write_bytes"],
+            "pages": self.traffic["kv_repack_pages"],
+            "kept": self.traffic["kv_repack_kept"],
+            "refreshes": self.traffic["kv_refresh_count"],
+            "generation": self.generation,
+            "pending": len(self._repack_queue)}
+        sp, spraw = (self.traffic["kv_spill_bytes"],
+                     self.traffic["kv_spill_raw_bytes"])
+        out["spill"] = {
+            "spill_bytes": sp, "raw_bytes": spraw,
+            "ratio": (sp / spraw) if spraw else None,
+            "pages": self.traffic["kv_spill_pages"],
+            "calls": self.traffic["kv_spill_calls"],
+            "readahead_bytes": self.traffic["kv_readahead_bytes"],
+            "readahead_pages": self.traffic["kv_readahead_pages"],
+            "readahead_calls": self.traffic["kv_readahead_calls"],
+            "live_records": self.spill_tier.live_count,
+            "live_bytes": self.spill_tier.live_bytes,
+            "integrity_failures": self.traffic["kv_integrity_failures"],
+            "quarantined": self.traffic["kv_quarantined_pages"]}
         return out
+
 
     # -------------------------------------------------------- transfers
-    def _fetch(self, t: torch.Tensor) -> np.ndarray:
-        """Device -> host with accounting (the seal pulls)."""
-        out = t.cpu().numpy()
+    def _transfer_guard(self, direction: str) -> None:
+        """Fault-injection hook on the host<->device boundary
+        (``_transfer_guard`` :2039): a dropped transfer is retried up to
+        ``transfer_retries`` times, each drop and retry counted, before the
+        failure propagates."""
+        if self.faults is None:
+            return
+        for attempt in range(self.transfer_retries + 1):
+            try:
+                self.faults.check_transfer(direction)
+                if attempt:
+                    self.traffic["kv_transfer_retries"] += attempt
+                return
+            except m.TransferDropped:
+                self.traffic["kv_transfer_drops"] += 1
+                if attempt == self.transfer_retries:
+                    raise
+
+    def _fetch(self, t):
+        """Device -> host with accounting, one call: a tensor comes back as
+        a numpy array, a dict of tensors as a dict of arrays, moved as one
+        byte buffer (``_fetch`` :2058)."""
+        self._transfer_guard("d2h")
+        if isinstance(t, torch.Tensor):
+            out = t.cpu().numpy()
+            nb = out.nbytes
+        else:
+            out, nb = _unpack_bytes(t, _pack_bytes(t).cpu().numpy())
         self.transfers["d2h_calls"] += 1
-        self.transfers["d2h_bytes"] += out.nbytes
+        self.transfers["d2h_bytes"] += nb
         return out
 
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """Host -> device with accounting."""
+    def _put(self, arr):
+        """Host -> device with accounting, one call: a numpy array, or a
+        dict of them moved as one byte buffer from pinned memory
+        (``_put`` :2070)."""
+        self._transfer_guard("h2d")
         self._count_put(arr)
-        return torch.as_tensor(arr, device=self.device)
+        if isinstance(arr, np.ndarray):
+            return torch.as_tensor(arr, device=self.device)
+        host = torch.from_numpy(_pack_bytes(arr))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        out, _ = _unpack_bytes(arr, host.to(self.device, non_blocking=True))
+        return out
 
-    def _count_put(self, arr: np.ndarray) -> None:
+    def _count_put(self, arr) -> None:
         """Account an upload that a kernel wrapper makes itself."""
         self.transfers["h2d_calls"] += 1
-        self.transfers["h2d_bytes"] += arr.nbytes
+        self.transfers["h2d_bytes"] += (
+            arr.nbytes if isinstance(arr, np.ndarray)
+            else sum(a.nbytes for a in arr.values()))
 
     # ----------------------------------------------------------- requests
     def add_request(self, rid: int) -> None:
@@ -624,12 +829,20 @@ class PagedKVCache:
         self.seq_len[rid] = 0
 
     def release(self, rid: int) -> None:
+        """Free a request's pages in layer and page order and drop its
+        spilled records (``release`` :1224)."""
         freed = []
         for layer, pids in enumerate(self.page_tables.pop(rid)):
             for pid in pids:
+                if pid < 0:                       # SPILLED: in the tier only
+                    self.spill_tier.drop(-pid - 1)
+                    continue
                 self._cold[layer].discard(pid)
                 self._packed[layer].discard(pid)
                 freed.append(pid)
+        self.page_gen[freed] = 0
+        self.page_crc[freed] = 0
+        self.page_last_read[freed] = 0
         self.pool.free(freed)
         del self.page_base[rid]
         del self.states[rid]
@@ -651,6 +864,11 @@ class PagedKVCache:
                 raise RuntimeError("page pool exhausted mid-flight "
                                    "(admission must reserve)")
             pids.append(pid)
+        if pids[-1] < 0:
+            raise m.PageIntegrityError(
+                f"append into SPILLED page of rid={rid} layer={layer} — "
+                "readahead must restore the request before it decodes",
+                rid=rid, layer=layer)
         return pids[-1]
 
     def append_token(self, rid: int, kq, vq, ks, vs) -> None:
@@ -676,8 +894,8 @@ class PagedKVCache:
         next decode position at ``qpos = seq_len`` the mask keeps ``kpos >
         qpos - window``, so page ``p`` is dead once ``(p + 1) * ps - 1 <=
         qpos - window``; only the oldest live pages can die, and they are
-        sealed.  All of a call's pages return in one pool call, in layer
-        and page order."""
+        sealed (or spilled: their record is dropped).  All of a call's
+        pages return in one pool call, in layer and page order."""
         qpos = self.seq_len[rid]
         ps = self.page_size
         gone = []
@@ -691,8 +909,13 @@ class PagedKVCache:
             if not dead:
                 continue
             for pid in pids[:dead]:
+                if pid < 0:
+                    self.spill_tier.drop(-pid - 1)
+                    continue
                 self._cold[layer].discard(pid)
                 self._packed[layer].discard(pid)
+                self.page_gen[pid] = 0
+                self.page_crc[pid] = 0
                 gone.append(pid)
             del pids[:dead]
             self.page_base[rid][layer] = base + dead
@@ -761,7 +984,10 @@ class PagedKVCache:
         pid) seals in the JAX package's order; they run as one batch on the
         device, and the host replays the per-page calibration logic in that
         order, so each layer's tables come from exactly the pages the
-        sequential reference would have seen."""
+        sequential reference would have seen.  A page sealed after its
+        layer calibrated feeds the layer's drift sketch (with
+        ``drift_sketch``): its histogram rides the pack's pull, or the
+        calibration pull when the layer calibrated earlier in the batch."""
         if not events:
             return
         pool = self.pool
@@ -774,20 +1000,26 @@ class PagedKVCache:
         q2 = torch.clamp(torch.round(f / sc[:, :, None, :, None]),
                          -127, 127).to(torch.int8)
         pool.seal(pids, q2, sc)
-        uncal = [i for i, (layer, _) in enumerate(events)
-                 if self.tables[layer][0] is None]
-        hist = None
-        if uncal:
-            u = quant.to_unsigned(q2[:, uncal]).reshape(2, len(uncal), -1)
-            counts = torch.zeros(2, len(uncal), 256, dtype=torch.int64,
+        cal = [self.tables[layer][0] is not None for layer, _ in events]
+        uncal = [i for i, c in enumerate(cal) if not c]
+        sketch = ([i for i, c in enumerate(cal) if c]
+                  if self.drift_sketch else [])
+
+        def histograms(rows):
+            u = quant.to_unsigned(q2[:, rows]).reshape(2, len(rows), -1)
+            counts = torch.zeros(2, len(rows), 256, dtype=torch.int64,
                                  device=self.device)
-            counts.scatter_add_(2, u.long(), torch.ones_like(u, dtype=torch.int64))
-            hist = self._fetch(counts)                   # [2, n_uncal, 256]
-        to_pack = []
+            counts.scatter_add_(2, u.long(),
+                                torch.ones_like(u, dtype=torch.int64))
+            return counts
+        hist = self._fetch(histograms(uncal)) if uncal else None
+        to_pack, sketched = [], []
         row = {i: j for j, i in enumerate(uncal)}
         for i, (layer, pid) in enumerate(events):
             if self.tables[layer][0] is not None:
                 to_pack.append((layer, pid))
+                if self.drift_sketch:
+                    sketched.append((i, layer))
                 continue
             self._cold[layer].add(pid)
             for kind in (0, 1):
@@ -797,36 +1029,55 @@ class PagedKVCache:
                 for kind in (0, 1):
                     self.tables[layer][kind] = find_table(
                         self.hists[layer, kind], bits=8, is_activation=True)
+                    self.calib_bits[layer, kind] = expected_bits_per_value(
+                        self.hists[layer, kind], self.tables[layer][kind])
+                # a late-calibrating layer installs into the current
+                # generation
+                self.table_gen[layer] = self.generation
                 self._table_stack = None
                 self._tables_dirty = True
                 self.traffic["kv_table_bytes"] += 2 * TABLE_OVERHEAD_BITS // 8
                 for cold_pid in sorted(self._cold[layer]):
                     to_pack.append((layer, cold_pid))
                 self._cold[layer].clear()
-        self._pack(to_pack)
+        extra = self._pack(to_pack, histograms(sketch) if sketch else None)
+        srow = {i: j for j, i in enumerate(sketch)}
+        for i, layer in sketched:
+            h = hist[:, row[i]] if i in row else extra[:, srow[i]]
+            self.drift_hists[layer] += h
+            self.drift_pages[layer] += 1
+            self._drift_changed.add(layer)
         self._flush_tables()
 
-    def _pack(self, items: list) -> None:
+    def _table_rows(self, rows: np.ndarray):
+        """Upload the stacked tables' ``rows`` (any shape) in one call:
+        ``(v_min, ol, cum)`` int32 [..., 17 | 16 | 17]."""
+        vm, ol, cm = self._tables_stacked()
+        tabs = self._put(np.concatenate([vm[rows], ol[rows], cm[rows]],
+                                        axis=-1).astype(np.int32))
+        return (tabs[..., :17].contiguous(), tabs[..., 17:33].contiguous(),
+                tabs[..., 33:].contiguous())
+
+    def _pack(self, items: list, extra=None):
         """COLD -> PACKED through the encode kernel, both kinds of every
-        page in one launch, each with its layer's table (``_pack`` :1531).
-        The decode kernel then reads the new planes back and the pack
-        raises unless they give the COLD payload, before it is scrubbed.
-        One pull brings back each page's coded bit count and that check."""
+        page in one launch, each with its layer's current table
+        (``_pack`` :1531), and each page stamped with that table's
+        generation.  The decode kernel then reads the new planes back and
+        the pack raises unless they give the COLD payload, before it is
+        scrubbed.  One pull brings back each page's coded bit count and
+        that check, ``extra`` (an int64 device tensor, returned as a host
+        array) and, with ``verify_on_repack``, the new planes, whose
+        checksum becomes the page's ``page_crc``."""
         if not items:
-            return
+            return None
         pool = self.pool
         pids = [pid for _, pid in items]
         idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
         n, s, e = len(pids), pool.n_streams, pool.elems_per_stream
         vals = quant.to_unsigned(pool.cold_q[:, idx]).reshape(2, n, s, e)
-        vm, ol, cm = self._tables_stacked()
-        rows = np.array([[table_row(0, layer, kind, self.n_layers)
+        rows = np.array([[self._row(int(self.table_gen[layer]), layer, kind)
                           for layer, _ in items] for kind in (0, 1)])
-        tabs = self._put(np.concatenate(
-            [vm[rows], ol[rows], cm[rows]], axis=-1).astype(np.int32))
-        vm_r, ol_r, cm_r = (tabs[..., :17].contiguous(),
-                            tabs[..., 17:33].contiguous(),
-                            tabs[..., 33:].contiguous())
+        vm_r, ol_r, cm_r = self._table_rows(rows)
         planes = apack_encode.encode(vals.contiguous(), vm_r, ol_r, cm_r,
                                      n_steps=e, bits=8)
         # lossless check before the COLD payload is scrubbed: decode the new
@@ -835,40 +1086,372 @@ class PagedKVCache:
         back = apack_decode.decode(planes[0], planes[1], planes[4],
                                    vm_r, ol_r, cm_r, n_steps=e, bits=8)
         bad = (back != vals).sum(dim=(0, 2, 3))
-        pulled = self._fetch(torch.stack([
-            planes[2].sum(dim=(0, 2), dtype=torch.int64)
-            + planes[3].sum(dim=(0, 2), dtype=torch.int64), bad]))
-        if pulled[1].any():
+        counts = [planes[2].sum(dim=(0, 2), dtype=torch.int64)
+                  + planes[3].sum(dim=(0, 2), dtype=torch.int64), bad]
+        if extra is not None:
+            counts.append(extra.reshape(-1))
+        tree = {"counts": torch.cat(counts)}
+        if self.verify_on_repack:
+            tree.update(_plane_tree(planes, pool.page_scale[:, idx]))
+        pulled = self._fetch(tree)
+        c = pulled["counts"]
+        bits, bad = c[:n], c[n:2 * n]
+        if bad.any():
             raise RuntimeError(
-                f"APack pack of pages {[p for p, b in zip(pids, pulled[1]) if b]}"
+                f"APack pack of pages {[p for p, b in zip(pids, bad) if b]}"
                 " does not decode to its COLD payload")
-        pool.pack(pids, planes, pulled[0])
-        for layer, pid in items:
+        pool.pack(pids, planes, bits)
+        for i, (layer, pid) in enumerate(items):
             self._cold[layer].discard(pid)
             self._packed[layer].add(pid)
+            self.page_gen[pid] = int(self.table_gen[layer])
+            if self.verify_on_repack:
+                self.page_crc[pid] = _page_crc(pulled, i)
         self.traffic["kv_pages_packed"] += n
+        if extra is None:
+            return None
+        return c[2 * n:].reshape(extra.shape)
 
+    def _plane_crc(self, pids: list) -> list[int]:
+        """Checksums of PACKED pages' planes and page scales as they lie in
+        the pool (``_plane_crc`` :1559), one pull for all of them."""
+        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        p = self.pool
+        pulled = self._fetch(_plane_tree(
+            (p.sym[:, idx], p.ofs[:, idx], p.sym_bits[:, idx],
+             p.ofs_bits[:, idx], p.stored[:, idx]), p.page_scale[:, idx]))
+        return [_page_crc(pulled, i) for i in range(len(pids))]
+
+    # ------------------------------------------------ generation-versioned
     @property
     def n_table_rows(self) -> int:
-        return 2 * self.n_layers
+        """Rows of the stacked table pool: one ``2 * n_layers`` block per
+        live generation (``n_table_rows`` :1571)."""
+        return 2 * self.n_layers * (max(self.gen_rows.values()) + 1)
+
+    def _row(self, gen: int, layer: int, kind: int) -> int:
+        """Stacked-pool row of ``(gen, layer, kind)`` through the compacted
+        ``gen_rows`` map (``_row`` :1577), the only way table ids reach the
+        kernels."""
+        return table_row(self.gen_rows[gen], layer, kind, self.n_layers)
+
+    def _checked_gen(self, pid: int, rid, layer: int) -> int:
+        """A page's table generation, validated against the live
+        ``gen_rows`` map (``_checked_gen`` :1584): a poisoned generation
+        fails its request with ``PageIntegrityError``."""
+        gen = int(self.page_gen[pid])
+        if gen not in self.gen_rows:
+            self.traffic["kv_integrity_failures"] += 1
+            raise m.PageIntegrityError(
+                f"page {pid} of rid={rid} layer={layer} carries "
+                f"poisoned table generation {gen} (live: "
+                f"{sorted(self.gen_rows)}) — refusing to decode "
+                "with an out-of-pool table row",
+                rid=rid, layer=layer, pid=pid)
+        return gen
+
+    def _k_rows(self, pids, rid, layer: int) -> np.ndarray:
+        """K rows (``_row(gen, layer, 0)``) of a request's pages, each
+        generation checked as ``_checked_gen`` does, vectorized for the
+        per-step paths."""
+        gens = self.page_gen[np.asarray(pids, np.int64)].astype(np.int64)
+        top = max(self.gen_rows)
+        slot = np.full(top + 2, -1, np.int64)
+        for g, r in self.gen_rows.items():
+            slot[g] = r
+        bad = (gens < 0) | (gens > top) | (slot[np.clip(gens, 0, top + 1)] < 0)
+        if bad.any():
+            self._checked_gen(int(np.asarray(pids)[bad.argmax()]), rid, layer)
+        return (slot[gens] * self.n_layers + layer) * 2
+
+    def _table_at(self, gen: int, layer: int, kind: int):
+        """The table a page packed at generation ``gen`` was coded with
+        (``_table_at`` :1604)."""
+        if gen < len(self._gen_snapshots):
+            return self._gen_snapshots[gen][layer][kind]
+        return self.tables[layer][kind]
+
+    def _live_generations(self) -> set[int]:
+        """Generations that keep a row block (``_live_generations``
+        :1610): 0, the current one, those of resident PACKED pages and
+        those of spilled records."""
+        live = {0, self.generation}
+        for packed in self._packed:
+            for pid in packed:
+                live.add(int(self.page_gen[pid]))
+        live |= {int(g) for g in self.spill_tier.live_gens()}
+        return live
+
+    def compact_table_rows(self) -> int:
+        """Reclaim the row blocks of dead generations and renumber the live
+        ones onto contiguous slots (``compact_table_rows`` :1624).  Returns
+        the rows reclaimed; on a change the stack rebuilds and the device
+        copy is uploaded again at the next flush."""
+        live = self._live_generations()
+        kept = sorted(g for g in self.gen_rows if g in live)
+        new_rows = {g: i for i, g in enumerate(kept)}
+        if new_rows == self.gen_rows:
+            return 0
+        reclaimed = 2 * self.n_layers * (
+            max(self.gen_rows.values()) - max(new_rows.values()))
+        self.gen_rows = new_rows
+        self._table_stack = None
+        self._tables_dirty = True
+        return reclaimed
 
     def _tables_stacked(self):
-        """np table arrays [2 * n_layers, ...] at row ``table_row(0, layer,
-        kind)``; rows of uncalibrated and recurrent layers stay zero and
-        are never referenced (PACKED requires a table)."""
+        """np table arrays [n_live_gens * 2 * n_layers, ...], row
+        ``_row(gen, layer, kind)`` (``_tables_stacked`` :1646): the current
+        generation's block holds ``tables``, earlier live blocks the
+        refresh snapshots (copy-forward).  Rows of uncalibrated and
+        recurrent layers stay zero and are never referenced (PACKED
+        requires a table)."""
         if self._table_stack is None:
             rows = self.n_table_rows
             vm = np.zeros((rows, 17), np.int32)
             ol = np.zeros((rows, 16), np.int32)
             cm = np.zeros((rows, 17), np.int32)
-            for layer in range(self.n_layers):
-                for kind in (0, 1):
-                    t = self.tables[layer][kind]
-                    if t is not None:
-                        r = table_row(0, layer, kind, self.n_layers)
-                        vm[r], ol[r], cm[r] = t.as_arrays()
+            for gen in self.gen_rows:
+                for layer in range(self.n_layers):
+                    for kind in (0, 1):
+                        t = self._table_at(gen, layer, kind)
+                        if t is not None:
+                            r = self._row(gen, layer, kind)
+                            vm[r], ol[r], cm[r] = t.as_arrays()
             self._table_stack = (vm, ol, cm)
         return self._table_stack
+
+    # ------------------------------------------- table refresh / re-pack
+    def drift_status(self, layer: int) -> dict | None:
+        """Expected bits per value of the layer's drift sketch under its
+        current tables against what they promised at calibration
+        (``drift_status`` :1675); None until the layer is calibrated and
+        ``refresh_min_pages`` pages of sketch exist."""
+        if self.tables[layer][0] is None:
+            return None
+        pages = int(self.drift_pages[layer])
+        if pages < self.refresh_min_pages:
+            return None
+        cur = [expected_bits_per_value(self.drift_hists[layer, k],
+                                       self.tables[layer][k])
+               for k in (0, 1)]
+        regress = max(cur[k] / max(float(self.calib_bits[layer, k]), 1e-9)
+                      for k in (0, 1))
+        return {"pages": pages, "cur_bits": cur,
+                "calib_bits": [float(b) for b in self.calib_bits[layer]],
+                "regression": regress}
+
+    def check_refresh(self) -> list[int]:
+        """Layers whose refresh trigger fired, of those whose sketch moved
+        since the last check (``check_refresh`` :1696)."""
+        due = []
+        for layer in sorted(self._drift_changed):
+            st = self.drift_status(layer)
+            if st is None:
+                continue
+            if (self.refresh_every_pages is not None
+                    and st["pages"] >= self.refresh_every_pages):
+                due.append(layer)
+            elif st["regression"] > 1.0 + self.refresh_threshold:
+                due.append(layer)
+        self._drift_changed.clear()
+        return due
+
+    def maybe_refresh(self) -> list[int]:
+        """Re-calibrate every due layer under one generation bump
+        (``maybe_refresh`` :1717).  Returns the refreshed layers."""
+        due = self.check_refresh()
+        if due:
+            self._refresh(due)
+        return due
+
+    def _refresh(self, layers: list[int]) -> None:
+        """Snapshot the current tables as generation G (copy-forward), bump
+        to G + 1, fit new tables to the due layers' drift sketches and
+        queue their PACKED pages, newest first, for re-pack (``_refresh``
+        :1725).  Old pages keep decoding through their generation's rows
+        until the re-pack swaps them."""
+        self._gen_snapshots.append([list(t) for t in self.tables])
+        self.generation += 1
+        self.gen_rows[self.generation] = max(self.gen_rows.values()) + 1
+        for layer in layers:
+            for kind in (0, 1):
+                self.tables[layer][kind] = find_table(
+                    self.drift_hists[layer, kind], bits=8,
+                    is_activation=True)
+                self.calib_bits[layer, kind] = expected_bits_per_value(
+                    self.drift_hists[layer, kind], self.tables[layer][kind])
+            self.table_gen[layer] = self.generation
+            self.drift_hists[layer] = 0
+            self.drift_pages[layer] = 0
+            self.traffic["kv_table_bytes"] += 2 * TABLE_OVERHEAD_BITS // 8
+            self.traffic["kv_refresh_count"] += 1
+            for pid in sorted(self._packed[layer], reverse=True):
+                self._repack_queue.append((layer, pid))
+        self._table_stack = None
+        self._tables_dirty = True
+        self.compact_table_rows()
+
+    def repack_pending(self, budget: int | None = None, *,
+                       force: bool = False) -> int:
+        """Re-code up to ``budget`` queued stale pages (all when None) under
+        their layer's current tables (``repack_pending`` :1767), skipping
+        pages freed or already current since they were queued.  Returns
+        the pages processed (swapped + kept by the size gate).  Each batch
+        is one launch of the decode kernel and one of the encode kernel
+        (``launch_repack``) and one pull (``finish_repack``)."""
+        done = 0
+        while budget is None or done < budget:
+            job = self.launch_repack(None if budget is None
+                                     else budget - done, force=force)
+            if job is None:
+                break
+            done += self.finish_repack(job, self._fetch(job["pull"]))
+        return done
+
+    def _verify_before_repack(self, items: list):
+        """``verify_on_repack``: hold each page's planes against its
+        checksum before the re-pack decodes them (``_repack`` :1804).
+        Returns the items before the first failure, the failing item (or
+        None) and the items after it."""
+        crcs = self._plane_crc([pid for _, pid in items])
+        for i, ((layer, pid), crc) in enumerate(zip(items, crcs)):
+            if int(self.page_crc[pid]) != crc:
+                return items[:i], items[i], items[i + 1:]
+        return items, None, []
+
+    def launch_repack(self, budget: int | None = None, *,
+                      force: bool = False) -> dict | None:
+        """Take the next batch of queued stale pages and queue its re-pack
+        on the device: one decode launch with each page's own table rows
+        (its generation's) and one encode launch with its layer's current
+        tables, then the size gate (``_repack`` :1790) decided on the
+        device: a page whose re-code is not smaller keeps its planes
+        (unless ``force``).  Pages are independent, so the batch equals the
+        reference's page-by-page sequence; the skips (freed, already
+        current) are decided here on the host, and a page queued twice
+        ends the batch, to be taken again by the next one.  Returns the job
+        for ``finish_repack``, whose ``pull`` (device tensors) the caller
+        brings back in one pull, or None when nothing is queued."""
+        items, seen = [], set()
+        while self._repack_queue and (budget is None or len(items) < budget):
+            layer, pid = self._repack_queue[0]
+            if pid in seen:
+                break
+            self._repack_queue.popleft()
+            if pid not in self._packed[layer]:
+                continue                      # freed/evicted since queued
+            if int(self.page_gen[pid]) >= int(self.table_gen[layer]):
+                continue                      # already current
+            items.append((layer, pid))
+            seen.add(pid)
+        if not items:
+            return None
+        failed = None
+        if self.verify_on_repack:
+            # the reference re-packs page by page: the pages before a
+            # corrupted one are re-packed, the ones after it stay queued
+            items, failed, after = self._verify_before_repack(items)
+            self._repack_queue.extendleft(reversed(after))
+        job = self._launch_repack(items, force) if items else None
+        if failed is not None:
+            if job is not None:
+                self.finish_repack(job, self._fetch(job["pull"]))
+            self._corrupted(*failed)
+        return job
+
+    def _corrupted(self, layer: int, pid: int):
+        """Raise for a PACKED page whose planes fail their checksum before
+        a re-pack (``_repack`` :1804), counted and quarantined."""
+        self.traffic["kv_integrity_failures"] += 1
+        self.traffic["kv_quarantined_pages"] += 1
+        raise m.PageIntegrityError(
+            f"PACKED page {pid} (layer {layer}) failed checksum before "
+            "re-pack — planes corrupted in place; owning request must "
+            "be failed", rid=self._owner_of(pid), layer=layer, pid=pid)
+
+    def _launch_repack(self, items: list, force: bool) -> dict:
+        pool = self.pool
+        pids = [pid for _, pid in items]
+        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        e = pool.elems_per_stream
+        old = [int(self.page_gen[pid]) for pid in pids]
+        new = [int(self.table_gen[layer]) for layer, _ in items]
+        rows = np.array([[[self._row(g, layer, kind)
+                           for g, (layer, _) in zip(gens, items)]
+                          for kind in (0, 1)] for gens in (old, new)])
+        vm, ol, cm = self._table_rows(rows)            # [2 old|new, 2, n]
+        sym, ofs, st = (pool.sym[:, idx], pool.ofs[:, idx],
+                        pool.stored[:, idx])
+        vals = apack_decode.decode(sym, ofs, st, vm[0], ol[0], cm[0],
+                                   n_steps=e, bits=8)
+        planes = apack_encode.encode(vals, vm[1], ol[1], cm[1], n_steps=e,
+                                     bits=8)
+        old_bits = (pool.sym_bits[:, idx].sum(dim=(0, 2), dtype=torch.int64)
+                    + pool.ofs_bits[:, idx].sum(dim=(0, 2),
+                                                dtype=torch.int64))
+        new_bits = (planes[2].sum(dim=(0, 2), dtype=torch.int64)
+                    + planes[3].sum(dim=(0, 2), dtype=torch.int64))
+        swap = (torch.ones_like(new_bits, dtype=torch.bool) if force
+                else new_bits < old_bits)
+        pool.repack(pids, planes, swap)
+        pull = {"repack": torch.stack([new_bits, swap.long()])}
+        if self.verify_on_repack:
+            pull.update(_plane_tree(planes, pool.page_scale[:, idx]))
+        return {"items": items, "gens": new, "pull": pull,
+                "old_bytes": pool.page_bytes(np.asarray(pids, np.int64))}
+
+    def finish_repack(self, job: dict, pulled: dict) -> int:
+        """Host half of a re-pack batch, once its pull is back: stamp the
+        swapped pages' generation, bit count and (with
+        ``verify_on_repack``) checksum, count the traffic, compact the
+        table rows and upload them.  Returns the pages processed."""
+        pool = self.pool
+        new_bits, swap = pulled["repack"]
+        for i, (layer, pid) in enumerate(job["items"]):
+            # the decode read happened whatever the gate decided
+            self.traffic["kv_repack_read_bytes"] += int(job["old_bytes"][i])
+            if not swap[i]:
+                self.traffic["kv_repack_kept"] += 1
+                continue
+            pool.packed_bits[pid] = int(new_bits[i])
+            self.page_gen[pid] = job["gens"][i]
+            if self.verify_on_repack:
+                self.page_crc[pid] = _page_crc(pulled, i)
+            self.traffic["kv_repack_write_bytes"] += int(
+                pool.page_bytes(np.asarray([pid]))[0])
+            self.traffic["kv_repack_pages"] += 1
+        self.compact_table_rows()
+        self._flush_tables()
+        return len(job["items"])
+
+    def refresh_step(self, budget: int | None = None) -> dict:
+        """The decode loop's hook (``refresh_step`` :1852): check the
+        triggers, refresh the due layers under one generation bump, and
+        launch the re-pack of up to ``budget`` stale pages.  Returns
+        ``{"refreshed_layers", "budget", "job"}``: the caller brings the
+        job's ``pull`` back (the engine with the step's tokens, so a step
+        that re-packs and seals nothing makes one device-to-host call) and
+        hands it to ``finish_refresh``."""
+        refreshed = self.maybe_refresh()
+        if refreshed:
+            self._flush_tables()
+        return {"refreshed_layers": refreshed, "budget": budget,
+                "job": self.launch_repack(budget)}
+
+    def finish_refresh(self, rs: dict, pulled: dict | None) -> int:
+        """Finish a ``refresh_step`` once its job's pull is back.
+        Where the batch stopped at a page queued twice and budget is left,
+        the rest is re-packed now, with its own pull.  Returns the pages
+        processed."""
+        job, budget = rs["job"], rs["budget"]
+        if job is None:
+            return 0
+        done = self.finish_repack(job, pulled)
+        if budget is None or done < budget:
+            done += self.repack_pending(None if budget is None
+                                        else budget - done)
+        return done
 
     # ---------------------------------------------- device-resident mode
     def enable_device_pool(self, max_batch: int | None = None) -> None:
@@ -884,11 +1467,15 @@ class PagedKVCache:
         self._flush_tables()
 
     def _flush_tables(self) -> None:
+        """Upload the stacked tables to the kernel's table planes after a
+        calibration, refresh or compaction, growing them first where a
+        generation block no longer fits."""
         if self.dev is None or not self._tables_dirty:
             return
         vm, ol, cm = self._tables_stacked()
-        d = self.dev.planes
         n = vm.shape[0]
+        self.dev.ensure_table_capacity(n)
+        d = self.dev.planes
         d["vm"][:n] = self._put(vm)
         d["ol"][:n] = self._put(ol)
         d["cum"][:n] = self._put(cm)
@@ -1046,6 +1633,120 @@ class PagedKVCache:
                 flat[off:off + n].reshape(shape).clone()
             off += n
 
+    # --------------------------------------------------- host spill tier
+    def _owner_of(self, pid: int) -> int | None:
+        """Request owning a resident page (``_owner_of`` :1913)."""
+        for rid, layers in self.page_tables.items():
+            for pids in layers:
+                if pid in pids:
+                    return rid
+        return None
+
+    def spilled_pages(self, rid: int) -> int:
+        """SPILLED page-table entries of a request (``spilled_pages``
+        :1922)."""
+        return sum(1 for pids in self.page_tables[rid] for pid in pids
+                   if pid < 0)
+
+    def request_last_read(self, rid: int) -> int:
+        """Read clock of the request's most recently read page, the cold-
+        first key of the pressure victim choice (``request_last_read``
+        :1927)."""
+        last = 0
+        for layer in self.attn_layers:
+            pids = [p for p in self.page_tables[rid][layer] if p >= 0]
+            if pids:
+                last = max(last, int(self.page_last_read[pids].max()))
+        return last
+
+    def spill_request(self, rid: int) -> int:
+        """Park every resident page of a preempted request in the host spill
+        tier (``spill_request`` :1937): PACKED pages as their APack planes,
+        COLD as page-requantized int8, HOT as per-token int8, all of them
+        in one pull.  Page-table entries become SPILLED (``-handle - 1``)
+        and the slots return to the free list.  Returns the pages spilled.
+        Never for an active slot: the fused step reads every page."""
+        if self.faults is not None:
+            d = self.faults.spill_delay()
+            if d:
+                time.sleep(d)
+        where = [(layer, i, pid) for layer in self.attn_layers
+                 for i, pid in enumerate(self.page_tables[rid][layer])
+                 if pid >= 0]
+        if not where:
+            return 0
+        recs = self.pool.spill([pid for _, _, pid in where], self._fetch)
+        for (layer, i, pid), (st, fill, payload, comp) in zip(where, recs):
+            raw = self.pool.dense_bytes(fill if st == m.PAGE_HOT
+                                        else self.page_size)
+            handle = self.spill_tier.put(m.SpillRecord(
+                state=st, fill=fill, layer=layer,
+                gen=int(self.page_gen[pid]), payload=payload,
+                comp_bytes=comp, raw_bytes=raw,
+                meta={"rid": rid, "pid": pid}))
+            self._cold[layer].discard(pid)
+            self._packed[layer].discard(pid)
+            self.page_gen[pid] = 0
+            self.page_crc[pid] = 0
+            self.traffic["kv_spill_bytes"] += comp
+            self.traffic["kv_spill_raw_bytes"] += raw
+            self.traffic["kv_spill_pages"] += 1
+            self.page_tables[rid][layer][i] = -handle - 1
+        self.traffic["kv_spill_calls"] += 1
+        return len(where)
+
+    def unspill_request(self, rid: int) -> list[int]:
+        """Readahead (``unspill_request`` :1984): restore every SPILLED page
+        of ``rid`` into fresh slots, each record checksum-verified, in one
+        upload from pinned memory; a COLD page whose layer calibrated while
+        it was parked is packed (one batched ``_pack``), a PACKED one coded
+        under a since-refreshed table is queued for re-pack.  A checksum
+        mismatch quarantines the record and raises ``PageIntegrityError``
+        for ``rid`` after the pages before it are restored, as the
+        reference's page-by-page loop leaves them."""
+        todo = [(layer, i, -e - 1) for layer in self.attn_layers
+                for i, e in enumerate(self.page_tables[rid][layer]) if e < 0]
+        recs, failed = [], None
+        for layer, i, handle in todo:
+            try:
+                recs.append(self.spill_tier.get(handle))
+            except m.PageIntegrityError as e:
+                self.traffic["kv_integrity_failures"] += 1
+                self.traffic["kv_quarantined_pages"] += 1
+                failed = (layer, i, handle, e)
+                break
+        restored, to_pack = [], []
+        if recs:
+            pids = self.pool.adopt([(r.state, r.fill, r.payload)
+                                    for r in recs], self._put)
+            for (layer, i, handle), rec, pid in zip(todo, recs, pids):
+                self.page_tables[rid][layer][i] = pid
+                self.page_gen[pid] = rec.gen
+                if rec.state == m.PAGE_PACKED:
+                    self._packed[layer].add(pid)
+                    self.page_crc[pid] = rec.crc
+                    if rec.gen < int(self.table_gen[layer]):
+                        self._repack_queue.append((layer, pid))
+                elif rec.state == m.PAGE_COLD:
+                    self._cold[layer].add(pid)
+                    if self.tables[layer][0] is not None:
+                        to_pack.append((layer, pid))
+                self.spill_tier.drop(handle)
+                restored.append(pid)
+            self._pack(to_pack)
+            self._flush_tables()
+            self.traffic["kv_readahead_pages"] += len(restored)
+            self.traffic["kv_readahead_bytes"] += int(
+                self.pool.page_bytes(np.asarray(restored, np.int64)).sum())
+        if failed is not None:
+            layer, i, handle, e = failed
+            raise m.PageIntegrityError(
+                f"unspill of rid={rid} layer={layer} page {i}: {e}",
+                rid=rid, layer=layer, handle=handle) from e
+        if restored:
+            self.traffic["kv_readahead_calls"] += 1
+        return restored
+
     # --------------------------------------------------- step metadata
     def meta_pages(self, max_len: int, slot_rids: list) -> int:
         """Page slots of the fused kernel's call: the power-of-two bucket
@@ -1069,12 +1770,13 @@ class PagedKVCache:
         the read traffic."""
         b = len(slot_rids)
         pn = self.meta_pages(max_len, slot_rids)
-        na, nl, ps = len(self.attn_layers), self.n_layers, self.page_size
+        na, ps = len(self.attn_layers), self.page_size
         ring = self._ring(max_len)
         pid = np.zeros((na, b, pn), np.int32)
+        # unused slots keep generation 0's K row of their layer, masked
         tid = np.broadcast_to(
-            (2 * np.asarray(self.attn_layers, np.int32))[:, None, None],
-            (na, b, pn)).copy()
+            np.asarray([self._row(0, layer, 0) for layer in self.attn_layers],
+                       np.int32)[:, None, None], (na, b, pn)).copy()
         kmeta = np.zeros((na, b, pn, 2), np.int32)        # FREE: masked
         qw = np.zeros((na, b, 2), np.int32)
         for slot, rid in enumerate(slot_rids):
@@ -1085,8 +1787,11 @@ class PagedKVCache:
                 pids = self.page_tables[rid][layer]
                 k = len(pids)
                 base = self.page_base[rid][layer]
+                self._check_resident(rid, layer, pids)
                 pid[i, slot, :k] = pids
-                tid[i, slot, :k] = table_row(0, layer, 0, nl)
+                # each page's K row of the generation it was coded under
+                # (V is the next row); generations coexist in a step
+                tid[i, slot, :k] = self._k_rows(pids, rid, layer)
                 kmeta[i, slot, :k, 0] = self.pool.state[pids]
                 kmeta[i, slot, :k, 1] = (base + np.arange(k)) * ps
                 if self.layer_kinds[layer] == "local":
@@ -1103,16 +1808,27 @@ class PagedKVCache:
         out["t0"] = out["kmeta"][..., 1]
         return out
 
+    def _check_resident(self, rid: int, layer: int, pids) -> None:
+        """A SPILLED page on the read path fails its request: readahead
+        must restore it first (``_accrue_read_traffic`` :2437)."""
+        neg = np.asarray(pids, np.int64) < 0
+        if neg.any():
+            raise m.PageIntegrityError(
+                f"active request {rid} layer {layer} page {int(neg.argmax())}"
+                " is SPILLED at read time — readahead must restore before "
+                "decode", rid=rid, layer=layer)
+
     def _accrue_read_traffic(self, slot_rids: list, max_len: int) -> None:
         """Charge the per-step KV read traffic (``_accrue_read_traffic``
         :2418): every page of every active slot, compressed as stored vs
-        dense int8, per stream kind.  A rolling layer's partly rolled-out
+        dense int8, per stream kind, and stamp each page's read clock.  A rolling layer's partly rolled-out
         page charges only its live token range, ``ceil(bytes * live /
         tokens)``."""
         pool, ps = self.pool, self.page_size
         ring = self._ring(max_len)
         raw = {"global": 0, "local": 0}
         read = {"global": 0, "local": 0}
+        self._read_clock += 1
         for rid in slot_rids:
             if rid is None:
                 continue
@@ -1121,6 +1837,9 @@ class PagedKVCache:
                 pids = np.asarray(self.page_tables[rid][layer], np.int64)
                 if not len(pids):
                     continue
+                self._check_resident(rid, layer, pids)
+                self._k_rows(pids, rid, layer)
+                self.page_last_read[pids] = self._read_clock
                 kind = self.layer_kinds[layer]
                 n_tok = np.where(pool.state[pids] == m.PAGE_HOT,
                                  pool.fill[pids], ps).astype(np.int64)
@@ -1288,8 +2007,8 @@ class PagedKVCache:
         n = len(jobs)
         pad = (0, gather_bucket(n) - n)
         ids = np.array([[pid for _, pid in jobs]]
-                       + [[table_row(0, layer, kind, self.n_layers)
-                           for layer, _ in jobs] for kind in (0, 1)],
+                       + [[self._row(int(self.page_gen[pid]), layer, kind)
+                           for layer, pid in jobs] for kind in (0, 1)],
                        np.int32)
         ids = np.pad(ids, ((0, 0), pad), mode="edge")
         vm, ol, cm = self._device_tables()

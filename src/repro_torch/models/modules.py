@@ -11,8 +11,11 @@ device), ``init_attention_cache`` :436, ``mlp`` :461 (swiglu, geglu), the
 RG-LRU recurrent block ``init_recurrent`` :553, ``_rglru_coeffs`` :571,
 ``recurrent_full`` :582, ``recurrent_step`` :628 and
 ``init_recurrent_cache`` :641, the page lifecycle
-``PAGE_*``/``PAGE_TRANSITIONS`` :916-950 and ``KVPagePool`` :1077 with
-``evict`` :1208 (no spill tier, one shard).
+``PAGE_*``/``PAGE_TRANSITIONS`` :916-950, the integrity and spill tier
+types ``PageIntegrityError`` :953, ``TransferDropped`` :969,
+``SpillRecord`` :978, ``payload_crc`` :996 and ``HostSpillTier`` :1006,
+and ``KVPagePool`` :1077 with ``evict`` :1208, ``spill``/``adopt``
+:1221/:1251 and ``repack`` :1356 (one shard).
 
 dtype placement follows the JAX package exactly, since it decides the KV
 bytes: activations and projections in bf16 (each weight cast to bf16 before
@@ -21,6 +24,7 @@ its product), norms, rope, attention scores and softmax in f32.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 
 import numpy as np
 import torch
@@ -503,18 +507,165 @@ PAGE_FREE, PAGE_HOT, PAGE_COLD, PAGE_PACKED = 0, 1, 2, 3
 PAGE_STATE_NAMES = {PAGE_FREE: "FREE", PAGE_HOT: "HOT", PAGE_COLD: "COLD",
                     PAGE_PACKED: "PACKED"}
 
-# The lifecycle transition table (the JAX package's, less the spill/
-# adopt/repack edges the port does not serve yet); every state-changing
+# The lifecycle transition table (the JAX package's); every state-changing
 # pool method validates its edge here before writing.  Rolling-window
 # eviction frees only sealed pages: the newest tokens live in a HOT one.
+# A spill frees a page of any live state into the host tier; an adopt
+# brings one back through a fresh HOT slot.
 PAGE_TRANSITIONS = {
-    "alloc": ((PAGE_FREE, PAGE_HOT),),
-    "free":  ((PAGE_HOT, PAGE_FREE), (PAGE_COLD, PAGE_FREE),
-              (PAGE_PACKED, PAGE_FREE)),
-    "seal":  ((PAGE_HOT, PAGE_COLD),),
-    "pack":  ((PAGE_COLD, PAGE_PACKED),),
-    "evict": ((PAGE_COLD, PAGE_FREE), (PAGE_PACKED, PAGE_FREE)),
+    "alloc":  ((PAGE_FREE, PAGE_HOT),),
+    "free":   ((PAGE_HOT, PAGE_FREE), (PAGE_COLD, PAGE_FREE),
+               (PAGE_PACKED, PAGE_FREE)),
+    "evict":  ((PAGE_COLD, PAGE_FREE), (PAGE_PACKED, PAGE_FREE)),
+    "spill":  ((PAGE_HOT, PAGE_FREE), (PAGE_COLD, PAGE_FREE),
+               (PAGE_PACKED, PAGE_FREE)),
+    "adopt":  ((PAGE_HOT, PAGE_COLD), (PAGE_HOT, PAGE_PACKED)),
+    "seal":   ((PAGE_HOT, PAGE_COLD),),
+    "pack":   ((PAGE_COLD, PAGE_PACKED),),
+    "repack": ((PAGE_PACKED, PAGE_PACKED),),
 }
+
+
+class PageIntegrityError(RuntimeError):
+    """A KV page failed an integrity check (``PageIntegrityError`` :953): a
+    checksum mismatch on unspill or re-pack, a SPILLED page on the read
+    path, or a poisoned table generation.  Carries what the engine needs to
+    fail the owning request only."""
+
+    def __init__(self, msg: str, *, rid: int | None = None,
+                 layer: int | None = None, pid: int | None = None,
+                 handle: int | None = None):
+        super().__init__(msg)
+        self.rid = rid
+        self.layer = layer
+        self.pid = pid
+        self.handle = handle
+
+
+class TransferDropped(RuntimeError):
+    """A host<->device transfer was dropped (fault injection)."""
+
+    def __init__(self, msg: str, *, direction: str = "?"):
+        super().__init__(msg)
+        self.direction = direction
+
+
+@dataclasses.dataclass
+class SpillRecord:
+    """One page's payload parked in the host spill tier (``SpillRecord``
+    :978): ``state`` is the pool state before the spill, which picks the
+    payload's layout at adopt; ``payload`` holds host numpy arrays in the
+    JAX package's dtypes and keys (u32 words as ``uint32``, ``stored`` as
+    ``bool``), so its CRC equals the JAX package's for the same page."""
+    state: int
+    fill: int
+    layer: int
+    gen: int                       # page_gen at spill time
+    payload: dict
+    comp_bytes: int                # pool footprint at spill time
+    raw_bytes: int                 # dense-int8 equivalent
+    crc: int = 0
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+def payload_crc(payload: dict) -> int:
+    """CRC32 over a payload dict of numpy arrays in sorted-key order
+    (``payload_crc`` :996)."""
+    c = 0
+    for k in sorted(payload):
+        c = zlib.crc32(np.ascontiguousarray(payload[k]).tobytes(), c)
+    return c & 0xFFFFFFFF
+
+
+class HostSpillTier:
+    """Host store of spilled KV pages (``HostSpillTier`` :1006): records
+    keyed by an opaque handle, CRC stamped at ``put`` and checked at every
+    ``get``; a mismatching record is quarantined (kept, never served
+    again) and ``get`` raises ``PageIntegrityError``."""
+
+    def __init__(self):
+        self._records: dict[int, SpillRecord] = {}
+        self.quarantined: dict[int, SpillRecord] = {}
+        self._next_handle = 0
+        self.live_bytes = 0
+        self.put_count = 0
+        self.get_count = 0
+        self.integrity_failures = 0
+
+    @property
+    def live_count(self) -> int:
+        return len(self._records)
+
+    def live_gens(self) -> set[int]:
+        """Table generations the parked records were coded under: they stay
+        live for table-row compaction."""
+        return {rec.gen for rec in self._records.values()}
+
+    def put(self, rec: SpillRecord) -> int:
+        rec.crc = payload_crc(rec.payload)
+        handle = self._next_handle
+        self._next_handle += 1
+        self._records[handle] = rec
+        self.live_bytes += rec.comp_bytes
+        self.put_count += 1
+        return handle
+
+    def get(self, handle: int, *, verify: bool = True) -> SpillRecord:
+        if handle not in self._records:
+            raise KeyError(
+                f"spill handle {handle} not live "
+                f"(quarantined={handle in self.quarantined})")
+        rec = self._records[handle]
+        self.get_count += 1
+        if verify and payload_crc(rec.payload) != rec.crc:
+            self.quarantine(handle)
+            raise PageIntegrityError(
+                f"spilled page failed checksum on unspill (handle={handle}, "
+                f"layer={rec.layer}, state="
+                f"{PAGE_STATE_NAMES.get(rec.state, rec.state)}); "
+                "record quarantined", handle=handle, layer=rec.layer)
+        return rec
+
+    def drop(self, handle: int) -> None:
+        """Release a live record; quarantined records are kept."""
+        rec = self._records.pop(handle, None)
+        if rec is not None:
+            self.live_bytes -= rec.comp_bytes
+
+    def quarantine(self, handle: int) -> None:
+        rec = self._records.pop(handle, None)
+        if rec is None:
+            return
+        self.live_bytes -= rec.comp_bytes
+        self.quarantined[handle] = rec
+        self.integrity_failures += 1
+
+
+# spill payload fields by pool state: (payload key, pool attribute, JAX
+# numpy dtype); planes of u32 words are held in int32 tensors here.  The
+# PACKED fields are also what a page's checksum covers.
+SPILL_FIELDS = {
+    PAGE_HOT: (("tok_q", "tok_q", np.int8),
+               ("tok_scale", "tok_scale", np.float32)),
+    PAGE_COLD: (("cold_q", "cold_q", np.int8),
+                ("page_scale", "page_scale", np.float32)),
+    PAGE_PACKED: (("sym", "sym", np.uint32), ("ofs", "ofs", np.uint32),
+                  ("sym_bits", "sym_bits", np.int32),
+                  ("ofs_bits", "ofs_bits", np.int32),
+                  ("stored", "stored", np.bool_),
+                  ("page_scale", "page_scale", np.float32)),
+}
+
+
+def payload_of(state: int, host: dict, j: int, prefix: str = "") -> dict:
+    """Page ``j``'s payload from pulled [2, n, ...] arrays
+    ``host[prefix + key]`` of its ``state``'s fields, in the JAX package's
+    dtypes (``uint32`` words, ``bool`` flags)."""
+    out = {}
+    for key, _, dt in SPILL_FIELDS[state]:
+        a = np.ascontiguousarray(host[prefix + key][:, j])
+        out[key] = a.astype(bool) if dt is np.bool_ else a.view(dt)
+    return out
 
 
 class KVPagePool:
@@ -569,6 +720,8 @@ class KVPagePool:
         self.alloc_count = 0
         self.high_water = 0
         self.evict_count = 0                         # rolling-window evictions
+        self.spill_count = 0                         # pages spilled to host
+        self.unspill_count = 0                       # pages adopted back in
 
     def _page_state(self, pid: int) -> str:
         st = int(self.state[pid])
@@ -638,6 +791,83 @@ class KVPagePool:
         self.free(pids)
         self.evict_count += len(pids)
 
+    # ------------------------------------------------------------- spill
+    def spill(self, pids, fetch) -> list[tuple[int, int, dict, int]]:
+        """Copy pages' payloads out for the host spill tier and free their
+        slots (``spill`` :1221), all pages in one pull: ``fetch`` takes a
+        dict of device tensors and returns it as host numpy arrays in one
+        transfer (the cache's accounted ``_fetch``).  Returns ``(state,
+        fill, payload, comp_bytes)`` per page, in order: a HOT page's
+        per-token planes, a COLD page's requantized payload, a PACKED
+        page's APack planes and page scales, in the JAX package's dtypes.
+        The slots return to the free list in the order given."""
+        pids = [int(p) for p in pids]
+        states = [self._require_transition(pid, "spill", PAGE_FREE,
+                                           detail="spill of FREE page")
+                  for pid in pids]
+        where: dict[int, list[int]] = {}
+        for i, st in enumerate(states):
+            where.setdefault(st, []).append(i)
+        tree = {}
+        for st, rows in where.items():
+            idx = torch.as_tensor([pids[i] for i in rows], dtype=torch.long,
+                                  device=self.device)
+            for key, attr, _ in SPILL_FIELDS[st]:
+                tree[f"{st}/{key}"] = getattr(self, attr)[:, idx]
+        host = fetch(tree)
+        comp = self.page_bytes(np.asarray(pids, np.int64))
+        out = [(st, int(self.fill[pid]),
+                payload_of(st, host, where[st].index(i), f"{st}/"),
+                int(comp[i]))
+               for i, (pid, st) in enumerate(zip(pids, states))]
+        self.free(pids)
+        self.spill_count += len(pids)
+        return out
+
+    def adopt(self, items: list, put) -> list[int]:
+        """Inverse of ``spill`` (``adopt`` :1251): allocate a fresh slot for
+        each ``(state, fill, payload)`` in order and restore the payload
+        there, all pages in one upload (``put`` takes a dict of host arrays
+        and returns it on the device in one transfer).  The slots generally
+        differ from the ones the pages were spilled out of; owners rewrite
+        their page-table entries.  Raises, adopting nothing, when the pool
+        has too few free pages."""
+        for st, _, _ in items:
+            if st not in SPILL_FIELDS:
+                raise ValueError(f"adopt of invalid spilled state {st}")
+        if len(items) > self.free_count:
+            raise RuntimeError(
+                "no free page to unspill into — admission must re-reserve "
+                "before readahead")
+        pids = [self.alloc() for _ in items]
+        where: dict[int, list[int]] = {}
+        for i, (st, fill, payload) in enumerate(items):
+            pid = pids[i]
+            if st != PAGE_HOT:
+                self._require_transition(pid, "adopt", st)
+                self.state[pid] = st
+            self.fill[pid] = fill
+            if st == PAGE_PACKED:
+                self.packed_bits[pid] = int(
+                    payload["sym_bits"].sum(dtype=np.int64)
+                    + payload["ofs_bits"].sum(dtype=np.int64))
+            where.setdefault(st, []).append(i)
+        tree = {}
+        for st, rows in where.items():
+            for key, attr, dt in SPILL_FIELDS[st]:
+                a = np.stack([items[i][2][key] for i in rows], axis=1)
+                tree[f"{st}/{key}"] = (a.astype(np.int32) if dt is np.bool_
+                                       else a.view(np.int32)
+                                       if dt is np.uint32 else a)
+        dev = put(tree)
+        for st, rows in where.items():
+            idx = torch.as_tensor([pids[i] for i in rows], dtype=torch.long,
+                                  device=self.device)
+            for key, attr, _ in SPILL_FIELDS[st]:
+                getattr(self, attr)[:, idx] = dev[f"{st}/{key}"]
+        self.unspill_count += len(items)
+        return pids
+
     def write_token(self, pid: int, kq, vq, ks, vs) -> int:
         """Append one token's [H, dh] int8 K/V and [H] scales (host append
         path).  Returns the in-page offset written."""
@@ -698,6 +928,23 @@ class KVPagePool:
         self.cold_q[:, idx] = 0
         self.state[pids] = PAGE_PACKED
         self.packed_bits[pids] = bits_per_page
+
+    def repack(self, pids: list, planes: tuple, swap) -> None:
+        """PACKED -> PACKED (``repack`` :1356): swap pages' planes for their
+        re-encode under a newer table.  ``planes`` as for ``pack``;
+        ``swap``, a bool device tensor [n], keeps the old planes of the
+        pages where it is False (the size gate, decided on the device), so
+        every page holds either its whole old or its whole new planes.
+        The caller sets ``packed_bits`` of the swapped pages once it knows
+        them."""
+        for pid in pids:
+            self._require_transition(pid, "repack", PAGE_PACKED,
+                                     detail="repack of non-PACKED page")
+        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        for t, new in zip((self.sym, self.ofs, self.sym_bits, self.ofs_bits,
+                           self.stored), planes):
+            m = swap.reshape(1, -1, *([1] * (new.dim() - 2)))
+            t[:, idx] = torch.where(m, new.to(t.dtype), t[:, idx])
 
     # -------------------------------------------------------- accounting
     def dense_bytes(self, n_tokens: int) -> int:

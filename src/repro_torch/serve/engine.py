@@ -2,18 +2,24 @@
 
 Port of the single-device, ``scheduler="sync"`` path of
 ``repro/serve/engine.py``: ``prefill_bucket`` :52, ``Request`` :76,
-``ServeEngine.__init__`` :210 (with the packed weight store,
-``weights="apack-int8"``), ``submit`` :398, ``_try_reserve``/``_admit``
-:468/:514, ``_prefill_forward`` :646, ``_prefill_into_slot`` :680,
-``_write_prefill_cache`` :710, ``preempt`` :730 (no spill tier),
-``_resume_into_slot`` :778, ``_retire`` :800, ``latency_stats`` :831,
-``step`` :895, ``_step_decode`` :936-990 (fused, materialize and dense
-branches, the fused one carrying the recurrent layers' device state
-store), ``run_until_drained`` :1283, ``weight_stats`` :1308 and
-``kv_stats`` :1333; and the checkpoint-style weight round trip,
+``AdmissionImpossible`` :132, ``ServeEngine.__init__`` :210 (with the
+packed weight store, ``weights="apack-int8"``), ``submit`` :398,
+``_try_reserve``/``_resume_request``/``_admit`` :468/:499/:514, the
+pressure escalation ``_relieve_pressure``/``_spill_reserved`` :549/:605,
+``_fail_request`` :614, ``_prefill_forward`` :646, ``_prefill_into_slot``
+:680, ``_write_prefill_cache`` :710, ``preempt`` :730 (with the host
+spill tier), ``_resume_into_slot`` :778, ``_retire`` :800,
+``latency_stats`` :831, ``_check_deadlines``/``_on_hung``/
+``_handle_integrity_failure`` :845-891, ``step`` :895 and
+``_step_decode`` :928-1008 (fused, materialize and dense branches, the
+fused one carrying the recurrent layers' device state store, and the
+table refresh hook), ``run_until_drained`` :1283, ``weight_stats`` :1308
+and ``kv_stats`` :1333; and the checkpoint-style weight round trip,
 ``CompressedParams`` :146, ``compress_params`` :160 and
 ``decompress_params`` :196.  The stacks are any mix of global and rolling
-attention layers and RG-LRU recurrent layers, prefix or cycled.
+attention layers and RG-LRU recurrent layers, prefix or cycled.  Not
+ported: the async scheduler with chunked prefill, SLO admission and
+meshes, each refused with its ROADMAP item.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
@@ -24,7 +30,8 @@ on the device.  Three decode modes:
   every page through the fused gather-decode attention kernel, appends the
   new token's K/V on the device, and seals (and APack-encodes) the pages
   that filled.  The step's only device-to-host reads are the greedy token
-  ids and, at page seals, the calibration histograms or coded bit counts.
+  ids and, at page seals, the calibration histograms or coded bit counts;
+  a re-pack's verdicts ride the tokens' pull.
 - ``kv_fused=False``, the materialize oracle: each step rebuilds a dense
   int8 cache from the pool (PACKED pages through the gather-decode kernel),
   runs the dense decode step over it and moves the new token back into
@@ -36,9 +43,15 @@ on the device.  Three decode modes:
 Admission reserves pages per layer kind (``PagedKVCache.pages_needed``):
 the full sequence on a global layer, ``window_pages`` on a rolling one,
 none on a recurrent one, whose state lives in a per-slot state store.
-``preempt`` parks an active request with its pages and reservation kept,
-its recurrent states APack-coded into a snapshot, and resumes it at the
-same position without a new prefill.
+``preempt`` parks an active request, its recurrent states APack-coded into
+a snapshot, and resumes it at the same position without a new prefill;
+with ``spill=True`` its pages go to the host spill tier (CRC-checked at
+readahead) and its reservation is given up.  Under pool pressure the
+engine spills parked requests, and with ``kv_pressure`` preempts active
+ones; ``slot_deadline_steps`` and the watchdog preempt slow slots; a page
+that fails an integrity check fails only its request.  ``kv_refresh``
+re-fits a layer's activation tables to drifting traffic and re-packs its
+pages under them, a budget a step.
 """
 from __future__ import annotations
 
@@ -56,6 +69,8 @@ from repro_torch.kernels import fastpath
 from repro_torch.kernels.decompress_matmul import DEFAULT_WEIGHT_MIN_SIZE
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.modules import PageIntegrityError
+from repro_torch.runtime.supervisor import StragglerWatchdog, WatchdogEvent
 
 
 def prefill_bucket(s: int, max_len: int) -> int:
@@ -81,6 +96,15 @@ class Request:
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_done: float = 0.0
+    # steps this request may hold a decode slot while others queue (None:
+    # the engine's slot_deadline_steps, or no deadline)
+    deadline_steps: int | None = None
+    # end-to-end latency SLO (admission by deadline is not ported: a
+    # request that sets it is refused at submit)
+    slo_ms: float | None = None
+    # a failure (integrity quarantine): done with the error set and the
+    # tokens cut at the failure, never silently wrong
+    error: str | None = None
 
 
 def _refuse(what: str, item: str) -> None:
@@ -252,27 +276,50 @@ def decompress_params(cp: CompressedParams, device=None, *,
     return tree
 
 
+class AdmissionImpossible(RuntimeError):
+    """Admission can never succeed for the queue head
+    (``AdmissionImpossible`` :132): ``run_until_drained`` raises it instead
+    of spinning.  Names the request and its page reservation."""
+
+    def __init__(self, req: Request, need: int, pool_pages: int, why: str):
+        super().__init__(
+            f"request {req.rid} can never be admitted: reserves {need} "
+            f"pages worst-case against a pool of {pool_pages} ({why})")
+        self.rid = req.rid
+        self.pages_needed = need
+        self.pool_pages = pool_pages
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, *, max_batch: int = 8,
                  max_len: int = 256, eos_id: int | None = None,
                  kv_pages: int | None = None, kv_page_size: int = 16,
                  kv_calib_pages: int = 4, kv_fused: bool | None = None,
-                 kv_refresh: bool = False, kv_pressure: bool = False,
-                 scheduler: str = "sync", mesh=None,
+                 kv_refresh: bool = False,
+                 kv_refresh_every_pages: int | None = None,
+                 kv_refresh_threshold: float = 0.15,
+                 kv_refresh_min_pages: int = 4,
+                 kv_repack_budget: int = 4,
+                 kv_pressure: bool = False,
+                 slot_deadline_steps: int | None = None,
+                 pressure_backoff_max: int = 64,
+                 watchdog_ratio: float | None = None,
+                 watchdog_patience: int = 3,
+                 kv_verify_on_repack: bool = False,
+                 scheduler: str = "sync",
+                 prefill_chunk_tokens: int | None = None,
+                 mesh=None, faults=None,
                  weights: str | None = None,
                  weight_min_size: int | None = None,
                  weight_tile_k: int | None = None, device=None):
-        if kv_refresh:
-            _refuse("kv_refresh (table refresh and re-pack)",
-                    "open item 1.8, serving robustness")
-        if kv_pressure:
-            _refuse("kv_pressure (spill and preempt under pool pressure)",
-                    "open item 1.8, serving robustness")
         if mesh is not None:
             _refuse("mesh= (multi-device serving)",
                     "open item 1.10, multi-device serving")
         if scheduler != "sync":
             _refuse(f"scheduler={scheduler!r}",
+                    "open item 1.8, serving robustness (async scheduler)")
+        if prefill_chunk_tokens is not None:
+            _refuse("prefill_chunk_tokens (chunked prefill)",
                     "open item 1.8, serving robustness (async scheduler)")
         if weights not in (None, "apack-int8"):
             raise ValueError(f"unknown weights mode {weights!r}; "
@@ -309,9 +356,34 @@ class ServeEngine:
         self.last_logits = None
         self.stats = {"steps": 0, "generated": 0, "completed": 0,
                       "kv_admission_blocked": 0, "preempted": 0,
-                      "resumed": 0,
+                      "resumed": 0, "kv_refreshes": 0,
+                      "kv_pages_repacked": 0, "failed": 0,
+                      "spilled_requests": 0, "admission_retries": 0,
+                      "pressure_preempted": 0, "deadline_preempted": 0,
+                      "watchdog_preempted": 0,
                       "queue_wait_p50_ms": 0.0, "queue_wait_p99_ms": 0.0,
                       "e2e_p50_ms": 0.0, "e2e_p99_ms": 0.0}
+        # pressure policy (``__init__`` :265-283): level 1 (always on)
+        # spills preempted requests' idle pages to the host tier when
+        # admission blocks; level 2 (``kv_pressure``) also preempts active
+        # slots with spill, under exponential backoff
+        self.kv_pressure = kv_pressure
+        self.slot_deadline_steps = slot_deadline_steps
+        self.pressure_backoff_max = pressure_backoff_max
+        self._pressure_backoff = 1
+        self._next_pressure_admit = 0
+        self._admit_clock = 0
+        self._slot_steps = np.zeros(max_batch, np.int64)
+        self._spilled: set[int] = set()
+        # a hung step preempts the longest-running slot with spill
+        self.watchdog = (StragglerWatchdog(ratio=watchdog_ratio,
+                                           patience=watchdog_patience)
+                         if watchdog_ratio is not None else None)
+        self.faults = faults
+        # table refresh: every decode step checks the drift triggers and
+        # re-packs at most ``kv_repack_budget`` stale pages
+        self.kv_refresh = kv_refresh
+        self.kv_repack_budget = kv_repack_budget
         self.paged = cfg.kv_cache_dtype == "apack-int8"
         self.fused = self.paged and kv_fused is not False
         self.kv: M.PagedKVCache | None = None
@@ -321,9 +393,15 @@ class ServeEngine:
                 # every slot at full context
                 kv_pages = max_batch * M.PagedKVCache.pages_for_config(
                     cfg, max_len, kv_page_size)
-            self.kv = M.PagedKVCache(cfg, kv_pages, page_size=kv_page_size,
-                                     calib_pages=kv_calib_pages,
-                                     device=self.device)
+            self.kv = M.PagedKVCache(
+                cfg, kv_pages, page_size=kv_page_size,
+                calib_pages=kv_calib_pages,
+                refresh_every_pages=kv_refresh_every_pages,
+                refresh_threshold=kv_refresh_threshold,
+                refresh_min_pages=kv_refresh_min_pages,
+                verify_on_repack=kv_verify_on_repack,
+                drift_sketch=kv_refresh, device=self.device)
+            self.kv.faults = faults
             # both paged modes read the device pool (the oracle uses its
             # table stack for the gather decode); the fused step also
             # carries the recurrent layers' device state store
@@ -341,6 +419,9 @@ class ServeEngine:
 
     # -------------------------------------------------------- scheduling
     def submit(self, req: Request) -> None:
+        if req.slo_ms is not None:
+            _refuse("Request.slo_ms (SLO admission)",
+                    "open item 1.8, serving robustness (SLO admission)")
         if self.paged:
             need = self._pages_for(req)
             if need > self.kv.pool.num_pages:
@@ -351,24 +432,151 @@ class ServeEngine:
         req.t_submit = time.perf_counter()
         self.queue.append(req)
 
+    def _pages_for(self, req: Request) -> int:
+        """Worst-case page reservation: prompt + generated tokens, capped
+        at the context window."""
+        toks = min(self.max_len, len(req.prompt) + req.max_new_tokens)
+        return self.kv.pages_needed(toks)
+
+    def _unreserve(self, rid: int) -> int:
+        need = self._reserved.pop(rid)
+        self._reserved_total -= need
+        return need
+
+    def _try_reserve(self, req: Request, *, allow_relief: bool) -> int | None:
+        """Pages to reserve for an admission candidate (0 while it still
+        holds its reservation), or None while it stays blocked
+        (``_try_reserve`` :468).  Only the head may trigger pressure relief
+        (``allow_relief``); the need is taken again after relief, which can
+        change the head's own standing."""
+        need = 0 if req.rid in self._reserved else self._pages_for(req)
+        if self._reserved_total + need <= self.kv.pool.num_pages:
+            if allow_relief:
+                self._pressure_backoff = 1    # clean head admission
+            return need
+        if not allow_relief:
+            return None
+        self.stats["kv_admission_blocked"] += 1
+        if not self._relieve_pressure(req, need):
+            return None                       # the request waits
+        need = 0 if req.rid in self._reserved else self._pages_for(req)
+        if self._reserved_total + need > self.kv.pool.num_pages:
+            return None                       # partial relief; retry later
+        self.stats["admission_retries"] += 1
+        return need
+
+    def _resume_request(self, slot: int, req: Request, need: int) -> None:
+        """Resume a preempted request (``_resume_request`` :499): take its
+        reservation again where it gave it up, and fail only it if its
+        spilled pages come back corrupted."""
+        if need:
+            self._reserved[req.rid] = need
+            self._reserved_total += need
+        try:
+            self._resume_into_slot(slot, req)
+        except PageIntegrityError as e:
+            self._fail_request(req, e)
+
+    def _admit(self) -> None:
+        """Fill idle slots from the queue head (``_admit`` :514), FIFO;
+        with the pool short, the head may trigger pressure relief."""
+        for slot in range(self.max_batch):
+            if self.active[slot] is not None or not self.queue:
+                continue
+            if not self.paged:
+                self._prefill_into_slot(slot, self.queue.popleft(), 0)
+                continue
+            self._admit_clock += 1
+            head = self.queue[0]
+            need = self._try_reserve(head, allow_relief=True)
+            if need is None:
+                break                          # the head waits (FIFO)
+            self.queue.remove(head)
+            if head.rid in self._preempted:
+                self._resume_request(slot, head, need)
+                continue
+            self._prefill_into_slot(slot, head, need)
+
+    def _relieve_pressure(self, head: Request, need: int) -> bool:
+        """Bounded spill -> retry -> preempt escalation under pool
+        exhaustion (``_relieve_pressure`` :549).  Returns True when
+        reservation headroom was freed.  Level 1: spill the coldest
+        preempted request still holding a reservation (never the head).
+        Level 2 (``kv_pressure``): preempt with spill the longest-running
+        active slot, gated by exponential backoff; with no slot to preempt
+        and nothing to spill, ``AdmissionImpossible``."""
+        parked = [rid for rid in self._preempted
+                  if rid in self._reserved and rid not in self._spilled
+                  and rid != head.rid]
+        if parked:
+            self._spill_reserved(min(parked, key=self.kv.request_last_read))
+            return True
+        if not self.kv_pressure:
+            return False
+        if self._admit_clock < self._next_pressure_admit:
+            return False                       # backing off
+        victims = [s for s, r in enumerate(self.active) if r is not None]
+        if not victims:
+            raise AdmissionImpossible(
+                head, need, self.kv.pool.num_pages,
+                "no active slots to retire and no spillable reservations")
+        slot = max(victims, key=lambda s: int(self._slot_steps[s]))
+        self.preempt(slot, spill=True, requeue="tail")
+        self.stats["pressure_preempted"] += 1
+        self._next_pressure_admit = self._admit_clock + self._pressure_backoff
+        self._pressure_backoff = min(2 * self._pressure_backoff,
+                                     self.pressure_backoff_max)
+        return True
+
+    def _spill_reserved(self, rid: int) -> None:
+        """Park a preempted request's pages in the host spill tier and give
+        up its reservation (``_spill_reserved`` :605); resume reserves
+        again and runs the checksum-verified readahead."""
+        self.kv.spill_request(rid)
+        self._unreserve(rid)
+        self._spilled.add(rid)
+        self.stats["spilled_requests"] += 1
+
+    def _fail_request(self, req: Request, err: Exception) -> None:
+        """Fail one request (``_fail_request`` :614): the error goes on the
+        request, its pages, reservation and snapshot are released, and
+        every other slot is left as it was."""
+        req.done = True
+        req.error = str(err)
+        req.t_done = time.perf_counter()
+        self.stats["failed"] += 1
+        rid = req.rid
+        for s, r in enumerate(self.active):
+            if r is req:
+                self.active[s] = None
+        try:
+            self.queue.remove(req)
+        except ValueError:
+            pass
+        if self.paged:
+            if rid in self.kv.page_tables:
+                self.kv.release(rid)
+            if rid in self._reserved:
+                self._unreserve(rid)
+        self._preempted.pop(rid, None)
+        self._spilled.discard(rid)
+
     def preempt(self, slot: int, *, spill: bool = False,
                 requeue: str = "head") -> dict:
         """Kick the request in ``slot`` out of its decode slot and back to
         the queue, at its ``requeue`` end ("head" or "tail") (``preempt``
-        :730).  Its KV stays in the page pool, compressed as it is, and its
-        reservation is held; its recurrent states (from the device state
-        store in fused mode) are APack-coded into a snapshot
-        (``PagedKVCache.snapshot_state``) and the dense copy is dropped,
-        so the snapshot is their only home until re-admission restores it
-        and resumes at the same position, without a new prefill: the
-        continuation is identical.  Returns the snapshot.  ``spill=True``
-        (park the pages in the host spill tier and release the
-        reservation) is not ported."""
+        :730).  Its recurrent states (from the device state store in fused
+        mode) are APack-coded into a snapshot
+        (``PagedKVCache.snapshot_state``) and the dense copy is dropped, so
+        the snapshot is their only home until re-admission restores it and
+        resumes at the same position, without a new prefill: the
+        continuation is identical.  Its KV stays in the page pool,
+        compressed as it is, with its reservation held; ``spill=True``
+        parks the pages in the host spill tier instead and gives up the
+        reservation (resume reserves again and restores them).  Returns
+        the snapshot."""
         if not self.paged:
             raise RuntimeError("preempt requires the paged apack-int8 KV")
-        if spill:
-            _refuse("preempt(spill=True) (the host spill tier)",
-                    "open item 1.8, serving robustness")
         if requeue not in ("head", "tail"):
             raise ValueError(f"requeue={requeue!r}: expected 'head' or "
                              "'tail'")
@@ -382,55 +590,32 @@ class ServeEngine:
         self._preempted[req.rid] = (snap, int(self.positions[slot]),
                                     int(self.last_tokens[slot, 0]))
         self.active[slot] = None
+        self._slot_steps[slot] = 0
         if requeue == "tail":
             self.queue.append(req)
         else:
             self.queue.appendleft(req)
         self.stats["preempted"] += 1
+        if spill:
+            self._spill_reserved(req.rid)
         return snap
 
     def _resume_into_slot(self, slot: int, req: Request) -> None:
-        snap, pos, last = self._preempted.pop(req.rid)
+        snap, pos, last = self._preempted[req.rid]
+        if req.rid in self._spilled:
+            # readahead: the spilled pages come back checksum-verified in
+            # one upload before the next step reads them
+            self.kv.unspill_request(req.rid)
+            self._spilled.discard(req.rid)
+        del self._preempted[req.rid]
         self.kv.restore_state(req.rid, snap)
         if self.fused and self.kv.state_layers:
             self.kv.write_state_slot(slot, req.rid)
         self.active[slot] = req
         self.positions[slot] = pos
         self.last_tokens[slot, 0] = last
+        self._slot_steps[slot] = 0
         self.stats["resumed"] += 1
-
-    def _pages_for(self, req: Request) -> int:
-        """Worst-case page reservation: prompt + generated tokens, capped
-        at the context window."""
-        toks = min(self.max_len, len(req.prompt) + req.max_new_tokens)
-        return self.kv.pages_needed(toks)
-
-    def _try_reserve(self, req: Request) -> int | None:
-        """Pages to reserve for the queue head, or None while the pool's
-        unreserved headroom is too small (the head then waits, FIFO).  A
-        preempted request still holds its reservation: it needs 0."""
-        need = 0 if req.rid in self._reserved else self._pages_for(req)
-        if self._reserved_total + need <= self.kv.pool.num_pages:
-            return need
-        self.stats["kv_admission_blocked"] += 1
-        return None
-
-    def _admit(self) -> None:
-        for slot in range(self.max_batch):
-            if self.active[slot] is not None or not self.queue:
-                continue
-            if not self.paged:
-                self._prefill_into_slot(slot, self.queue.popleft(), 0)
-                continue
-            head = self.queue[0]
-            need = self._try_reserve(head)
-            if need is None:
-                break
-            self.queue.popleft()
-            if head.rid in self._preempted:
-                self._resume_into_slot(slot, head)
-                continue
-            self._prefill_into_slot(slot, head, need)
 
     def _prefill_forward(self, prompt):
         """Single-request prefill at the prompt's power-of-two bucket; a
@@ -462,6 +647,7 @@ class ServeEngine:
         self.active[slot] = req
         self.positions[slot] = s
         self.last_tokens[slot, 0] = next_tok
+        self._slot_steps[slot] = 0
 
     def _write_prefill_cache(self, slot: int, caches: list) -> None:
         """Write one request's prefill cache, global layers padded to
@@ -488,7 +674,7 @@ class ServeEngine:
                 self.active[slot] = None
                 if self.paged:
                     self.kv.release(req.rid)
-                    self._reserved_total -= self._reserved.pop(req.rid)
+                    self._unreserve(req.rid)
 
     def _log_latency(self, req: Request) -> None:
         if req.t_submit <= 0.0:
@@ -515,15 +701,83 @@ class ServeEngine:
                 out[f"{name}_mean"] = float(np.mean(vals))
         return out
 
+    def _check_deadlines(self) -> None:
+        """A slot that has decoded its ``deadline_steps`` (or the engine's
+        ``slot_deadline_steps``) while others queue is preempted with spill
+        to the queue's tail (``_check_deadlines`` :845)."""
+        if not self.queue:
+            return
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            ddl = (req.deadline_steps if req.deadline_steps is not None
+                   else self.slot_deadline_steps)
+            if ddl is not None and int(self._slot_steps[slot]) >= ddl:
+                self.preempt(slot, spill=True, requeue="tail")
+                self.stats["deadline_preempted"] += 1
+
+    def _on_hung(self, ev: WatchdogEvent) -> None:
+        """Watchdog escalation (``_on_hung`` :863): preempt with spill the
+        longest-running slot and widen the pressure backoff."""
+        victims = [s for s, r in enumerate(self.active) if r is not None]
+        if not victims:
+            return
+        slot = max(victims, key=lambda s: int(self._slot_steps[s]))
+        self.preempt(slot, spill=True, requeue="tail")
+        self.stats["watchdog_preempted"] += 1
+        self.watchdog.reset()
+        self._next_pressure_admit = self._admit_clock + self._pressure_backoff
+        self._pressure_backoff = min(2 * self._pressure_backoff,
+                                     self.pressure_backoff_max)
+
+    def _handle_integrity_failure(self, e: PageIntegrityError) -> None:
+        """Fail the request that owns the corrupted page
+        (``_handle_integrity_failure`` :879); corruption that names no
+        request raises."""
+        req = None
+        if e.rid is not None:
+            for r in list(self.active) + list(self.queue):
+                if r is not None and r.rid == e.rid:
+                    req = r
+                    break
+        if req is None:
+            raise e
+        self._fail_request(req, e)
+
     # ------------------------------------------------------------- step
     def step(self) -> int:
-        """One engine iteration.  Returns the number of active sequences."""
+        """One engine iteration (``step`` :895): retire, deadlines, admit,
+        decode.  A page that fails an integrity check fails only its
+        request; the watchdog observes the step's time.  Returns the
+        number of active sequences."""
+        t0 = time.perf_counter()
+        if self.faults is not None:
+            d = self.faults.step_delay()
+            if d:
+                time.sleep(d)
         self._retire()
+        if self.paged:
+            self._check_deadlines()
         self._admit()
         n_active = sum(r is not None for r in self.active)
         if n_active == 0:
             return 0
         slot_rids = [r.rid if r is not None else None for r in self.active]
+        try:
+            n_active = self._step_decode(slot_rids, n_active)
+        except PageIntegrityError as e:
+            # the guards fire before a page or a sequence changes
+            # (step_meta and materialize's read guards, the re-pack's
+            # check before its swap)
+            self._handle_integrity_failure(e)
+            n_active = sum(r is not None for r in self.active)
+        if self.watchdog is not None:
+            ev = self.watchdog.observe(time.perf_counter() - t0)
+            if ev is not None and ev.kind == "hung":
+                self._on_hung(ev)
+        return n_active
+
+    def _step_decode(self, slot_rids: list, n_active: int) -> int:
         kv = self.kv
         tokens = torch.as_tensor(self.last_tokens, device=self.device)
         positions = torch.as_tensor(self.positions, device=self.device)
@@ -546,8 +800,21 @@ class ServeEngine:
         else:
             logits, self.cache = M.decode_step(self.cfg, self.params,
                                                self.cache, tokens, positions)
-        # the step's one sanctioned pull: token ids for EOS/retire
-        toks = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        toks_dev = logits[:, 0].argmax(dim=-1)
+        rs = None
+        if self.paged and self.kv_refresh:
+            # drift check and budgeted re-pack after the step's seals
+            # (``step`` :991-996); the re-pack's verdicts come back in the
+            # tokens' pull
+            rs = kv.refresh_step(self.kv_repack_budget)
+            self.stats["kv_refreshes"] += len(rs["refreshed_layers"])
+        if rs is not None and rs["job"] is not None:
+            pulled = kv._fetch({"toks": toks_dev, **rs["job"]["pull"]})
+            toks = pulled["toks"]
+            self.stats["kv_pages_repacked"] += kv.finish_refresh(rs, pulled)
+        else:
+            # the step's one sanctioned pull: token ids for EOS/retire
+            toks = toks_dev.cpu().numpy()
         self.last_logits = logits
         for slot, req in enumerate(self.active):
             if req is None:
@@ -555,14 +822,32 @@ class ServeEngine:
             req.tokens.append(int(toks[slot]))
             self.last_tokens[slot, 0] = toks[slot]
             self.positions[slot] += 1
+            self._slot_steps[slot] += 1
             self.stats["generated"] += 1
         self.stats["steps"] += 1
         return n_active
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
+        """Step until every request is done (``run_until_drained`` :1283);
+        with work queued and nothing active for more than twice the
+        pressure backoff's limit, ``AdmissionImpossible`` instead of
+        spinning."""
+        stalled = 0
         for _ in range(max_steps):
-            if self.step() == 0 and not self.queue:
+            if self.step() > 0:
+                stalled = 0
+                continue
+            if not self.queue:
                 break
+            stalled += 1
+            if stalled > 2 * self.pressure_backoff_max:
+                head = self.queue[0]
+                need = self._pages_for(head) if self.paged else 0
+                pool = self.kv.pool.num_pages if self.paged else 0
+                raise AdmissionImpossible(
+                    head, need, pool,
+                    f"{stalled} consecutive no-progress steps with zero "
+                    "active slots")
 
     def weight_stats(self) -> dict:
         """Weight-store accounting of the packed serving path
@@ -599,4 +884,11 @@ class ServeEngine:
         out["kv_pages_evicted"] = self.kv.pool.evict_count
         out["kv_fused"] = self.fused
         out["transfers"] = dict(self.kv.transfers)
+        out["kv_repack"] = out["kv_streams"]["repack"]
+        out["kv_spill"] = out["kv_streams"]["spill"]
+        out["kv_pages_spilled"] = self.kv.pool.spill_count
+        out["kv_pages_unspilled"] = self.kv.pool.unspill_count
+        out["kv_spilled_requests"] = {
+            rid: self.kv.spilled_pages(rid)
+            for rid in sorted(self._spilled) if rid in self.kv.page_tables}
         return out

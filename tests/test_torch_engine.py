@@ -1,7 +1,8 @@
 """Port ServeEngine vs the JAX ServeEngine (``kv_backend="ref"``) on
 qwen3-1.7b SMOKE with the same params and prompts; preemption and resume;
 the steady-state step's device-to-host reads; the device default; the
-refusal of unported features."""
+refusal of unported features (the async scheduler, SLO admission,
+meshes)."""
 import dataclasses
 
 import numpy as np
@@ -166,7 +167,7 @@ def test_preempt_resume_matches_uninterrupted_and_reference(requeue):
     assert pe.stats["preempted"] == pe.stats["resumed"] == 1
     assert pe.kv.pool.free_count == pe.kv.pool.num_pages
     assert pe._reserved_total == 0
-    with pytest.raises(NotImplementedError, match="1.8"):
+    with pytest.raises(ValueError, match="idle"):
         pe.preempt(0, spill=True)
     with pytest.raises(ValueError, match="idle"):
         pe.preempt(0)
@@ -233,20 +234,25 @@ def test_page_pool_defaults_to_cuda():
     assert pm.KVPagePool(4, 2, 2, 4, device="cpu").sym.device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [{"kv_refresh": True}, {"mesh": object()},
+@pytest.mark.parametrize("kw", [{"prefill_chunk_tokens": 8},
+                                {"mesh": object()},
                                 {"scheduler": "async"},
                                 {"weights": "int4"},
-                                {"kv_pressure": True}])
+                                {"scheduler": "async",
+                                 "prefill_chunk_tokens": 8}])
 def test_unported_features_are_refused(kw):
-    """Unported features raise NotImplementedError naming their ROADMAP
+    """Unported features (the async scheduler and its chunked prefill,
+    meshes, SLO admission) raise NotImplementedError naming their ROADMAP
     item; an unknown weights mode (packed ``apack-int8`` is served) raises
-    ValueError naming the one that exists."""
+    ValueError naming the one that exists.  Refresh, pressure and the spill
+    tier are served (``test_torch_refresh*.py``, ``test_torch_faults.py``)."""
     cfg = _cfg()
     params = PM.init_params(cfg, torch.Generator(), "cpu")
     exc, match = ((ValueError, "apack-int8") if "weights" in kw
                   else (NotImplementedError, "ROADMAP"))
     with pytest.raises(exc, match=match):
         ServeEngine(cfg, params, device="cpu", **KW, **kw)
-    eng = ServeEngine(cfg, params, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.preempt(0, spill=True)
+    eng = ServeEngine(cfg, params, device="cpu", kv_refresh=True,
+                      kv_pressure=True, **KW)
+    with pytest.raises(NotImplementedError, match="SLO admission"):
+        eng.submit(Request(0, _prompts(cfg)[0], slo_ms=100.0))

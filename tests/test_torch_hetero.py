@@ -391,9 +391,17 @@ def test_cli_serves_with_window_size(capsys):
 
 
 def test_packed_weights_on_hetero_stacks_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP open item 1.13"):
-        ServeEngine(arch["cp"], arch["tp"], device="cpu",
-                    weights="apack-int8", **KW)
+    """Packed weights on a heterogeneous stack are served now (ROADMAP 1.13,
+    held against the JAX package in ``test_torch_packed_hetero.py``): the
+    engine packs the attention sites of global and rolling layers and every
+    layer's FFN.  The layer kinds of ROADMAP 1.9 stay refused."""
+    eng = ServeEngine(arch["cp"], arch["tp"], device="cpu",
+                      weights="apack-int8", weight_min_size=1024, **KW)
+    kinds = PM.layer_kinds(arch["cp"])
+    for kind, blk in zip(kinds, eng.params["blocks"]):
+        assert isinstance(blk["ffn"]["w_up"], pm.PackedWeight)
+        assert isinstance(blk["inner"].get("wq"), pm.PackedWeight) \
+            == (kind in PM.ATTN_KINDS)
     with pytest.raises(NotImplementedError, match="1.9"):
         PM.init_params(dataclasses.replace(arch["cp"],
                                            block_pattern=("slstm",) * 3),

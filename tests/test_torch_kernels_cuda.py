@@ -455,3 +455,87 @@ def test_cuda_quantizers_divide_as_the_cpu():
     y = torch.from_numpy(rng.uniform(0.5, 2.0, 10 ** 6).astype(np.float32))
     assert torch.equal(quant.true_divide(y.cuda(), 127).cpu(),
                        quant.true_divide(y, 127))
+
+
+def _synth_caches(verify=False):
+    """Two port caches, one on the card and one on the CPU, fed the same
+    synthetic tokens: a peaked lattice, then a shifted one (the drift of
+    ``tests/test_table_refresh.py``), then refreshed."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import PagedKVCache
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              kv_cache_dtype="apack-int8")
+    caches = [PagedKVCache(cfg, 256, page_size=4, calib_pages=2,
+                           refresh_threshold=0.3, refresh_min_pages=4,
+                           verify_on_repack=verify, device=d)
+              for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(5)
+    for kv in caches:
+        kv.add_request(0)
+    h, dh, n = caches[0].pool.kv_heads, caches[0].pool.head_dim, 2
+    for step in (64, 32):
+        for _ in range(24):
+            q = (step * rng.integers(-2, 3, (n, h, dh))).clip(
+                -127, 127).astype(np.int8)
+            s = np.full((n, h), 0.01, np.float32)
+            for kv in caches:
+                kv.append_token(0, q, q.copy(), s, s.copy())
+    assert caches[0].maybe_refresh() == caches[1].maybe_refresh() != []
+    return caches
+
+
+def _assert_pools_equal(a, b):
+    for name in ("sym", "ofs", "sym_bits", "ofs_bits", "stored",
+                 "page_scale", "cold_q"):
+        assert torch.equal(getattr(a.pool, name).cpu(),
+                           getattr(b.pool, name)), name
+    for name in ("page_gen", "page_crc"):
+        assert np.array_equal(getattr(a, name), getattr(b, name)), name
+    assert a.traffic == b.traffic and a.gen_rows == b.gen_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget,verify", [(None, False), (3, True)])
+def test_cuda_batched_repack_matches_cpu(budget, verify):
+    """The re-pack batch on the card (one decode launch with each page's
+    own generation rows, one encode launch with its layer's new rows, the
+    size gate decided on the card) leaves the pool exactly as the plain
+    versions on the CPU do: planes, generations, checksums, counters; and
+    the card's ``materialize`` (gather kernel, rows of both generations)
+    equals the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import repro_torch
+    gpu, cpu = _synth_caches(verify)
+    repro_torch.reset_launch_counts()
+    assert gpu.repack_pending(budget) == cpu.repack_pending(budget) > 0
+    counts = repro_torch.launch_counts()
+    assert counts["apack_decode"] >= 1 and counts["apack_encode"] >= 1
+    _assert_pools_equal(gpu, cpu)
+    assert len({int(gpu.page_gen[p]) for s in gpu._packed for p in s}) == 2
+    got = gpu.materialize([0], 64)
+    want = cpu.materialize([0], 64)
+    for g, w in zip(got, want):
+        for f in g:
+            assert torch.equal(g[f].cpu(), w[f]), f
+
+
+@pytest.mark.cuda
+def test_cuda_spill_and_readahead_match_cpu():
+    """A request's pages spilled from the card in one pull and read back in
+    one upload from pinned memory: the same records (payload bytes, CRCs)
+    and the same pool afterwards as on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu = _synth_caches()
+    d2h, h2d = gpu.transfers["d2h_calls"], gpu.transfers["h2d_calls"]
+    assert gpu.spill_request(0) == cpu.spill_request(0) > 0
+    assert gpu.transfers["d2h_calls"] == d2h + 1
+    for h, rec in cpu.spill_tier._records.items():
+        g = gpu.spill_tier._records[h]
+        assert (g.state, g.fill, g.gen, g.crc) == \
+            (rec.state, rec.fill, rec.gen, rec.crc)
+    assert gpu.unspill_request(0) == cpu.unspill_request(0)
+    assert gpu.transfers["h2d_calls"] >= h2d + 1
+    _assert_pools_equal(gpu, cpu)
+    assert gpu.page_tables == cpu.page_tables

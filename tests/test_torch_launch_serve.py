@@ -3,8 +3,9 @@ the default weight path (the checkpoint-style round trip) and a
 packed-weight run, both on the paged APack KV cache, print the JAX CLI's
 summary lines; the materialize oracle and a dense int8 cache serve; every
 flag the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item, and without ``--device cpu`` the CLI asks for the card and
-raises where there is none, instead of falling back."""
+ROADMAP item, ``--kv-refresh`` and ``--kv-pressure`` serve and print
+their report lines, and without ``--device cpu`` the CLI asks for the
+card and raises where there is none, instead of falling back."""
 import dataclasses
 import pathlib
 import subprocess
@@ -64,14 +65,46 @@ def test_cli_serves_the_oracle_and_dense_cache(extra, path, capsys):
 @pytest.mark.parametrize("extra", [
     ["--no-compress", "--mesh", "2x1"],
     ["--no-compress", "--scheduler", "async"],
-    ["--weights", "apack-int8", "--kv-refresh"],
-    ["--weights", "apack-int8", "--kv-refresh-every", "4"],
-    ["--weights", "apack-int8", "--kv-pressure", "--slot-deadline", "6"],
-    ["--weights", "apack-int8", "--arch", "hetero-serve-smoke"],
+    ["--no-compress", "--prefill-chunk", "8"],
+    ["--no-compress", "--slo-ms", "100"],
+    ["--weights", "apack-int8", "--mesh", "1x1"],
+    ["--kv-refresh", "--scheduler", "async"],
 ])
 def test_cli_refuses_unported_flags(extra):
+    """The async scheduler, chunked prefill, SLO admission and meshes are
+    refused naming their ROADMAP item (refresh, pressure and packed weights
+    on heterogeneous stacks are served: the tests below)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(BASE + extra)
+
+
+@pytest.mark.parametrize("extra,want", [
+    (["--kv-refresh", "--kv-refresh-every", "4",
+      "--kv-refresh-threshold", "0.2", "--kv-repack-budget", "8"],
+     "table refresh: on; generation="),
+    (["--kv-pages", "24", "--kv-pressure", "--slot-deadline", "6"],
+     "spill tier: "),
+])
+def test_cli_serves_refresh_and_pressure(extra, want, capsys):
+    """``--kv-refresh`` refreshes tables and re-packs pages (generation >=
+    1); a pool of 24 pages under ``--kv-pressure --slot-deadline 6`` spills
+    pages and reads every one back, with nothing quarantined or failed.
+    Both print the JAX CLI's report lines."""
+    serve.main(BASE + ["--no-compress", "--requests", "6", "--prompt-len",
+                       "8", "--max-new", "8", "--max-batch", "3",
+                       "--kv-page-size", "4"] + extra)
+    lines = capsys.readouterr().out.splitlines()
+    assert any("'completed': 6" in ln for ln in lines), lines
+    line = [ln for ln in lines if ln.startswith(want)]
+    assert len(line) == 1, lines
+    if "refresh" in want:
+        gen = int(line[0].split("generation=")[1].split()[0])
+        assert gen >= 1 and "repacked=0 pages" not in line[0]
+    else:
+        spilled = int(line[0].split("spill tier: ")[1].split()[0])
+        ahead = int(line[0].split("readahead ")[1].split()[0])
+        assert spilled > 0 and ahead == spilled
+        assert "quarantined=0" in line[0] and "failed=0" in line[0]
 
 
 def test_cli_default_device_needs_cuda():
