@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero):
 
-1. print the card's name and power limit, and the host CPU's model and
-   clock; build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc (one process each, all started together);
+1. print the card's name and power limit, and the host CPU's model, clock
+   and core count; build the five
+   CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc (one
+   process each, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes the paths give it: APack decode and encode bit-exact (bits
    4/8/16, stored streams included; both also at the serve's pack shapes
@@ -42,7 +43,18 @@ Phases (any failure exits non-zero):
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
-   reset just before and read just after;
+   reset just before and read just after; (e) then on the async scheduler
+   (``scheduler="async"``, chunks of 64 tokens) with slot 0 preempted with
+   spill after ten decode steps: tokens equal to the sync serve's, at
+   least 8 chunks and one readahead staged in the overlap window, the
+   window (while a step is in flight), the dispatch and the pump start
+   under ``torch.cuda.set_sync_debug_mode("error")``, and every steady
+   step one device-to-host call besides its seal batches'; both
+   schedulers' median and longest step and profiler idle shares printed,
+   and the sync serve's median once more after it; then start the CPU
+   sides of phase 10 and (d) in a background process (``--cpu-twins``: at
+   a quarter of the host's cores, no card visible to it, results to
+   ``build/smoke_cpu_twins.pt``);
 4. serve the same requests from APack-packed weights
    (``weights="apack-int8"``) and the paged APack KV cache, the main path,
    with its own launch counts; after the serve, build the oracle stores
@@ -50,20 +62,24 @@ Phases (any failure exits non-zero):
    layers against f32 and f64 products; re-score the packed engine's
    sequences teacher-forced under the packed store, its f32 and f64
    oracles and the dense store dequantized from the same int8 codes;
-   profile steady steps of both engines;
+   profile steady steps of both engines; then serve them on the async
+   scheduler from the same packed planes (not packed again), with (e)'s
+   gates;
 5. serve the same requests through the materialize oracle
-   (``kv_fused=False``), whose launch counts give the gather decode's;
+   (``kv_fused=False``) at ``CUT_LAYERS`` (4) layers, whose launch counts
+   give the gather decode's;
    between steps, while the pages are HOT and COLD and again while they
    are HOT and PACKED, hold ``materialize`` through the kernel bit-exact
    against the plain decode and the fused attention kernel at the first
    and last layer against dense attention over the materialized cache;
-   print token agreement with the fused serve; profile steady steps;
+   print token agreement with a fused serve at the same depth; profile
+   steady steps;
    phase 3's engine then serves phase B of the refresh serve (8 requests
    of one hot prompt), the frozen control of (a);
 6. serve them on the fused path with slot 0 preempted after ten decode
    steps and resumed: the tokens must equal phase 3's;
-7. serve them from a dense int8 KV cache, the uncompressed baseline, and
-   profile steady steps;
+7. serve them from a dense int8 KV cache, the uncompressed baseline, at
+   ``CUT_LAYERS`` layers, and profile steady steps;
 8. the JAX CLI's default weight path at full width: ``compress_params``
    (quantize, histogram, table search, the encode kernel, the pull of the
    trimmed planes) then ``decompress_params`` (upload, the decode kernel,
@@ -71,9 +87,9 @@ Phases (any failure exits non-zero):
    decompressed leaf must equal the codec-free dequantization of the same
    int8 codes bit for bit, and the plain encoder and decoder on the card
    must give the kernels' columns on 1,024 streams from each end of every
-   distinct container shape; then serve the 8 requests from the
-   round-tripped weights on the fused paged APack KV path, with the token
-   agreement against phase 3 printed;
+   distinct container shape; then serve the 8 requests from the first
+   ``CUT_LAYERS`` layers of the round-tripped weights on the fused paged
+   APack KV path;
    (a) table refresh at 28 layers: phase 3's requests then phase B on one
    engine with ``REFRESH_KW``; tokens equal to phase 3's and to the frozen
    control's, refresh fired and re-packed (kernels 1 and 2 once each a
@@ -102,7 +118,10 @@ Phases (any failure exits non-zero):
    from packed weights (the f32 draw again, packed by layer kind): one
    local layer's attention sites and one recurrent layer's FFN against
    f32 and f64 products at M = 4 and 77, ``weight_stats()``, packing
-   seconds and the token agreement with the fused serve printed;
+   seconds and the token agreement with the fused serve printed; (f) the
+   fused serve again on the async scheduler, chunks of 64 tokens (about
+   32 a prompt): tokens equal to the sync serve's, pages evicted, (e)'s
+   sync gates; both schedulers' median and longest step printed;
 10. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
     caches, and the fused one on round-tripped weights, whose
     ``compress_params`` containers must match too; and fused, oracle and
@@ -112,15 +131,21 @@ Phases (any failure exits non-zero):
     oracle's tokens against the fused engine's on the card; (d) SMOKE
     refresh, pressure and fault engines (a flipped bit of a spilled record
     fails only its owner) card against CPU: tokens, ``kv_ratio``, refresh
-    and spill counters;
+    and spill counters; and the async engine on qwen3 and
+    ``hetero-serve-smoke`` (chunks of 3 tokens, a preempt with spill,
+    ``kv_refresh``, one request with ``slo_ms``) card against CPU:
+    tokens, admission order, ``kv_ratio`` and the chunk, readahead,
+    refresh and spill counters, its tokens equal to the sync engine's; the
+    CPU sides of phase 10 come from the background process;
 11. after each paged serve, decode every PACKED KV page captured mid-serve
     with the decode kernel and with the plain decoder, and re-encode a
     sample with the plain encoder;
 12. print the phase-2 records at recurrentgemma-9b's page, at the re-pack
     batch and at recurrentgemma-9b's packed sites, the script's seconds,
     the ``kernels`` JSON line (kernels 1 and 2 with their re-pack launches
-    a step of (a), kernel 5 with its launches a step of (c)), then the
-    result line.
+    a step of (a), kernel 5 with its launches a step of (c), kernels 1,
+    2, 3 and 5 with their launches a step of the async serves (e)), then
+    the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when it is
 not run from a checkout of the repository.
@@ -142,6 +167,10 @@ PAGE = dict(ps=16, h=8, dh=128, hq=16)   # qwen3-1.7b page [16, 8, 128]
 RG_PAGE = dict(ps=16, h=1, dh=256, hq=16)
 RG_WINDOW = 2048
 AGREEMENT_GATE = 0.98             # the reference's teacher-forced gate
+# depth of the oracle (phase 5), int8-KV (phase 7) and round-trip (phase
+# 8, its serve; the round trip itself stays at 28 layers) serves, cut from
+# 28 so that the script stays within its time on the slower chip hosts
+CUT_LAYERS = 4
 F64_ERR_RATIO = 4.0               # kernel vs f64 <= this x cuBLAS f32 vs f64
 RMS_DRIFT_RATIO = 1.5             # packed drift <= this x f32 oracle's drift
 # (bits, streams) of the codec at the weight round trip's shape: a stacked
@@ -172,6 +201,22 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_call(fn):
+    """``fn()`` once, with its time in ms on the card's clock (CUDA events
+    around the call, the card idle before it).  A plain version is timed
+    on the one call that its check makes: it launches many small kernels
+    and its time is the host's, so a second call would only repeat it."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def graph_ms(fn, iters: int) -> float:
@@ -308,49 +353,49 @@ def table_rows(vals, n_rows, bits=8):
 
 def check_encode(name, vals, tabs, bits):
     """The encode kernel bit-exact against the plain encoder; returns the
-    kernel's result."""
+    kernel's result and the plain encoder's ms (``timed_call``)."""
     import torch
     from repro_torch.kernels import apack_encode
     e = vals.shape[-1]
     got = apack_encode.encode(vals, *tabs, n_steps=e, bits=bits)
-    want = apack_encode.encode_plain(vals, *tabs, n_steps=e, bits=bits)
+    want, plain_ms = timed_call(lambda: apack_encode.encode_plain(
+        vals, *tabs, n_steps=e, bits=bits))
     for g, w, what in zip(got, want, ("sym", "ofs", "sym_bits", "ofs_bits",
                                       "stored")):
         if not torch.equal(g, w):
             raise AssertionError(f"encode {name}: {what} differs")
-    return got
+    return got, plain_ms
 
 
-def encode_timing(vals, tabs, bits, got, iters=20, sample=None):
-    """Device ms of the encode kernel and of the plain version, and the
-    bound: the values and table rows read once, the whole planes, bit
-    counts and flags written once.  ``sample`` (stream indices) times the
-    plain version on those streams only, for shapes whose plain encode
-    would not fit the card."""
+def encode_timing(vals, tabs, bits, got, plain_ms, iters=20,
+                  plain_shape=None):
+    """Device ms of the encode kernel beside the plain version's
+    (``plain_ms``, from its check, on ``plain_shape`` where that sampled
+    fewer streams than the shape's), and the bound: the values and table
+    rows read once, the whole planes, bit counts and flags written once."""
     from repro_torch.kernels import apack_encode
     e = vals.shape[-1]
     ms = graph_ms(lambda: apack_encode.encode(vals, *tabs, n_steps=e,
                                               bits=bits), iters)
-    pv = vals if sample is None else vals[sample]
-    plain = cuda_ms(lambda: apack_encode.encode_plain(
-        pv, *tabs, n_steps=e, bits=bits), 1)
-    return dict(ms=ms, plain_ms=plain, max_abs_err=0,
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
                 bound_ms=nbytes(vals, *tabs, *got) / HBM_BYTES_PER_S * 1e3,
                 bound_by="bytes", library_ms=None, shape=list(vals.shape),
-                plain_shape=list(pv.shape))
+                plain_shape=plain_shape or list(vals.shape))
 
 
 def check_decode(name, planes, tabs, bits, vals):
     """The decode kernel on encoded planes, bit-exact against the plain
     decoder and the encoded values; bool and int32 stored flags give
     identical outputs, and so do one shared 1-D table row and the same row
-    copied out to every page.  Returns the kernel's output."""
+    copied out to every page.  Returns the kernel's output and the plain
+    decoder's ms (``timed_call``)."""
     import torch
     from repro_torch.kernels import apack_decode
     sym, ofs, st = planes[0], planes[1], planes[4]
     kw = dict(n_steps=vals.shape[-1], bits=bits)
     got = apack_decode.decode(sym, ofs, st, *tabs, **kw)
-    want = apack_decode.decode_plain(sym, ofs, st, *tabs, **kw)
+    want, plain_ms = timed_call(lambda: apack_decode.decode_plain(
+        sym, ofs, st, *tabs, **kw))
     if not torch.equal(got, want) or not torch.equal(got, vals):
         raise AssertionError(f"decode {name}: not bit-exact")
     variants = {"int32 stored": apack_decode.decode(
@@ -363,31 +408,27 @@ def check_decode(name, planes, tabs, bits, vals):
     for what, out in variants.items():
         if not torch.equal(out, got):
             raise AssertionError(f"decode {name}: {what} differs")
-    return got
+    return got, plain_ms
 
 
-def decode_timing(planes, tabs, bits, out, iters=20, sample=None):
-    """Device ms of the decode kernel and of the plain version, and the
-    bound: the coded words of each stream (+1 word) read once, the stored
-    flags and table rows as given, the int32 output written once.
-    ``sample`` (stream indices of a [W, S] plane) times the plain version
-    on those streams only."""
+def decode_timing(planes, tabs, bits, out, plain_ms, iters=20,
+                  plain_shape=None):
+    """Device ms of the decode kernel beside the plain version's
+    (``plain_ms``, from its check, on ``plain_shape`` where that sampled
+    fewer streams), and the bound: the coded words of each stream (+1
+    word) read once, the stored flags and table rows as given, the int32
+    output written once."""
     from repro_torch.kernels import apack_decode
     sym, ofs, sb, ob, st = planes
     kw = dict(n_steps=out.shape[-1], bits=bits)
     ms = graph_ms(lambda: apack_decode.decode(sym, ofs, st, *tabs, **kw),
                   iters)
-    ps, po, pst = ((sym, ofs, st) if sample is None else
-                   (sym[:, sample], ofs[:, sample], st[sample]))
-    plain = cuda_ms(lambda: apack_decode.decode_plain(ps, po, pst, *tabs,
-                                                      **kw), 1)
     read = 4 * int(coded_words(sb, ob, sym.shape[-2], ofs.shape[-2]).sum())
     read += nbytes(st, *tabs, out)
-    return dict(ms=ms, plain_ms=plain, max_abs_err=0,
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
                 bound_ms=read / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 library_ms=None, shape=list(out.shape),
-                plain_shape=list(out.shape) if sample is None
-                else [len(sample), out.shape[-1]],
+                plain_shape=plain_shape or list(out.shape),
                 staged=apack_decode.page_staged(out.shape[-1], bits,
                                                 sym.shape[-2], ofs.shape[-2],
                                                 sym.shape[-1]))
@@ -417,8 +458,8 @@ def check_codec(device, records):
     from repro_torch.kernels import apack_decode
     for name, vals, tabs, bits in codec_inputs(device):
         e = vals.shape[-1]
-        got = check_encode(name, vals, tabs, bits)
-        dec = check_decode(name, got, tabs, bits, vals)
+        got, enc_plain = check_encode(name, vals, tabs, bits)
+        dec, dec_plain = check_decode(name, got, tabs, bits, vals)
         n_stored = int(got[4].sum())
         print(f"codec {name}: shape {tuple(vals.shape)} bits {bits} "
               f"stored {n_stored} bit-exact (decode: bool and int32 stored, "
@@ -427,16 +468,18 @@ def check_codec(device, records):
             continue
         assert 0 < n_stored < got[4].numel(), "kv8 must mix stored and AC"
         # timing at the KV page shape (64 pages x 128 streams x 128 values)
-        records["apack_encode"] = encode_timing(vals, tabs, bits, got)
-        records["apack_decode"] = decode_timing(got, tabs, bits, dec)
+        records["apack_encode"] = encode_timing(vals, tabs, bits, got,
+                                                enc_plain)
+        records["apack_decode"] = decode_timing(got, tabs, bits, dec,
+                                                dec_plain)
         for k in ("apack_encode", "apack_decode"):
             print(f"{k}: " + json.dumps(records[k]))
         codec = (got, tabs, e, bits)
         # one page: a single block, so its time is one stream's chain
         page = tuple(p[:1] for p in got)
-        one = check_decode("one page", page, tabs, bits, vals[:1])
+        one, one_plain = check_decode("one page", page, tabs, bits, vals[:1])
         print("apack_decode one page (chain floor): bit-exact; "
-              + json.dumps(decode_timing(page, tabs, bits, one)))
+              + json.dumps(decode_timing(page, tabs, bits, one, one_plain)))
     # the serve's pack shapes: [2 kinds, n pages, 128 streams, 128 values],
     # a decode step's seal of one slot (28 layers) and a prefill's seal of
     # four slots of 5 pages each; each page with its layer's table row
@@ -448,13 +491,13 @@ def check_codec(device, records):
         shape = (2, n, 128, 128)
         vals = vals.reshape(shape)
         tabs = tuple(t[rows].reshape(2, n, -1) for t in (vm, ol, cm))
-        got = check_encode(f"pack n={n}", vals, tabs, 8)
-        row = encode_timing(vals, tabs, 8, got)
+        got, enc_plain = check_encode(f"pack n={n}", vals, tabs, 8)
+        row = encode_timing(vals, tabs, 8, got, enc_plain)
         row["stored"] = int(got[4].sum())
         print(f"apack_encode pack n={n}: bit-exact; " + json.dumps(row))
-        dec = check_decode(f"pack n={n}", got, tabs, 8, vals)
+        dec, dec_plain = check_decode(f"pack n={n}", got, tabs, 8, vals)
         print(f"apack_decode pack n={n}: bit-exact (bool and int32 stored); "
-              + json.dumps(decode_timing(got, tabs, 8, dec)))
+              + json.dumps(decode_timing(got, tabs, 8, dec, dec_plain)))
     got, tabs, e, bits = codec
     names = device_kernels(lambda: apack_decode.decode(
         got[0], got[1], got[4], *tabs, n_steps=e, bits=bits))
@@ -513,21 +556,25 @@ def check_fastpath_shapes(device, records):
         kw = dict(n_steps=e, bits=bits)
         got = apack_encode.encode(vals, *tabs, **kw)
         idx = end_streams(n)
-        want = apack_encode.encode_plain(vals[idx], *tabs, **kw)
+        want, enc_plain = timed_call(lambda: apack_encode.encode_plain(
+            vals[idx], *tabs, **kw))
         for g, w, what in zip(got, want, ("sym", "ofs", "sym_bits",
                                           "ofs_bits", "stored")):
             if not torch.equal(g[..., idx], w):
                 raise AssertionError(f"encode fastpath bits={bits}: {what} "
                                      "differs from the plain encoder")
         dec = apack_decode.decode(got[0], got[1], got[4], *tabs, **kw)
-        plain = apack_decode.decode_plain(got[0][:, idx], got[1][:, idx],
-                                          got[4][idx], *tabs, **kw)
+        plain, dec_plain = timed_call(lambda: apack_decode.decode_plain(
+            got[0][:, idx], got[1][:, idx], got[4][idx], *tabs, **kw))
         if not torch.equal(dec, vals) or not torch.equal(dec[idx], plain):
             raise AssertionError(f"decode fastpath bits={bits}: not "
                                  "bit-exact")
-        enc = encode_timing(vals, tabs, bits, got, iters=3, sample=idx)
+        sampled = [len(idx), e]
+        enc = encode_timing(vals, tabs, bits, got, enc_plain, iters=3,
+                            plain_shape=sampled)
         enc["stored"] = int(got[4].sum())
-        dct = decode_timing(got, tabs, bits, dec, iters=3, sample=idx)
+        dct = decode_timing(got, tabs, bits, dec, dec_plain, iters=3,
+                            plain_shape=sampled)
         if dct["staged"] != (bits == 8):
             raise AssertionError(f"decode fastpath bits={bits}: staged="
                                  f"{dct['staged']}, the case is chosen for "
@@ -660,6 +707,7 @@ def check_attention(device, records):
     from repro_torch.kernels import fused_page_attention as fpa
     from repro_torch.kernels.fused_page_attention import _page_tiles
     err = 0.0
+    plain_ms = {}
     for p_slots in (1, 7, 16):
         q, pid, tid, meta, jobmeta, planes, packed_bytes = mixed_pool(
             device, p_slots=p_slots)
@@ -667,9 +715,9 @@ def check_attention(device, records):
             kw = dict(n_steps=128, softcap=softcap)
             got = fpa.fused_page_attention(q, pid, tid, meta, jobmeta,
                                            planes, **kw)
-            want = fpa.fused_page_attention_plain(q, pid, tid, meta, jobmeta,
-                                                  planes, **kw)
-            torch.cuda.synchronize()
+            want, plain_ms[p_slots, softcap] = timed_call(
+                lambda: fpa.fused_page_attention_plain(
+                    q, pid, tid, meta, jobmeta, planes, **kw))
             # f32 throughout; the kernel sums each page's dot products in
             # another order than the plain einsum and merges the pages'
             # partials once, hence rtol 1e-5 / atol 1e-6 on acc and l (m
@@ -695,8 +743,7 @@ def check_attention(device, records):
         q, pid, tid, meta, jobmeta, planes, **kw), 20)
     eager = cuda_ms(lambda: fpa.fused_page_attention(
         q, pid, tid, meta, jobmeta, planes, **kw), 20)
-    plain = cuda_ms(lambda: fpa.fused_page_attention_plain(
-        q, pid, tid, meta, jobmeta, planes, **kw), 2)
+    plain = plain_ms[16, 0.0]
     bound, by = attention_bound(q, pid, tid, meta, jobmeta, planes,
                                 packed_bytes, acc, m, l)
     # yardstick: SDPA over the equivalent dense dequantized cache
@@ -752,8 +799,8 @@ def check_gather(device, records, s=128, key="gather_decode"):
         idx = torch.randint(0, n_pages, (n_ids,), device=device)
         idx = torch.cat([idx, idx[-1:].expand(g - n_ids)]).to(torch.int32)
         tid = rows[idx.long()].to(torch.int32)
-        want = pd.gather_decode_plain(sym, ofs, st, idx, vm, ol, cm,
-                                      table_idx=tid, **kw)
+        want, plain = timed_call(lambda: pd.gather_decode_plain(
+            sym, ofs, st, idx, vm, ol, cm, table_idx=tid, **kw))
         got = {"host ids": pd.gather_decode(
                    sym, ofs, st, idx.cpu().numpy(), vm, ol, cm,
                    table_idx=tid.cpu().numpy(), **kw),
@@ -770,8 +817,8 @@ def check_gather(device, records, s=128, key="gather_decode"):
                                      "bit-exact")
         print(f"{key}: G={g} ({n_ids} ids) S={s} bit-exact: "
               + ", ".join(got))
-        cases[n_ids] = (idx, tid)
-    idx, tid = cases[1000]
+        cases[n_ids] = (idx, tid, plain)
+    idx, tid, plain = cases[1000]
     g = idx.numel()
     n_stored = int(st[idx.long()].sum())
     if not 0 < n_stored < st[idx.long()].numel():
@@ -784,8 +831,6 @@ def check_gather(device, records, s=128, key="gather_decode"):
         sym, ofs, st, idx_h, vm, ol, cm, table_idx=tid_h, **kw), 20)
     eager_card = cuda_ms(lambda: pd.gather_decode(
         sym, ofs, st, idx, vm, ol, cm, table_idx=tid, **kw), 20)
-    plain = cuda_ms(lambda: pd.gather_decode_plain(
-        sym, ofs, st, idx, vm, ol, cm, table_idx=tid, **kw), 1)
     distinct = torch.unique(idx.long())
     read = 4 * int(coded_words(sb[distinct], ob[distinct], sym.shape[1],
                                ofs.shape[1]).sum())
@@ -816,10 +861,13 @@ def check_rg_codec(device, records):
         shape = (2, n, 32, 128)
         vals = vals.reshape(shape)
         tabs = tuple(t[rows].reshape(2, n, -1) for t in (vm, ol, cm))
-        got = check_encode(f"[16, 1, 256] n={n}", vals, tabs, 8)
-        records[f"apack_encode n={n}"] = encode_timing(vals, tabs, 8, got)
-        dec = check_decode(f"[16, 1, 256] n={n}", got, tabs, 8, vals)
-        records[f"apack_decode n={n}"] = decode_timing(got, tabs, 8, dec)
+        got, enc_plain = check_encode(f"[16, 1, 256] n={n}", vals, tabs, 8)
+        records[f"apack_encode n={n}"] = encode_timing(vals, tabs, 8, got,
+                                                       enc_plain)
+        dec, dec_plain = check_decode(f"[16, 1, 256] n={n}", got, tabs, 8,
+                                      vals)
+        records[f"apack_decode n={n}"] = decode_timing(got, tabs, 8, dec,
+                                                       dec_plain)
         for k in ("apack_encode", "apack_decode"):
             print(f"{k} [16, 1, 256] n={n}: bit-exact; "
                   + json.dumps(records[f"{k} n={n}"]))
@@ -859,8 +907,8 @@ def check_attention_rolling(device, records):
     n_steps = 128
     got = fpa.fused_page_attention(q, pid, tid, meta, jobmeta, planes,
                                    n_steps=n_steps)
-    want = fpa.fused_page_attention_plain(q, pid, tid, meta, jobmeta, planes,
-                                          n_steps=n_steps)
+    want, plain = timed_call(lambda: fpa.fused_page_attention_plain(
+        q, pid, tid, meta, jobmeta, planes, n_steps=n_steps))
     mag = fpa.fused_page_attention_f64(q, pid, tid, meta, jobmeta, planes,
                                        n_steps=n_steps)[3]
     torch.cuda.synchronize()
@@ -887,8 +935,6 @@ def check_attention_rolling(device, records):
     kw = dict(n_steps=n_steps)
     ms = graph_ms(lambda: fpa.fused_page_attention(
         q, pid, tid, meta, jobmeta, planes, **kw), 20)
-    plain = cuda_ms(lambda: fpa.fused_page_attention_plain(
-        q, pid, tid, meta, jobmeta, planes, **kw), 2)
     bound, by = attention_bound(q, pid, tid, meta, jobmeta, planes,
                                 packed_bytes, *got, page=page)
     kt, vt = _page_tiles(planes, pid, tid, meta[..., 0], n_steps, 8)
@@ -931,16 +977,19 @@ def check_repack_batch(device, records, n=32):
     vals = vals.reshape(shape)
     old = tuple(t[rows].reshape(2, n, -1) for t in (vm, ol, cm))
     new = tuple(t[rows].reshape(2, n, -1) for t in (nvm, nol, ncm))
-    packed = check_encode(f"re-pack n={n} (old rows)", vals, old, 8)
-    dec = check_decode(f"re-pack n={n}", packed, old, 8, vals)
-    repacked = check_encode(f"re-pack n={n} (new rows)", dec, new, 8)
-    back = check_decode(f"re-pack n={n} (new rows)", repacked, new, 8, vals)
+    packed = check_encode(f"re-pack n={n} (old rows)", vals, old, 8)[0]
+    dec, dec_plain = check_decode(f"re-pack n={n}", packed, old, 8, vals)
+    repacked, enc_plain = check_encode(f"re-pack n={n} (new rows)", dec, new,
+                                       8)
+    back = check_decode(f"re-pack n={n} (new rows)", repacked, new, 8,
+                        vals)[0]
     if not torch.equal(back, vals):
         raise AssertionError("re-pack: the re-packed planes do not decode "
                              "to the original values")
-    records[f"apack_decode repack n={n}"] = decode_timing(packed, old, 8, dec)
+    records[f"apack_decode repack n={n}"] = decode_timing(packed, old, 8, dec,
+                                                          dec_plain)
     records[f"apack_encode repack n={n}"] = encode_timing(dec, new, 8,
-                                                          repacked)
+                                                          repacked, enc_plain)
     for k in ("apack_decode", "apack_encode"):
         print(f"{k} re-pack batch n={n} (per-page rows): bit-exact; "
               + json.dumps(records[f"{k} repack n={n}"]))
@@ -1054,7 +1103,8 @@ def matmul_rows(name, q, scale, ms_, g, detail=False):
             exact_matmul_check(name, q, cw, m, g)
         x = torch.randn(m, cw.k, generator=g, device=q.device)
         y = dm.compressed_matmul(x, cw)
-        y_plain = dm.compressed_matmul_plain(x, cw)
+        y_plain, plain_ms = timed_call(
+            lambda: dm.compressed_matmul_plain(x, cw))
         bound = cw.k * 2.0 ** -24 * (x.abs().double() @ wf.abs().double())
         err = (y.double() - y_plain.double()).abs()
         ratio = f64_err_ratio(y, x, wf)
@@ -1079,7 +1129,7 @@ def matmul_rows(name, q, scale, ms_, g, detail=False):
                             y)
         t_b, t_f = nb / HBM_BYTES_PER_S, 2 * m * cw.k * cw.n / F32_FLOPS
         row.update(
-            plain_ms=cuda_ms(lambda: dm.compressed_matmul_plain(x, cw), 1),
+            plain_ms=plain_ms,
             library_ms=graph_ms(lambda: torch.matmul(x, wf), 20),
             bound_ms=max(t_b, t_f) * 1e3,
             bound_by="bytes" if t_b >= t_f else "operations",
@@ -1226,7 +1276,9 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
     cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
                               kv_cache_dtype=kv)
     layers = cfg.num_layers
-    tag = f"serve[{arch}, {mode} KV, {label} weights, {layers} layers]"
+    sched = (engine_kw or {}).get("scheduler", "sync")
+    tag = (f"serve[{arch}, {mode} KV, {label} weights, {layers} layers"
+           + (f", {sched} scheduler]" if sched != "sync" else "]"))
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
     if params is None:
@@ -1250,7 +1302,8 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
     seen: dict = {}
 
     def after(e, i):
-        if "first_logits" not in seen:
+        # (an async engine has logits once its first step is collected)
+        if "first_logits" not in seen and e.last_logits is not None:
             seen["first_logits"] = e.last_logits.float().cpu()
         if e.paged and "snapshot" not in seen and not e.queue:
             seen["snapshot"] = capture_packed(e)
@@ -1278,6 +1331,7 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                "wall_s": wall, "tokens_per_s": gen_tokens / wall,
                "steps": eng.stats["steps"],
                "median_step_ms": d["median_step_ms"],
+               "max_step_ms": d["max_step_ms"],
                "first_step_s": d["first_step_s"],
                "weight_pack_s": eng.weight_pack_s, "launches": launches,
                "launches_per_step": {k: v / eng.stats["steps"]
@@ -1335,12 +1389,14 @@ def hot_requests(cfg, rng):
 
 def drive(eng, reqs, hook=None, tag="drive") -> dict:
     """Submit ``reqs`` to ``eng`` and step it until drained, each step timed
-    to the card's end; ``hook(eng, i)`` after step ``i``, outside the
-    timing, its kernel launches (checks) counted apart and its memory left
-    out of the peak.  Returns the tokens, the wall and median step time
-    (step 0 admits and calibrates, so the median leaves it out), the
-    hooks' launches, the peak memory and (paged KV) this serve's KV read
-    ratio, tables included."""
+    to the card's end (an async engine's step only to its return: the
+    step it dispatched is still on the card, and its own collect waits
+    for it in the next step); ``hook(eng, i)`` after step ``i``, outside
+    the timing, its kernel launches (checks) counted apart and its memory
+    left out of the peak.  Returns the tokens, the wall, median and
+    longest step time (step 0 admits and calibrates, so they leave it
+    out), the hooks' launches, the peak memory and (paged KV) this serve's
+    KV read ratio, tables included."""
     import numpy as np
     import torch
     import repro_torch
@@ -1351,11 +1407,13 @@ def drive(eng, reqs, hook=None, tag="drive") -> dict:
     peak = 0
     step_s = []
     paused = 0.0
+    sync_each = getattr(eng, "scheduler", "sync") == "sync"
     t0 = time.perf_counter()
     while True:
         ts = time.perf_counter()
         n = eng.step()
-        torch.cuda.synchronize()
+        if sync_each:
+            torch.cuda.synchronize()
         step_s.append(time.perf_counter() - ts)
         if n == 0 and not eng.queue:
             break
@@ -1369,11 +1427,13 @@ def drive(eng, reqs, hook=None, tag="drive") -> dict:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             paused += time.perf_counter() - tc
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - paused
     if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError(f"{tag}: not every request completed")
     out = {"tokens": [r.tokens for r in reqs], "wall_s": wall,
            "median_step_ms": float(np.median(step_s[1:]) * 1e3),
+           "max_step_ms": float(np.max(step_s[1:]) * 1e3),
            "first_step_s": step_s[0], "check_launches": checks,
            "max_memory_gb": max(peak, torch.cuda.max_memory_allocated())
            / 1e9}
@@ -1574,14 +1634,26 @@ def pressure_phase(device, fused_tokens: list, layers: int = 28) -> None:
         raise AssertionError("pressure serve: spill/readahead gates failed")
 
 
-def smoke_robustness_vs_cpu(device) -> None:
-    """(d) SMOKE qwen3-1.7b engines on the card against the same engines on
-    the CPU: the two-phase refresh serve (``tests/test_torch_refresh_
-    engine.py``'s workload, 12 new tokens a request), the pressure rotation through an undersized
-    pool, and a fault run where one flipped bit of a spilled record fails
-    only its owner (the other request's tokens equal its control's, on
-    each device).  Tokens, ``kv_ratio`` and the refresh, spill and eviction
-    counters must be equal."""
+ROBUSTNESS_RUNS = ("refresh two-phase", "pressure", "fault")
+
+
+def _on(base: dict, dev):
+    """A copy of a CPU param tree on ``dev``."""
+    return {"embed": base["embed"].to(dev),
+            "final_norm": base["final_norm"].to(dev),
+            "blocks": [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                            if isinstance(v, dict) else v.to(dev))
+                        for k, v in b.items()} for b in base["blocks"]]}
+
+
+def robustness_run(name: str, dev) -> dict:
+    """One (d) serve, SMOKE qwen3-1.7b on ``dev``: the two-phase refresh
+    serve (``tests/test_torch_refresh_engine.py``'s workload, 12 new
+    tokens a request), the pressure rotation through an undersized pool,
+    or a fault run where one flipped bit of a spilled record fails only
+    its owner (the other request's tokens equal its control's, on the same
+    device).  Returns the tokens, errors, counters and KV stats that the
+    card must give as the CPU does."""
     import dataclasses
     import numpy as np
     import torch
@@ -1593,18 +1665,11 @@ def smoke_robustness_vs_cpu(device) -> None:
     base = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     per_req = PagedKVCache.pages_for_config(cfg, 12, 4)
 
-    def on(dev):
-        return {"embed": base["embed"].to(dev),
-                "final_norm": base["final_norm"].to(dev),
-                "blocks": [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                                if isinstance(v, dict) else v.to(dev))
-                            for k, v in b.items()} for b in base["blocks"]]}
-
-    def two_phase(dev):
-        eng = ServeEngine(cfg, on(dev), device=dev, max_batch=4, max_len=96,
-                          kv_page_size=4, kv_calib_pages=1, kv_refresh=True,
-                          kv_refresh_every_pages=16, kv_refresh_min_pages=8,
-                          kv_repack_budget=32)
+    def two_phase():
+        eng = ServeEngine(cfg, _on(base, dev), device=dev, max_batch=4,
+                          max_len=96, kv_page_size=4, kv_calib_pages=1,
+                          kv_refresh=True, kv_refresh_every_pages=16,
+                          kv_refresh_min_pages=8, kv_repack_budget=32)
         rng = np.random.default_rng(11)
         phases = ([rng.integers(0, cfg.vocab_size, 9) for _ in range(4)],
                   [np.full(9, 7) for _ in range(4)])
@@ -1618,9 +1683,9 @@ def smoke_robustness_vs_cpu(device) -> None:
             reqs += batch
         return eng, reqs
 
-    def pressure(dev):
-        eng = ServeEngine(cfg, on(dev), device=dev, max_batch=3, max_len=16,
-                          kv_page_size=4, kv_calib_pages=2,
+    def pressure():
+        eng = ServeEngine(cfg, _on(base, dev), device=dev, max_batch=3,
+                          max_len=16, kv_page_size=4, kv_calib_pages=2,
                           kv_pages=max(per_req, 3 * per_req // 2),
                           kv_pressure=True, slot_deadline_steps=4)
         rng = np.random.default_rng(11)
@@ -1631,9 +1696,9 @@ def smoke_robustness_vs_cpu(device) -> None:
         eng.run_until_drained(max_steps=400)
         return eng, reqs
 
-    def fault(dev, corrupt=True):
-        eng = ServeEngine(cfg, on(dev), device=dev, max_batch=2, max_len=40,
-                          kv_page_size=4, kv_calib_pages=2)
+    def fault(corrupt=True):
+        eng = ServeEngine(cfg, _on(base, dev), device=dev, max_batch=2,
+                          max_len=40, kv_page_size=4, kv_calib_pages=2)
         rng = np.random.default_rng(9)
         reqs = [Request(i, rng.integers(0, cfg.vocab_size, 8),
                         max_new_tokens=8) for i in range(2)]
@@ -1652,33 +1717,42 @@ def smoke_robustness_vs_cpu(device) -> None:
     keys = ("kv_refreshes", "kv_pages_repacked", "spilled_requests",
             "preempted", "resumed", "failed", "pressure_preempted",
             "deadline_preempted")
-    for name, fn in (("refresh two-phase", two_phase),
-                     ("pressure", pressure), ("fault", fault)):
-        out = {}
-        for dev in ("cpu", device):
-            eng, reqs = fn(dev)
-            ks = eng.kv_stats()
-            out[dev] = {"tokens": [r.tokens for r in reqs],
-                        "errors": [r.error for r in reqs],
-                        "stats": {k: eng.stats[k] for k in keys},
-                        "generation": eng.kv.generation,
-                        **{k: ks[k] for k in (
-                            "kv_ratio", "kv_repack", "kv_spill",
-                            "kv_pages_evicted", "kv_pages_spilled",
-                            "kv_pages_unspilled")}}
-            if name == "fault":
-                ctrl = fault(dev, corrupt=False)[1]
-                if not (reqs[0].error and "checksum" in reqs[0].error
-                        and reqs[1].error is None
-                        and reqs[1].tokens == ctrl[1].tokens):
-                    raise AssertionError(f"SMOKE fault run on {dev}: the "
-                                         "flip did not fail only its owner")
+    eng, reqs = {"refresh two-phase": two_phase, "pressure": pressure,
+                 "fault": fault}[name]()
+    ks = eng.kv_stats()
+    out = {"tokens": [r.tokens for r in reqs],
+           "errors": [r.error for r in reqs],
+           "stats": {k: eng.stats[k] for k in keys},
+           "generation": eng.kv.generation,
+           **{k: ks[k] for k in ("kv_ratio", "kv_repack", "kv_spill",
+                                 "kv_pages_evicted", "kv_pages_spilled",
+                                 "kv_pages_unspilled")}}
+    if name == "fault":
+        ctrl = fault(corrupt=False)[1]
+        out["fault_only_owner"] = bool(
+            reqs[0].error and "checksum" in reqs[0].error
+            and reqs[1].error is None and reqs[1].tokens == ctrl[1].tokens)
+    return out
+
+
+def smoke_robustness_vs_cpu(device, twins: dict) -> None:
+    """(d) SMOKE qwen3-1.7b robustness engines (``robustness_run``) on the
+    card against the same engines on the CPU (``twins``, from the
+    background process): tokens, ``kv_ratio`` and the refresh, spill and
+    eviction counters must be equal, and the fault run must fail only the
+    owner of the flipped record on each device."""
+    for name in ROBUSTNESS_RUNS:
+        out = {"cpu": twins[("robust", name)],
+               device: robustness_run(name, device)}
         same = out["cpu"] == out[device]
         c = out[device]
         print(f"smoke robustness [{name}] card vs cpu: equal {same}; "
               + json.dumps({k: c[k] for k in ("stats", "generation",
                                               "kv_ratio", "kv_repack",
                                               "kv_spill")}))
+        if name == "fault" and not c["fault_only_owner"]:
+            raise AssertionError("SMOKE fault run on the card: the flip did "
+                                 "not fail only its owner")
         if not same:
             raise AssertionError(f"SMOKE {name} on the card disagrees with "
                                  "the CPU")
@@ -1687,6 +1761,109 @@ def smoke_robustness_vs_cpu(device) -> None:
             raise AssertionError("SMOKE refresh serve: no refresh")
         if name == "pressure" and not c["kv_spill"]["pages"] > 0:
             raise AssertionError("SMOKE pressure serve: nothing spilled")
+
+
+# the async SMOKE serves of phase 10 and (d): chunks of 3 tokens, a
+# preempt with spill after 3 decode steps, table refresh every 4 sealed
+# pages a layer, and the third request with a 1 ms SLO
+ASYNC_SMOKE_ARCHS = ("qwen3-1.7b", "hetero-serve-smoke")
+ASYNC_SMOKE_KEYS = ("steps", "generated", "completed", "preempted",
+                    "resumed", "spilled_requests", "prefill_chunks",
+                    "staged_readahead", "kv_refreshes", "kv_pages_repacked")
+
+
+def async_smoke_run(arch: str, dev) -> dict:
+    """The async engine at SMOKE width on ``dev`` (``ASYNC_SMOKE_ARCHS``):
+    4 requests (11, 9, 20 and 6 tokens, 8 new each) through 2 slots with
+    ``prefill_chunk_tokens=3``, ``kv_refresh`` and slot 0 preempted with
+    spill after 3 decode steps; the third request carries a 1 ms SLO.
+    Also the sync engine on the same requests, uninterrupted, whose tokens
+    the async ones must equal.  Returns the tokens, admission order,
+    counters, generation and KV stats."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import Request, ServeEngine
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              kv_cache_dtype="apack-int8")
+    base = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def serve(scheduler):
+        eng = ServeEngine(cfg, _on(base, dev), device=dev, max_batch=2,
+                          max_len=48, kv_page_size=4, kv_calib_pages=2,
+                          scheduler=scheduler, prefill_chunk_tokens=3,
+                          kv_refresh=True, kv_refresh_every_pages=4,
+                          kv_refresh_min_pages=2, kv_repack_budget=8)
+        rng = np.random.default_rng(3)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, n),
+                        max_new_tokens=8, slo_ms=1.0 if i == 2 else None)
+                for i, n in enumerate((11, 9, 20, 6))]
+        for r in reqs:
+            eng.submit(r)
+        if scheduler == "async":
+            while eng.stats["steps"] < 3:
+                eng.step()
+            eng.preempt(0, spill=True, requeue="tail")
+        eng.run_until_drained(max_steps=400)
+        return eng, reqs
+    eng, reqs = serve("async")
+    ks = eng.kv_stats()
+    seng, sreqs = serve("sync")
+    return {"tokens": [r.tokens for r in reqs],
+            "sync_tokens": [r.tokens for r in sreqs],
+            "sync_kv": {k: seng.kv_stats()[k] for k in ("kv_ratio",
+                                                        "kv_repack")},
+            "order": [r.rid for r in sorted(reqs, key=lambda r: r.t_admit)],
+            "stats": {k: eng.stats[k] for k in ASYNC_SMOKE_KEYS},
+            "generation": eng.kv.generation,
+            **{k: ks[k] for k in ("kv_ratio", "kv_repack", "kv_spill",
+                                  "kv_pages_evicted", "kv_pages_packed")}}
+
+
+def async_smoke_vs_cpu(device, twins: dict, arch: str) -> None:
+    """An async SMOKE serve (``async_smoke_run``) on the card against the
+    CPU's: tokens, admission order and the chunk, readahead, refresh and
+    spill counters equal; ``kv_ratio`` and the re-pack bytes equal too
+    unless the sync engine's, on the same requests, already differ
+    between the card and the CPU (a recurrent layer's ``exp`` or
+    ``sigmoid`` rounds its last f32 bit differently on the card, which
+    can move one int8 KV value: ``benchmarks/torch_rg_smoke_bisect.py``),
+    and then both are printed; on each device the async tokens equal the
+    sync engine's, the SLO request is admitted first, and chunks,
+    readahead, a refresh and a spill happened."""
+    out = {"cpu": twins[("async", arch)],
+           device: async_smoke_run(arch, device)}
+    c, h = out[device], out["cpu"]
+    kv_keys = ("kv_ratio", "kv_repack")
+    sync_kv_same = c["sync_kv"] == h["sync_kv"]
+    same = ({k: v for k, v in c.items() if k not in kv_keys + ("sync_kv",)}
+            == {k: v for k, v in h.items() if k not in kv_keys
+                + ("sync_kv",)})
+    same_kv = all(c[k] == h[k] for k in kv_keys)
+    print(f"smoke async [{arch}] card vs cpu: tokens, order and counters "
+          f"equal {same}, KV equal {same_kv} (sync engine's KV equal "
+          f"{sync_kv_same}); "
+          + json.dumps({k: c[k] for k in ("order", "stats", "generation",
+                                          "kv_ratio", "kv_pages_evicted")})
+          + ("" if same_kv else " cpu: " + json.dumps(
+              {k: h[k] for k in kv_keys + ("sync_kv",)}) + " card: "
+              + json.dumps({k: c[k] for k in kv_keys + ("sync_kv",)})))
+    for dev, o in out.items():
+        st = o["stats"]
+        if o["tokens"] != o["sync_tokens"]:
+            raise AssertionError(f"SMOKE async [{arch}] on {dev}: tokens "
+                                 "differ from the sync engine's")
+        if o["order"][0] != 2 or not (
+                st["prefill_chunks"] > 0 and st["staged_readahead"] >= 1
+                and st["kv_refreshes"] > 0 and st["spilled_requests"] >= 1):
+            raise AssertionError(f"SMOKE async [{arch}] on {dev}: no SLO "
+                                 "admission, chunk, readahead, refresh or "
+                                 f"spill: {o['order']} {st}")
+    if not same or (sync_kv_same and not same_kv):
+        raise AssertionError(f"SMOKE async [{arch}] on the card disagrees "
+                             "with the CPU")
 
 
 def check_packed_sites(eng, weight_of, tag):
@@ -1788,7 +1965,8 @@ def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80):
     steps of a fresh full batch (tables already calibrated; prompts of
     ``prompt_len`` tokens), device time by kernel name (the top twelve and
     every kernel of the port), the device's idle share of the window and
-    the fused attention kernel's launches a step."""
+    the fused attention kernel's launches a step.  Returns the window's
+    wall and busy ms a step and its idle share."""
     import numpy as np
     import torch
     from repro_torch.serve import Request
@@ -1823,12 +2001,247 @@ def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80):
     print(f"profile {tag}: 10 steady steps, wall {wall * 1e3:.1f} ms, "
           f"device busy {busy * 1e3:.1f} ms, idle share "
           f"{1 - busy / wall:.3f}, fused attention launches a step {attn}")
+    prof_out = {"wall_ms_per_step": wall * 100, "busy_ms_per_step": busy * 100,
+                "idle_share": 1 - busy / wall}
     # the top twelve, and every kernel of the port below them
     for dev_us, key, count in (rows[:12] + [r for r in rows[12:] if any(
             f"::{k}" in r[1] for k in PORT_KERNELS)]):
         print(f"profile {tag}:   {dev_us / 1e3:9.2f} ms  {count:6d}x  "
               f"{key[:90]}")
     eng.run_until_drained()
+    return prof_out
+
+
+# ---------------------------------------------------- async (slice 10)
+ASYNC_KW = {"scheduler": "async"}
+
+
+def async_gates(rec: dict):
+    """``setup(eng)`` for an async serve.  ``_overlap_host_work`` (while a
+    step is in flight), ``_dispatch`` and ``_start_pump`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``: any stream or device
+    synchronize in them, a blocking copy or a read of a device value,
+    raises and fails the run.  Each steady step (one in flight when it
+    starts) records its device-to-host calls (``kv.transfers``) and those
+    its page events made (seal batches; a re-pack past its first batch):
+    ``rec["steady"]``, (calls, page-event calls) a step; and the host
+    seconds of its window, collect (the wait for the step in flight
+    included) and dispatch: ``rec["phase_s"]``."""
+    import torch
+    rec.setdefault("steady", [])
+    rec["page_pulls"] = 0
+    rec["phase_s"] = {"window": [], "collect": [], "dispatch": []}
+
+    def setup(eng):
+        kv = eng.kv
+
+        def gated(fn, flying_only):
+            def f(*a, **k):
+                on = not flying_only or eng._inflight is not None
+                if on:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*a, **k)
+                finally:
+                    if on:
+                        torch.cuda.set_sync_debug_mode("default")
+            return f
+        def timed(fn, phase):
+            def f(*a, **k):
+                flying = eng._inflight is not None
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    if flying or phase == "dispatch":
+                        rec["phase_s"][phase].append(time.perf_counter()
+                                                     - t0)
+            return f
+        eng._overlap_host_work = timed(gated(eng._overlap_host_work, True),
+                                       "window")
+        eng._dispatch = timed(gated(eng._dispatch, False), "dispatch")
+        eng._start_pump = gated(eng._start_pump, False)
+        eng._collect = timed(eng._collect, "collect")
+
+        def page_event(fn):
+            def f(*a, **k):
+                d0 = kv.transfers["d2h_calls"]
+                try:
+                    return fn(*a, **k)
+                finally:
+                    rec["page_pulls"] += kv.transfers["d2h_calls"] - d0
+            return f
+        kv._seal = page_event(kv._seal)
+        kv.repack_pending = page_event(kv.repack_pending)
+        step = eng.step
+
+        def counted_step():
+            steady = eng._inflight is not None
+            d0, p0 = kv.transfers["d2h_calls"], rec["page_pulls"]
+            n = step()
+            if steady:
+                rec["steady"].append((kv.transfers["d2h_calls"] - d0,
+                                      rec["page_pulls"] - p0))
+            return n
+        eng.step = counted_step
+    return setup
+
+
+def host_parts(rec: dict, then=None):
+    """``setup(eng)``: time the host part of every call to the engine's
+    fused step launch (``_launch_fused``: step meta, the model's launches,
+    the append) and to the cache's ``step_meta``, ``claim_append_targets``
+    and ``note_appended`` (seals included), for both schedulers alike;
+    ``rec["host_s"]`` lists the seconds of each.  ``then(eng)`` runs after
+    (another setup)."""
+    names = (("eng", "_launch_fused"), ("kv", "step_meta"),
+             ("kv", "claim_append_targets"), ("kv", "note_appended"))
+
+    def setup(eng):
+        rec["host_s"] = {n: [] for _, n in names}
+        for owner, name in names:
+            obj = eng if owner == "eng" else eng.kv
+            fn = getattr(obj, name)
+
+            def f(*a, _fn=fn, _n=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    rec["host_s"][_n].append(time.perf_counter() - t0)
+            setattr(obj, name, f)
+        if then is not None:
+            then(eng)
+    return setup
+
+
+def host_medians(rec: dict) -> dict:
+    """Median ms and calls of each ``host_parts`` entry."""
+    import numpy as np
+    return {k: {"median_ms": float(np.median(v) * 1e3), "calls": len(v)}
+            for k, v in rec.get("host_s", {}).items() if v}
+
+
+def host_alloc_stats() -> dict:
+    """The pinned host allocator's counters (``torch.cuda.
+    host_memory_stats``): allocations made through ``cudaHostAlloc``, frees
+    and bytes in use."""
+    import torch
+    st = torch.cuda.host_memory_stats()
+    return {k: st.get(k) for k in ("num_host_alloc", "num_host_free",
+                                   "allocated_bytes.current")}
+
+
+def async_preempt_hook(eng, i):
+    """Preempt slot 0 with spill after ten decode steps, to the queue's
+    head: the async engine lands its step in flight first, and the next
+    step's window stages the spilled pages' readahead (the head of the
+    queue claims the free headroom first), before admission resumes it."""
+    if i == 9:
+        eng.preempt(0, spill=True, requeue="head")
+
+
+def check_async(run: dict, rec: dict, tokens: list, tag: str) -> dict:
+    """The gates of an async serve against its sync control: tokens equal
+    the control's, chunks went in, and every steady step made one
+    device-to-host call (its collect) besides its page events.  Returns
+    the facts printed."""
+    eng = run["eng"]
+    st = eng.stats
+    extra = sorted({d - pe for d, pe in rec["steady"]})
+    import numpy as np
+    res = {"prefill_chunks": st["prefill_chunks"],
+           "staged_readahead": st["staged_readahead"],
+           "median_phase_ms": {k: float(np.median(v) * 1e3) if v else None
+                               for k, v in rec["phase_s"].items()},
+           "preempted": st["preempted"], "resumed": st["resumed"],
+           "spilled_requests": st["spilled_requests"],
+           "steady_steps": len(rec["steady"]),
+           "steady_d2h_besides_page_events": extra,
+           "steady_steps_with_page_events": sum(
+               pe > 0 for _, pe in rec["steady"]),
+           "chunk_tokens": eng.prefill_chunk_tokens}
+    if [r.tokens for r in run["reqs"]] != tokens:
+        raise AssertionError(f"{tag}: tokens differ from the sync serve's")
+    if not rec["steady"] or extra != [1]:
+        raise AssertionError(f"{tag}: steady steps made {extra} "
+                             "device-to-host calls besides their page "
+                             "events, expected 1")
+    return res
+
+
+def async_qwen_phase(device, sync_run: dict, sync_profile: dict) -> dict:
+    """(e) qwen3-1.7b at 28 layers on the async scheduler: phase 3's 8
+    requests at the default chunk (64 tokens), slot 0 preempted with spill
+    after ten decode steps.  Gates: tokens equal to phase 3's sync fused
+    serve; ``prefill_chunks`` >= 8 and ``staged_readahead`` >= 1; the
+    window, dispatch and pump start never synchronize (``async_gates``);
+    each steady step one device-to-host call besides its seal batches'.
+    Prints both schedulers' unprofiled median and longest step and the
+    idle share of a ``profile_steady_steps`` window beside phase 3's.
+    Returns the launches a step of each kernel."""
+    rec: dict = {}
+    alloc0 = host_alloc_stats()
+    run = serve_full_width(device, layers=28, engine_kw=ASYNC_KW,
+                           setup=host_parts(rec, async_gates(rec)),
+                           hook=async_preempt_hook)
+    res = check_async(run, rec, sync_run["tokens"], "async serve (e)")
+    res["host_parts"] = {"async": host_medians(rec),
+                         "sync": sync_run["host_parts"]}
+    res["pinned_host_allocs"] = {"before": alloc0,
+                                 "after": host_alloc_stats()}
+    st = run["eng"].stats
+    if not (st["prefill_chunks"] >= 8 and st["staged_readahead"] >= 1
+            and st["preempted"] == 1 and st["resumed"] == 1):
+        raise AssertionError(f"async serve (e): chunks, readahead or the "
+                             f"preempt missing: {res}")
+    prof = profile_steady_steps(run["eng"], run["cfg"], run["rng"],
+                                "async fused")
+    s = run["summary"]
+    del run
+    # the sync serve once more, after the async one (sync, async, sync):
+    # how far step times drift within the call
+    again = serve_full_width(device, layers=28)
+    res["sync_median_step_ms_again"] = again["summary"]["median_step_ms"]
+    del again
+    res.update({
+        "median_step_ms": {"async": s["median_step_ms"],
+                           "sync": sync_run["median_step_ms"]},
+        "max_step_ms": {"async": s["max_step_ms"],
+                        "sync": sync_run["max_step_ms"]},
+        "tokens_per_s": {"async": s["tokens_per_s"],
+                         "sync": sync_run["tokens_per_s"]},
+        "profile": {"async": prof, "sync": sync_profile},
+        "launches_per_step": s["launches_per_step"]})
+    print("async serve (e) [qwen3-1.7b, 28 layers] vs phase 3's sync: "
+          + json.dumps(res))
+    return s["launches_per_step"]
+
+
+def async_packed(device, packed: dict) -> float:
+    """Phase 4's main path on the async scheduler, on phase 4's packed
+    params (its engine's planes, not packed again): tokens equal to the
+    packed sync serve's, under ``async_gates``.  Returns kernel 5's
+    launches a step."""
+    rec: dict = {}
+    sync_tokens = [r.tokens for r in packed["reqs"]]
+    run = serve_full_width(device, layers=packed["cfg"].num_layers,
+                           params=packed["eng"].params,
+                           label="apack-int8 (phase 4's planes)",
+                           engine_kw=ASYNC_KW, setup=async_gates(rec),
+                           keep_sites=set())
+    res = check_async(run, rec, sync_tokens, "async packed serve")
+    s = run["summary"]
+    k5 = s["launches_per_step"]["decompress_matmul"]
+    if not k5 > 0:
+        raise AssertionError("async packed serve: kernel 5 never launched")
+    res.update({"median_step_ms": {"async": s["median_step_ms"],
+                                   "sync": packed["summary"]
+                                   ["median_step_ms"]},
+                "decompress_matmul_launches_per_step": k5})
+    print("async serve [qwen3-1.7b packed, 28 layers] vs phase 4's sync: "
+          + json.dumps(res))
+    return k5
 
 
 def capture_packed(eng):
@@ -1854,26 +2267,38 @@ def capture_packed(eng):
             "cum": torch.as_tensor(cm[rows], device=dev)}
 
 
-def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
-                 roundtrip=False, arch="qwen3-1.7b"):
-    """A SMOKE-width engine on the card against the same engine on the CPU
-    (plain versions): greedy tokens must be identical, and the prefill
-    logits of the first request may differ by at most one bf16 step at
-    their largest magnitude (cuBLAS and the CPU may round a bf16 GEMM
-    differently, and the decompress-matmul kernel sums inside a K tile in
-    another order than the CPU's f32 GEMM).  ``weights="apack-int8"`` packs
-    every projection (``weight_min_size=1024``: SMOKE's matrices are under
-    the default); ``fused=False`` serves the paged cache through the
+# the SMOKE engines of phase 10, each run on the card and, in the
+# background process, on the CPU: (key, options)
+SMOKE_CASES = (
+    (("qwen3-1.7b", "dense", "fused"), {}),
+    (("qwen3-1.7b", "round-trip", "fused"), {"roundtrip": True}),
+    (("qwen3-1.7b", "apack-int8", "fused"), {"weights": "apack-int8"}),
+    (("qwen3-1.7b", "dense", "oracle"), {"fused": False}),
+    (("qwen3-1.7b", "dense", "int8"), {"kv": "int8"}),
+    (("qwen3-1.7b", "dense", "bfloat16"), {"kv": "bfloat16"}),
+) + tuple(
+    ((arch, w, mode), {"arch": arch, **kw})
+    for arch in ("hetero-serve-smoke", "recurrentgemma-9b")
+    for w, mode, kw in (("dense", "fused", {}),
+                        ("dense", "oracle", {"fused": False}),
+                        ("dense", "int8", {"kv": "int8"}),
+                        ("apack-int8", "fused", {"weights": "apack-int8"})))
+
+
+def smoke_engine_run(dev, weights=None, kv="apack-int8", fused=True,
+                     roundtrip=False, arch="qwen3-1.7b") -> dict:
+    """A SMOKE-width engine on ``dev``: 3 requests of 20, 33 and 9 tokens,
+    12 new each, through 2 slots.  ``weights="apack-int8"`` packs every
+    projection (``weight_min_size=1024``: SMOKE's matrices are under the
+    default); ``fused=False`` serves the paged cache through the
     materialize oracle; ``kv`` "int8" or "bfloat16" serves a dense cache.
     ``roundtrip=True`` serves the weights after ``compress_params`` (every
     stacked matrix of 64 elements or more, the norm scales included) and
-    ``decompress_params`` on each device, and the two devices'
-    ``CompressedParams`` must be identical (containers, scales, byte
-    counts) and so must the decompressed weights.  ``arch``
-    "hetero-serve-smoke" or "recurrentgemma-9b" (window 8) serves a
-    heterogeneous stack, whose paged engines must also give equal
-    ``kv_ratio``, stream stats and ``kv_pages_evicted`` (> 0).  Returns the
-    card's tokens."""
+    ``decompress_params``.  ``arch`` "hetero-serve-smoke" or
+    "recurrentgemma-9b" (window 8) serves a heterogeneous stack.  Returns
+    the tokens, the first request's prefill logits, ``weight_stats()``,
+    the KV stats and (round trip) the ``CompressedParams`` and the
+    decompressed weights on the CPU."""
     import dataclasses
     import numpy as np
     import torch
@@ -1887,51 +2312,62 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 512, n) for n in (20, 33, 9)]
-    out = {}
-    cps = {}
-    for dev in ("cpu", device):
-        p = {"embed": params["embed"].to(dev),
-             "final_norm": params["final_norm"].to(dev),
-             "blocks": [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                             if isinstance(v, dict) else v.to(dev))
-                         for k, v in b.items()} for b in params["blocks"]]}
-        if roundtrip:
-            cps[dev] = compress_params(cfg, p, min_size=64)
-            p = decompress_params(cps[dev], dev)
-            cps[dev] = (cps[dev], p)
-        eng = ServeEngine(cfg, p, max_batch=2, max_len=64, kv_page_size=4,
-                          kv_calib_pages=2, kv_fused=fused, weights=weights,
-                          weight_min_size=1024, device=dev)
-        reqs = [Request(i, x, max_new_tokens=12) for i, x in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
-        logits0, _ = eng._prefill_forward(prompts[0])
-        eng.run_until_drained()
-        ks = eng.kv_stats()
-        out[dev] = ([r.tokens for r in reqs], logits0.float().cpu(),
-                    eng.weight_stats(),
-                    {k: ks[k] for k in ("kv_ratio", "kv_streams",
-                                        "kv_pages_evicted",
-                                        "kv_pages_packed") if k in ks})
-    diff = (out["cpu"][1] - out[device][1]).abs().max().item()
-    step = (torch.finfo(torch.bfloat16).eps
-            * out["cpu"][1].abs().max().item())
-    same = out["cpu"][0] == out[device][0]
-    same_ws = out["cpu"][2] == out[device][2]
-    same_kv = out["cpu"][3] == out[device][3]
-    hetero = arch != "qwen3-1.7b"
-    if hetero and eng.paged and not out[device][3]["kv_pages_evicted"] > 0:
-        raise AssertionError(f"SMOKE {arch}: no page rolled out")
-    tag = (f"{arch}, "
-           f"{weights or ('round-trip' if roundtrip else 'dense')} "
-           "weights, "
-           + (("fused" if fused else "oracle") if kv == "apack-int8" else kv)
-           + " KV")
+    p = _on(params, dev)
+    cp = None
     if roundtrip:
-        (cp_c, w_c), (cp_d, w_d) = cps["cpu"], cps[device]
+        cp = compress_params(cfg, p, min_size=64)
+        p = decompress_params(cp, dev)
+        cp = (cp, [t.cpu() for t in param_leaves(p)])
+    eng = ServeEngine(cfg, p, max_batch=2, max_len=64, kv_page_size=4,
+                      kv_calib_pages=2, kv_fused=fused, weights=weights,
+                      weight_min_size=1024, device=dev)
+    reqs = [Request(i, x, max_new_tokens=12) for i, x in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    logits0, _ = eng._prefill_forward(prompts[0])
+    eng.run_until_drained()
+    ks = eng.kv_stats()
+    return {"tokens": [r.tokens for r in reqs],
+            "logits0": logits0.float().cpu(), "ws": eng.weight_stats(),
+            "kv": {k: ks[k] for k in ("kv_ratio", "kv_streams",
+                                      "kv_pages_evicted", "kv_pages_packed")
+                   if k in ks},
+            "paged": eng.paged, "cp": cp}
+
+
+def smoke_vs_cpu(device, twins: dict, key) -> list:
+    """A SMOKE engine (``smoke_engine_run`` with ``SMOKE_CASES``' options
+    for ``key``) on the card against the same engine on the CPU
+    (``twins``, from the background process, the kernels' plain
+    versions): greedy tokens must be identical, and the prefill logits of
+    the first request may differ by at most one bf16 step at their largest
+    magnitude (cuBLAS and the CPU may round a bf16 GEMM differently, and
+    the decompress-matmul kernel sums inside a K tile in another order
+    than the CPU's f32 GEMM).  With the round trip, the two devices'
+    ``CompressedParams`` must be identical (containers, scales, byte
+    counts) and so must the decompressed weights.  A heterogeneous stack's
+    paged engines must also give equal ``kv_ratio``, stream stats and
+    ``kv_pages_evicted`` (> 0).  Returns the card's tokens."""
+    import torch
+    arch = key[0]
+    case = dict(SMOKE_CASES)[key]
+    out = {"cpu": twins[("smoke", key)],
+           device: smoke_engine_run(device, **case)}
+    c, d = out["cpu"], out[device]
+    diff = (c["logits0"] - d["logits0"]).abs().max().item()
+    step = (torch.finfo(torch.bfloat16).eps
+            * c["logits0"].abs().max().item())
+    same = c["tokens"] == d["tokens"]
+    same_ws = c["ws"] == d["ws"]
+    same_kv = c["kv"] == d["kv"]
+    hetero = arch != "qwen3-1.7b"
+    if hetero and d["paged"] and not d["kv"]["kv_pages_evicted"] > 0:
+        raise AssertionError(f"SMOKE {arch}: no page rolled out")
+    tag = f"{arch}, {key[1]} weights, {key[2]} KV"
+    if d["cp"] is not None:
+        (cp_c, w_c), (cp_d, w_d) = c["cp"], d["cp"]
         cp_diff = compressed_params_diff(cp_c, cp_d)
-        same_w = all(torch.equal(a.cpu(), b) for a, b in
-                     zip(param_leaves(w_d), param_leaves(w_c)))
+        same_w = all(torch.equal(a, b) for a, b in zip(w_d, w_c))
         print(f"smoke round trip card vs cpu: {len(cp_c.containers)} "
               f"containers, {cp_d.original_bytes} -> {cp_d.compressed_bytes}"
               f" bytes ({cp_d.ratio:.4f}x), containers identical "
@@ -1943,11 +2379,59 @@ def smoke_vs_cpu(device, weights=None, kv="apack-int8", fused=True,
     print(f"smoke engine [{tag}] card vs cpu: prefill logit "
           f"max diff {diff:.3g} (bound {step:.3g}), greedy tokens identical "
           f"{same}, weight_stats equal {same_ws}, kv stats equal {same_kv}"
-          + (f" {json.dumps(out[device][3])}" if hetero else ""))
+          + (f" {json.dumps(d['kv'])}" if hetero else ""))
     if diff > step or not same or not same_ws or (hetero and not same_kv):
         raise AssertionError(f"SMOKE engine [{tag}] on the card disagrees "
                              "with the CPU")
-    return out[device][0]
+    return d["tokens"]
+
+
+def cpu_twins(path: str) -> int:
+    """The background process (``chip_smoke.py --cpu-twins PATH``): every
+    CPU side of phase 10 and (d), at a quarter of the host's cores, saved
+    to ``path`` for the card phases to compare against."""
+    import torch
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    t0 = time.perf_counter()
+    out: dict = {}
+    for key, case in SMOKE_CASES:
+        out[("smoke", key)] = smoke_engine_run(torch.device("cpu"), **case)
+    for arch in ASYNC_SMOKE_ARCHS:
+        out[("async", arch)] = async_smoke_run(arch, torch.device("cpu"))
+    for name in ROBUSTNESS_RUNS:
+        out[("robust", name)] = robustness_run(name, torch.device("cpu"))
+    out["seconds"] = time.perf_counter() - t0
+    out["threads"] = torch.get_num_threads()
+    torch.save(out, path)
+    return 0
+
+
+def start_cpu_twins():
+    """Start ``cpu_twins`` as a background process (no card visible to
+    it), writing ``build/smoke_cpu_twins.pt``.  Returns (process, path)."""
+    path = os.path.join(HERE, "build", "smoke_cpu_twins.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--cpu-twins", path], env=env)
+    return proc, path
+
+
+def wait_cpu_twins(proc, path: str) -> dict:
+    """The background process's results, once it has ended."""
+    import torch
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    if rc != 0 or not os.path.exists(path):
+        raise AssertionError(f"the SMOKE CPU twins process failed (rc {rc})")
+    twins = torch.load(path, weights_only=False)
+    print(f"SMOKE CPU twins: {twins['seconds']:.1f} s in the background on "
+          f"{twins['threads']} threads; waited "
+          f"{time.perf_counter() - t0:.1f} s for them")
+    return twins
 
 
 def param_leaves(tree):
@@ -2221,7 +2705,8 @@ def recurrentgemma_phase(device):
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}))
     kw = dict(arch="recurrentgemma-9b", params=params, max_len=2176,
               requests=rg_requests)
-    fused = serve_full_width(device, **kw)
+    sync_parts: dict = {}
+    fused = serve_full_width(device, setup=host_parts(sync_parts), **kw)
     fused_tokens = [r.tokens for r in fused["reqs"]]
     s = fused["summary"]
     if not s["kv_pages_evicted"] > 0:
@@ -2238,6 +2723,33 @@ def recurrentgemma_phase(device):
                          "recurrentgemma-9b fused", prompt_len=2100)
     launches = fused["launches"]
     del fused
+    torch.cuda.empty_cache()
+    # (f) the async scheduler with chunked prefill: 2001-2112-token
+    # prompts at the default chunk, 64 tokens, so about 32 chunks a prompt
+    rec: dict = {}
+    arun = serve_full_width(device, engine_kw=ASYNC_KW,
+                            setup=host_parts(rec, async_gates(rec)), **kw)
+    res = check_async(arun, rec, fused_tokens,
+                      "recurrentgemma-9b async serve (f)")
+    res["host_parts"] = {"async": host_medians(rec),
+                         "sync": host_medians(sync_parts)}
+    a = arun["summary"]
+    res.update({"median_step_ms": {"async": a["median_step_ms"],
+                                   "sync": s["median_step_ms"]},
+                "max_step_ms": {"async": a["max_step_ms"],
+                                "sync": s["max_step_ms"]},
+                "tokens_per_s": {"async": a["tokens_per_s"],
+                                 "sync": s["tokens_per_s"]},
+                "chunks_per_prompt": res["prefill_chunks"] / len(
+                    arun["reqs"]),
+                "kv_pages_evicted": a["kv_pages_evicted"],
+                "kv_ratio": {"async": a["kv_ratio"], "sync": s["kv_ratio"]}})
+    print("recurrentgemma-9b async serve (f) vs the fused sync serve: "
+          + json.dumps(res))
+    if not a["kv_pages_evicted"] > 0:
+        raise AssertionError("recurrentgemma-9b async serve: no page rolled "
+                             "out")
+    del arun
     torch.cuda.empty_cache()
     done: dict = {}
     oracle = serve_full_width(device, fused=False, hook=rg_oracle_hook(done),
@@ -2483,7 +2995,6 @@ def main() -> int:
         return fail(f"{src}/repro_torch not found: run from a checkout")
     sys.path.insert(0, src)
     import repro_torch  # noqa: F401
-    from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2492,6 +3003,23 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}")
     print(host_line())
+    print(f"host cores: {os.cpu_count()}")
+    twins: dict = {}            # the background process, once started
+    try:
+        return card_phases(t_script, twins)
+    finally:
+        proc = twins.get("proc")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def card_phases(t_script: float, twins_run: dict) -> int:
+    """Phases 1-12 (the module docstring) on the card; ``twins_run`` gets
+    the background process of the CPU sides (``start_cpu_twins``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
     device = torch.device("cuda", 0)
     laps: dict = {}
     t_lap = [t_script]
@@ -2529,19 +3057,31 @@ def main() -> int:
     check_rg_matmul(device, new_records)
     lap("2 kernel checks")
     # phase 3: dense weights, the fused KV path's three kernels
-    dense = serve_full_width(device, layers=28)
+    sync_parts: dict = {}
+    dense = serve_full_width(device, layers=28,
+                             setup=host_parts(sync_parts))
     fused_tokens = [r.tokens for r in dense["reqs"]]
-    fused_first = dense["first_logits"]
     # the refresh serve's frozen control: phase B on the same engine
-    import numpy as np
     frozen = drive(dense["eng"], hot_requests(dense["cfg"],
                                               np.random.default_rng(5)))
     frozen["a_median_step_ms"] = dense["summary"]["median_step_ms"]
-    profile_steady_steps(dense["eng"], dense["cfg"], dense["rng"], "dense")
+    sync_profile = profile_steady_steps(dense["eng"], dense["cfg"],
+                                        dense["rng"], "dense")
     verify_packed(dense["snapshot"])
+    sync_run = {"tokens": fused_tokens, **dense["summary"],
+                "host_parts": host_medians(sync_parts)}
     del dense
     torch.cuda.empty_cache()
     lap("3 fused serve, frozen phase B")
+    # (e) the same requests on the async scheduler, slot 0 preempted with
+    # spill
+    async_per_step = async_qwen_phase(device, sync_run, sync_profile)
+    torch.cuda.empty_cache()
+    lap("(e) async serve")
+    # the CPU sides of phase 10 and (d) run from here on, in the
+    # background: after the kernel checks, whose plain versions use every
+    # core, and after the step times that (e) compares
+    twins_run["proc"], twins_path = start_cpu_twins()
     # phase 4: the main path, packed weights at full depth
     packed = serve_full_width(device, layers=28, weights="apack-int8")
     stores = oracle_stores(packed["eng"].params, packed.pop("host_weights"))
@@ -2556,24 +3096,32 @@ def main() -> int:
                          "packed")
     verify_packed(packed["snapshot"])
     launches = packed["launches"]
+    lap("4 packed serve")
+    # (e) the main path on the async scheduler, from phase 4's planes
+    async_k5 = async_packed(device, packed)
     del packed
     torch.cuda.empty_cache()
-    lap("4 packed serve")
+    lap("(e) async packed serve")
     # phase 5: the materialize oracle, calibrated from 20 pages so that
     # its first decode steps read HOT and COLD pages, its later ones HOT
     # and PACKED pages through the gather-decode kernel
     done: dict = {}
-    oracle = serve_full_width(device, layers=28, fused=False, calib_pages=20,
-                              hook=oracle_hook(done))
+    oracle = serve_full_width(device, layers=CUT_LAYERS, fused=False,
+                              calib_pages=20, hook=oracle_hook(done))
     if set(done) != {"cold", "packed"}:
         raise AssertionError(f"oracle gates ran only at {sorted(done)}")
-    print("oracle vs fused serve: " + json.dumps({
+    # its fused twin at the same depth, for the comparison
+    cut = serve_full_width(device, layers=CUT_LAYERS, calib_pages=20)
+    print(f"oracle vs fused serve ({CUT_LAYERS} layers): " + json.dumps({
         "token_agreement": token_agreement(
-            [r.tokens for r in oracle["reqs"]], fused_tokens),
-        "requests_identical": sum(r.tokens == t for r, t in
-                                  zip(oracle["reqs"], fused_tokens)),
+            [r.tokens for r in oracle["reqs"]],
+            [r.tokens for r in cut["reqs"]]),
+        "requests_identical": sum(r.tokens == t.tokens for r, t in
+                                  zip(oracle["reqs"], cut["reqs"])),
         "first_step_max_logit_diff": (oracle["first_logits"]
-                                      - fused_first).abs().max().item()}))
+                                      - cut["first_logits"]).abs().max()
+        .item()}))
+    del cut
     profile_steady_steps(oracle["eng"], oracle["cfg"], oracle["rng"],
                          "oracle")
     verify_packed(oracle["snapshot"])
@@ -2596,7 +3144,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("6 preempt serve")
     # phase 7: the uncompressed baseline, a dense int8 KV cache
-    dense8 = serve_full_width(device, layers=28, kv="int8")
+    dense8 = serve_full_width(device, layers=CUT_LAYERS, kv="int8")
     profile_steady_steps(dense8["eng"], dense8["cfg"], dense8["rng"],
                          "int8 KV")
     del dense8
@@ -2604,14 +3152,11 @@ def main() -> int:
     lap("7 int8 KV serve")
     # phase 8: the JAX CLI's default weight path, compress_params ->
     # decompress_params, then a fused serve from the round-tripped weights
-    rt = serve_full_width(device, layers=28,
-                          params=weight_round_trip(device)[0],
+    rt_params = weight_round_trip(device)[0]
+    rt_params["blocks"] = rt_params["blocks"][:CUT_LAYERS]
+    rt = serve_full_width(device, layers=CUT_LAYERS, params=rt_params,
                           label="round-trip")
-    print("round-trip vs fused serve: " + json.dumps({
-        "token_agreement": token_agreement([r.tokens for r in rt["reqs"]],
-                                           fused_tokens),
-        "requests_identical": sum(r.tokens == t for r, t in
-                                  zip(rt["reqs"], fused_tokens))}))
+    del rt_params
     verify_packed(rt["snapshot"])
     del rt
     torch.cuda.empty_cache()
@@ -2627,23 +3172,24 @@ def main() -> int:
     # page eviction and state snapshots; (c) from packed weights
     rg_launches, rg_k5 = recurrentgemma_phase(device)
     lap("9 recurrentgemma-9b, (c)")
-    fused_smoke = smoke_vs_cpu(device)
-    smoke_vs_cpu(device, roundtrip=True)
-    smoke_vs_cpu(device, weights="apack-int8")
-    if smoke_vs_cpu(device, fused=False) != fused_smoke:
+    twins = wait_cpu_twins(twins_run["proc"], twins_path)
+    lap("10 wait for the CPU twins")
+    tokens = {key: smoke_vs_cpu(device, twins, key)
+              for key, _ in SMOKE_CASES if key[0] == "qwen3-1.7b"}
+    if tokens["qwen3-1.7b", "dense", "oracle"] != \
+            tokens["qwen3-1.7b", "dense", "fused"]:
         raise AssertionError("SMOKE oracle engine on the card disagrees with "
                              "the fused engine on the card")
-    smoke_vs_cpu(device, kv="int8")
-    smoke_vs_cpu(device, kv="bfloat16")
+    async_smoke_vs_cpu(device, twins, "qwen3-1.7b")
     lap("10 SMOKE qwen3")
-    for arch in ("hetero-serve-smoke", "recurrentgemma-9b"):
-        smoke_vs_cpu(device, arch=arch)
-        smoke_vs_cpu(device, arch=arch, fused=False)
-        smoke_vs_cpu(device, arch=arch, kv="int8")
-        smoke_vs_cpu(device, arch=arch, weights="apack-int8")
+    for key, _ in SMOKE_CASES:
+        if key[0] != "qwen3-1.7b":
+            smoke_vs_cpu(device, twins, key)
     lap("10 SMOKE heterogeneous")
-    # (d) refresh, pressure and a fault run, card against CPU
-    smoke_robustness_vs_cpu(device)
+    # (d) refresh, pressure and a fault run, and the async engine on the
+    # heterogeneous stack, card against CPU
+    smoke_robustness_vs_cpu(device, twins)
+    async_smoke_vs_cpu(device, twins, "hetero-serve-smoke")
     lap("(d) SMOKE robustness")
     sources = {"apack_decode": ("src/repro_torch/kernels/csrc/apack_decode.cu",
                                 "src/repro/kernels/apack_decode.py:34"),
@@ -2666,7 +3212,12 @@ def main() -> int:
              "apack_encode": {"repack_launches_per_step":
                               refresh["apack_encode"]},
              "decompress_matmul": {"recurrentgemma_launches_per_step":
-                                   rg_k5}}
+                                   rg_k5,
+                                   "async_launches_per_step": async_k5}}
+    # launches a step of the async serve (e)
+    for name in ("apack_decode", "apack_encode", "fused_page_attention"):
+        extra.setdefault(name, {})["async_launches_per_step"] = \
+            async_per_step[name]
     kernels = []
     for name in _build.KERNELS:
         r = records[name]
@@ -2693,4 +3244,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-twins"]:
+        sys.exit(cpu_twins(sys.argv[2]))
     sys.exit(main())

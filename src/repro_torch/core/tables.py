@@ -123,34 +123,67 @@ def _valid(v_min: list[int], bits: int) -> bool:
     return v_min[-1] < (1 << bits)
 
 
-def _search(csum: np.ndarray, total: int, v_min: list[int], minsize: float,
-            depth: int, around: int, bits: int, memo: dict):
+def _range_terms(csum: np.ndarray, total: int, bits: int) -> list:
+    """``terms[lo][hi]``: the term that range ``[lo, hi)`` adds to
+    ``_encoded_size_csum``, computed elementwise with the same numpy
+    operations, or -1.0 where the range holds no value (the terms are never
+    negative).  Built once per search, it turns each candidate's score into
+    16 lookups and a sum."""
+    n = (1 << bits) + 1
+    idx = np.arange(n)
+    width = np.clip(idx[None, :] - idx[:, None], 0, None)
+    cnt = (csum[None, :n] - csum[:n, None]).astype(np.float64)
+    nz = (cnt > 0) & (width > 0)
+    t = np.full((n, n), -1.0)
+    c = cnt[nz]
+    t[nz] = c * (-np.log2(c / total) + _OL_LUT[width[nz]])
+    return t.tolist()
+
+
+def _np_sum(xs: list) -> float:
+    """``np.sum`` of up to 16 float64 values, in numpy's own order: a plain
+    loop below 8 values, else eight strided partial sums combined pairwise
+    and the rest added one by one."""
+    n = len(xs)
+    if n < 8:
+        r = 0.0
+        for x in xs:
+            r += x
+        return r
+    if n < 16:
+        res = (((xs[0] + xs[1]) + (xs[2] + xs[3]))
+               + ((xs[4] + xs[5]) + (xs[6] + xs[7])))
+        for x in xs[8:]:
+            res += x
+        return res
+    return ((((xs[0] + xs[8]) + (xs[1] + xs[9]))
+             + ((xs[2] + xs[10]) + (xs[3] + xs[11])))
+            + (((xs[4] + xs[12]) + (xs[5] + xs[13]))
+               + ((xs[6] + xs[14]) + (xs[7] + xs[15]))))
+
+
+def _search(score, v_min: list[int], minsize: float, depth: int,
+            around: int, nvals: int):
     """Paper Listing 1 ``search()``: slide each eligible v_min in both
     directions, evaluating every position; recurse on neighbours while
-    depth < DEPTH_MAX."""
+    depth < DEPTH_MAX.  ``v_min`` is valid, so a slide of entry ``i``
+    stays valid while it lies strictly between its neighbours."""
     best_v, best_size = list(v_min), minsize
-
-    def score(cfg: list[int]) -> float:
-        key = tuple(cfg)
-        s = memo.get(key)
-        if s is None:
-            s = _encoded_size_csum(csum, total, cfg, bits)
-            memo[key] = s
-        return s
-
     for i in range(1, N_SYMBOLS):
         if around >= 1 and abs(i - around) != 1:
             continue
+        lo = v_min[i - 1]
+        hi = v_min[i + 1] if i + 1 < N_SYMBOLS else nvals
         for delta in (-1, +1):
             cand = list(v_min)
             while True:
                 cand = list(cand)
                 cand[i] += delta
-                if not _valid(cand, bits):
+                if not lo < cand[i] < hi:
                     break
                 if depth < DEPTH_MAX:
-                    sub_v, sub_size = _search(csum, total, cand, best_size,
-                                              depth + 1, i, bits, memo)
+                    sub_v, sub_size = _search(score, cand, best_size,
+                                              depth + 1, i, nvals)
                     if sub_size < best_size:
                         best_v, best_size = sub_v, sub_size
                 size = score(cand)
@@ -203,10 +236,23 @@ def _assign_counts(hist: np.ndarray, v_min: list[int], bits: int,
 
 def _search_rounds(csum: np.ndarray, total: int, v_min: list[int],
                    bits: int, max_rounds: int) -> list[int]:
-    size = _encoded_size_csum(csum, total, v_min, bits)
+    nvals = 1 << bits
+    terms = _range_terms(csum, total, bits)
     memo: dict = {}
+
+    def score(cfg: list[int]) -> float:
+        # ``_encoded_size_csum(csum, total, cfg, bits)``, bit for bit
+        key = tuple(cfg)
+        s = memo.get(key)
+        if s is None:
+            xs = [terms[a][b] for a, b in zip(key, key[1:] + (nvals,))]
+            s = _np_sum([x for x in xs if x >= 0.0])
+            memo[key] = s
+        return s
+
+    size = score(v_min)
     for _ in range(max_rounds):
-        v_min, newsize = _search(csum, total, v_min, size, 1, -1, bits, memo)
+        v_min, newsize = _search(score, v_min, size, 1, -1, nvals)
         if size <= 0 or newsize / max(size, 1e-9) >= THRESHOLD:
             break
         size = newsize

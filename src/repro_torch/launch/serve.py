@@ -27,9 +27,12 @@ cpu`` runs the same paths through the kernels' plain versions.
 and ``--kv-repack-budget``) re-fits the KV tables to drifting traffic and
 re-packs pages under them; ``--kv-pages`` below the worst case with
 ``--kv-pressure`` and ``--slot-deadline`` serves under pool pressure
-through the host spill tier.  The JAX CLI's other flags (``--scheduler
-async``, ``--prefill-chunk``, ``--slo-ms``, ``--mesh``) are accepted and
-refused with ``NotImplementedError`` naming their ROADMAP item.
+through the host spill tier.  ``--scheduler async`` serves through the
+event loop (host work overlapped with the step in flight, prefills
+ingested ``--prefill-chunk`` tokens a step), and ``--slo-ms`` gives every
+request a latency SLO, which orders admission by earliest deadline.  The
+JAX CLI's ``--mesh`` is accepted and refused with ``NotImplementedError``
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -50,16 +53,8 @@ from repro_torch.serve import (Request, ServeEngine, compress_params,
 # flags of the JAX CLI that the port does not serve yet: (flag, value
 # that means "not asked for", ROADMAP item)
 UNPORTED = (
-    ("--scheduler", "sync", "open item 1.8, serving robustness (async "
-     "scheduler)"),
-    ("--prefill-chunk", None, "open item 1.8, serving robustness (async "
-     "scheduler)"),
-    ("--slo-ms", None, "open item 1.8, serving robustness (SLO admission)"),
     ("--mesh", None, "open item 1.10, multi-device serving"),
 )
-_FLAG_ARGS = {"--scheduler": dict(default="sync"),
-              "--prefill-chunk": dict(type=int),
-              "--slo-ms": dict(type=float)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -120,12 +115,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     metavar="STEPS",
                     help="preempt with spill any slot that decodes this "
                          "many steps while other requests queue")
+    ap.add_argument("--scheduler", default="sync",
+                    choices=["sync", "async"],
+                    help="engine core: 'async' runs the event loop (host "
+                         "work overlaps the step in flight, chunked "
+                         "prefill, continuous admission); requires the "
+                         "fused apack-int8 KV")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    metavar="TOKENS",
+                    help="async scheduler: prompt tokens ingested per "
+                         "overlapped step (default: 4 pages' worth)")
+    ap.add_argument("--slo-ms", type=float, default=None,
+                    help="per-request end-to-end latency SLO; admission "
+                         "orders by earliest deadline instead of FIFO")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions (without a card, cuda raises)")
     for flag, _, item in UNPORTED:
-        ap.add_argument(flag, help=f"not ported yet (ROADMAP {item})",
-                        **_FLAG_ARGS.get(flag, {}))
+        ap.add_argument(flag, help=f"not ported yet (ROADMAP {item})")
     return ap.parse_args(argv)
 
 
@@ -171,6 +178,8 @@ def main(argv=None) -> None:
                          kv_repack_budget=args.kv_repack_budget,
                          kv_pressure=args.kv_pressure,
                          slot_deadline_steps=args.slot_deadline,
+                         scheduler=args.scheduler,
+                         prefill_chunk_tokens=args.prefill_chunk,
                          device=device)
     del params
     if args.weights:
@@ -179,7 +188,7 @@ def main(argv=None) -> None:
     reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab_size,
                                         args.prompt_len).astype(np.int64),
-                    max_new_tokens=args.max_new)
+                    max_new_tokens=args.max_new, slo_ms=args.slo_ms)
             for i in range(args.requests)]
     for r in reqs:
         engine.submit(r)
@@ -203,7 +212,7 @@ def main(argv=None) -> None:
               f"dense, x{ws['native_ratio']:.3f} vs native")
     lat = engine.latency_stats()
     if lat["n"]:
-        print(f"latency (sync scheduler, n={lat['n']}): "
+        print(f"latency ({args.scheduler} scheduler, n={lat['n']}): "
               f"queue-wait p50={lat['queue_wait_p50']*1e3:.1f}ms "
               f"p99={lat['queue_wait_p99']*1e3:.1f}ms; "
               f"e2e p50={lat['e2e_p50']*1e3:.1f}ms "

@@ -800,12 +800,12 @@ class PagedKVCache:
 
     def _put(self, arr):
         """Host -> device with accounting, one call: a numpy array, or a
-        dict of them moved as one byte buffer from pinned memory
-        (``_put`` :2070)."""
+        dict of them moved as one byte buffer, from pinned memory without
+        a stream wait either way (``_put`` :2070)."""
         self._transfer_guard("h2d")
         self._count_put(arr)
         if isinstance(arr, np.ndarray):
-            return torch.as_tensor(arr, device=self.device)
+            return m.to_device(arr, self.device)
         host = torch.from_numpy(_pack_bytes(arr))
         if self.device.type == "cuda":
             host = host.pin_memory()
@@ -924,57 +924,111 @@ class PagedKVCache:
 
     def ingest_prefill(self, rid: int, caches: list, s: int) -> None:
         """Chop a batch-1 prefill cache (one dict per layer, positions
-        ``[0, s)`` real) into pages on the device, in token order; full
-        pages seal in page order (``ingest_prefill`` :1398-1475).
+        ``[0, s)`` real) into pages on the device, in token order
+        (``ingest_prefill`` :1398): the wrapper over the resumable chunk
+        API (``prefill_host_view`` -> ``ingest_prefill_chunk`` ->
+        ``finish_prefill``) that the async engine spreads over decode
+        steps."""
+        view = self.prefill_host_view(caches)
+        self.ingest_prefill_chunk(rid, view, 0, s, s)
+        self.finish_prefill(rid, view, s)
 
-        A rolling layer's cache is the ring of its last ``window``
+    def prefill_host_view(self, caches: list) -> dict:
+        """One request's prefill cache as the chunked ingest reads it
+        (``prefill_host_view`` :1417): an attention layer as ``(k, v,
+        k_scale, v_scale)`` [S or window, H(, dh)], a recurrent layer as its
+        field dict, the batch axis dropped.  The reference pulls the cache
+        to the host here; the port's pool is the device store, so the view
+        is the forward's device caches, held until the last chunk, and
+        nothing moves."""
+        view: dict = {}
+        for layer in self.attn_layers:
+            c = caches[layer]
+            view[layer] = tuple(c[f][0] for f in ("k", "v", "k_scale",
+                                                  "v_scale"))
+        for layer in self.state_layers:
+            view[layer] = {f: x[0] for f, x in caches[layer].items()}
+        if self.attn_layers:
+            # the attention layers' rows end to end, so that a chunk is
+            # one gather a plane whatever the depth
+            view["stacked"] = tuple(
+                torch.cat([view[layer][i] for layer in self.attn_layers])
+                for i in range(4))
+        return view
+
+    def ingest_prefill_chunk(self, rid: int, view: dict, t0: int, t1: int,
+                             s: int, *, seal: bool = True) -> list:
+        """Ingest prompt positions ``[t0, t1)`` of an ``s``-token prefill
+        from ``view`` (``ingest_prefill_chunk`` :1440), all layers in one
+        upload of host-computed indices and one copy a plane.  Resumable:
+        pages, fills and seals come out as one monolithic call gives them.
+
+        A rolling layer's view is the ring of its last ``window``
         positions: pages that have wholly rolled out are skipped
         (``page_base`` starts past them), and positions of the first kept
         page older than the window ingest as zeros, which count in the
         page's fill, seal scale and calibration histogram as in the
-        reference.  A recurrent layer stores its final state.  Then the
-        rolled-out pages are evicted."""
+        reference.  Returns the ``(layer, pid)`` pages that filled, in the
+        reference's seal order (layer-major, token order); they are sealed
+        here unless ``seal`` is False, when the caller seals them later
+        with ``_seal`` (the async engine, after its step's pull)."""
         ps = self.page_size
-        events = []
         pool = self.pool
+        events = []
+        live_dst, live_src, dead_dst = [], [], []
+        n_src = 0            # the layer's first row in view["stacked"]
         for layer in self.attn_layers:
-            c = caches[layer]
+            k = view[layer][0]
+            rows = k.shape[0]
             if self.layer_kinds[layer] == "local":
-                w = c["k"].shape[1]                  # ring width == window
-                first = max(0, s - w) // ps
+                first = max(0, s - rows) // ps      # ring width == window
+                self.page_base[rid][layer] = first
+                oldest = s - rows                   # older: zeros
             else:
-                w, first = None, 0
-            self.page_base[rid][layer] = first
-            n = self.pages_per_seq(s) - first
-            t0 = first * ps
-            pids = [self._claim_page(rid, layer, t0 + i * ps)
-                    for i in range(n)]
-            idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
-            t = torch.arange(t0, s, device=self.device)
-            if w is None:
-                src, dst = t, t - t0
-            else:
-                live = t >= s - w
-                src, dst = t[live] % w, t[live] - t0
-            for kind, (q, sc) in enumerate(((c["k"], c["k_scale"]),
-                                            (c["v"], c["v_scale"]))):
-                qbuf = q.new_zeros(n * ps, *q.shape[2:])
-                qbuf[dst] = q[0, src]
-                sbuf = sc.new_zeros(n * ps, *sc.shape[2:])
-                sbuf[dst] = sc[0, src]
-                pool.tok_q[kind].index_copy_(
-                    0, idx, qbuf.reshape(n, ps, *q.shape[2:]))
-                pool.tok_scale[kind].index_copy_(
-                    0, idx, sbuf.reshape(n, ps, *sc.shape[2:]))
-            for i, pid in enumerate(pids):
-                pool.fill[pid] = min(ps, s - t0 - i * ps)
-                if pool.fill[pid] == ps:
-                    events.append((layer, pid))
+                first, oldest = 0, 0
+            lo = max(t0, first * ps)
+            if lo < t1:
+                for p in range(lo // ps, (t1 - 1) // ps + 1):
+                    pid = self._claim_page(rid, layer, max(lo, p * ps))
+                    a, b = max(lo, p * ps), min(t1, (p + 1) * ps)
+                    t = np.arange(a, b)
+                    dst = pid * ps + t % ps
+                    live = t >= oldest
+                    live_dst.append(dst[live])
+                    live_src.append(n_src + t[live] % rows)
+                    dead_dst.append(dst[~live])
+                    pool.fill[pid] = min(ps, t1 - p * ps)
+                    if b == (p + 1) * ps:
+                        events.append((layer, pid))
+            n_src += rows
+        if live_dst or dead_dst:
+            ld = np.concatenate(live_dst or [np.zeros(0, np.int64)])
+            ls = np.concatenate(live_src or [np.zeros(0, np.int64)])
+            dd = np.concatenate(dead_dst or [np.zeros(0, np.int64)])
+            idx = pool._idx(np.concatenate([ld, ls, dd]))
+            ld_t, ls_t = idx[:len(ld)], idx[len(ld):len(ld) + len(ls)]
+            dd_t = idx[len(ld) + len(ls):]
+            h, dh = pool.kv_heads, pool.head_dim
+            for kind in (0, 1):
+                q, sc = view["stacked"][kind], view["stacked"][2 + kind]
+                qf = pool.tok_q[kind].view(-1, h, dh)
+                sf = pool.tok_scale[kind].view(-1, h)
+                qf.index_copy_(0, ld_t, q.index_select(0, ls_t))
+                sf.index_copy_(0, ld_t, sc.index_select(0, ls_t))
+                if len(dd):
+                    qf.index_fill_(0, dd_t, 0)
+                    sf.index_fill_(0, dd_t, 0)
+        if seal:
+            self._seal(events)
+        return events
+
+    def finish_prefill(self, rid: int, view: dict, s: int) -> None:
+        """Last-chunk bookkeeping (``finish_prefill`` :1468): store the
+        recurrent layers' final states, stamp the sequence length, evict
+        the rolled-out pages.  Runs after the chunks' seals."""
         for layer in self.state_layers:
-            self.states[rid][layer] = {f: x[0] for f, x in
-                                       caches[layer].items()}
+            self.states[rid][layer] = dict(view[layer])
         self.seq_len[rid] = s
-        self._seal(events)
         self.evict_rolled(rid)
 
     # ------------------------------------------------- seal/calibrate/pack
@@ -992,7 +1046,7 @@ class PagedKVCache:
             return
         pool = self.pool
         pids = [pid for _, pid in events]
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self.pool._idx(pids)
         f = pool.tok_q[:, idx].to(F32) * pool.tok_scale[:, idx][..., None]
         # the reference divides on the host (numpy): a true division
         sc = quant.true_divide(torch.clamp_min(f.abs().amax(dim=(2, 4)),
@@ -1072,7 +1126,7 @@ class PagedKVCache:
             return None
         pool = self.pool
         pids = [pid for _, pid in items]
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self.pool._idx(pids)
         n, s, e = len(pids), pool.n_streams, pool.elems_per_stream
         vals = quant.to_unsigned(pool.cold_q[:, idx]).reshape(2, n, s, e)
         rows = np.array([[self._row(int(self.table_gen[layer]), layer, kind)
@@ -1115,7 +1169,7 @@ class PagedKVCache:
     def _plane_crc(self, pids: list) -> list[int]:
         """Checksums of PACKED pages' planes and page scales as they lie in
         the pool (``_plane_crc`` :1559), one pull for all of them."""
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self.pool._idx(pids)
         p = self.pool
         pulled = self._fetch(_plane_tree(
             (p.sym[:, idx], p.ofs[:, idx], p.sym_bits[:, idx],
@@ -1373,7 +1427,7 @@ class PagedKVCache:
     def _launch_repack(self, items: list, force: bool) -> dict:
         pool = self.pool
         pids = [pid for _, pid in items]
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self.pool._idx(pids)
         e = pool.elems_per_stream
         old = [int(self.page_gen[pid]) for pid in pids]
         new = [int(self.table_gen[layer]) for layer, _ in items]

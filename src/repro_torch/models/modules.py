@@ -45,6 +45,17 @@ DIR_BITS_PER_STREAM = 65
 _INV127 = float(np.float32(1.0 / 127.0))
 
 
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """A host array (or list) on ``device`` without waiting for the card:
+    a copy from pageable memory synchronizes the stream, so on the card
+    the array is staged in pinned memory and copied asynchronously, in
+    stream order.  On the CPU it is ``torch.as_tensor``."""
+    if device.type != "cuda":
+        return torch.as_tensor(arr)
+    host = torch.from_numpy(np.ascontiguousarray(arr)).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
 # ------------------------------------------------------------------ basics
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -341,8 +352,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     intermediate rounded (for bf16, each op computes in f32 and rounds),
     with the constants cast to x's dtype first as the reference does.  A
     fused f32 gelu rounds once and differs in the last bf16 bit."""
-    def c(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+    def c(v):   # a fill on the device, not an upload (no stream wait)
+        return torch.full((), v, dtype=x.dtype, device=x.device)
     inner = c(_SQRT_2_OVER_PI) * (x + c(0.044715) * (x * x * x))
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
@@ -744,6 +755,11 @@ class KVPagePool:
     def free_count(self) -> int:
         return len(self.free_list)
 
+    def _idx(self, pids) -> torch.Tensor:
+        """Page ids as a device index tensor, uploaded without a stream
+        wait (``to_device``)."""
+        return to_device(np.asarray(pids, np.int64), self.device)
+
     def alloc(self) -> int | None:
         if not self.free_list:
             return None
@@ -766,7 +782,7 @@ class KVPagePool:
                                      detail="double free of page")
         if not pids:
             return
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self._idx(pids)
         for t in (self.tok_q, self.tok_scale, self.cold_q, self.page_scale,
                   self.sym, self.ofs, self.sym_bits, self.ofs_bits,
                   self.stored):
@@ -810,8 +826,7 @@ class KVPagePool:
             where.setdefault(st, []).append(i)
         tree = {}
         for st, rows in where.items():
-            idx = torch.as_tensor([pids[i] for i in rows], dtype=torch.long,
-                                  device=self.device)
+            idx = self._idx([pids[i] for i in rows])
             for key, attr, _ in SPILL_FIELDS[st]:
                 tree[f"{st}/{key}"] = getattr(self, attr)[:, idx]
         host = fetch(tree)
@@ -861,8 +876,7 @@ class KVPagePool:
                                        if dt is np.uint32 else a)
         dev = put(tree)
         for st, rows in where.items():
-            idx = torch.as_tensor([pids[i] for i in rows], dtype=torch.long,
-                                  device=self.device)
+            idx = self._idx([pids[i] for i in rows])
             for key, attr, _ in SPILL_FIELDS[st]:
                 getattr(self, attr)[:, idx] = dev[f"{st}/{key}"]
         self.unspill_count += len(items)
@@ -902,7 +916,7 @@ class KVPagePool:
             if self.fill[pid] != self.page_size:
                 raise ValueError(f"seal of non-full or non-HOT page "
                                  f"({self._page_state(pid)})")
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self._idx(pids)
         self.cold_q[:, idx] = q2
         self.page_scale[:, idx] = scale2
         self.tok_q[:, idx] = 0
@@ -918,7 +932,7 @@ class KVPagePool:
         for pid in pids:
             self._require_transition(pid, "pack", PAGE_PACKED,
                                      detail="pack of non-COLD page")
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self._idx(pids)
         sym, ofs, sb, ob, st = planes
         self.sym[:, idx] = sym
         self.ofs[:, idx] = ofs
@@ -940,7 +954,7 @@ class KVPagePool:
         for pid in pids:
             self._require_transition(pid, "repack", PAGE_PACKED,
                                      detail="repack of non-PACKED page")
-        idx = torch.as_tensor(pids, dtype=torch.long, device=self.device)
+        idx = self._idx(pids)
         for t, new in zip((self.sym, self.ofs, self.sym_bits, self.ofs_bits,
                            self.stored), planes):
             m = swap.reshape(1, -1, *([1] * (new.dim() - 2)))

@@ -1,9 +1,11 @@
 """Batched serving engine over the paged APack KV cache or a dense cache.
 
-Port of the single-device, ``scheduler="sync"`` path of
-``repro/serve/engine.py``: ``prefill_bucket`` :52, ``Request`` :76,
-``AdmissionImpossible`` :132, ``ServeEngine.__init__`` :210 (with the
-packed weight store, ``weights="apack-int8"``), ``submit`` :398,
+Port of the single-device path of ``repro/serve/engine.py``, both
+schedulers: ``prefill_bucket`` :52, ``Request`` :76, ``_InFlight`` :102,
+``_PendingPrefill`` :113, ``AdmissionImpossible`` :132,
+``ServeEngine.__init__`` :210 (with the packed weight store,
+``weights="apack-int8"``), ``submit`` :398, ``_admission_order`` :418
+(EDF over ``Request.slo_ms``),
 ``_try_reserve``/``_resume_request``/``_admit`` :468/:499/:514, the
 pressure escalation ``_relieve_pressure``/``_spill_reserved`` :549/:605,
 ``_fail_request`` :614, ``_prefill_forward`` :646, ``_prefill_into_slot``
@@ -13,13 +15,16 @@ spill tier), ``_resume_into_slot`` :778, ``_retire`` :800,
 ``_handle_integrity_failure`` :845-891, ``step`` :895 and
 ``_step_decode`` :928-1008 (fused, materialize and dense branches, the
 fused one carrying the recurrent layers' device state store, and the
-table refresh hook), ``run_until_drained`` :1283, ``weight_stats`` :1308
-and ``kv_stats`` :1333; and the checkpoint-style weight round trip,
-``CompressedParams`` :146, ``compress_params`` :160 and
-``decompress_params`` :196.  The stacks are any mix of global and rolling
-attention layers and RG-LRU recurrent layers, prefix or cycled.  Not
-ported: the async scheduler with chunked prefill, SLO admission and
-meshes, each refused with its ROADMAP item.
+table refresh hook), the async event loop ``_step_async`` :1011,
+``_overlap_host_work`` :1070, ``_pump_chunk``/``_stage_readahead``/
+``_start_pump`` :1097-1147, ``_bind_prefilled``/``_admit_async``
+:1158/:1173 and ``_dispatch``/``_collect``/``_drain`` :1230-1275,
+``run_until_drained`` :1283, ``weight_stats`` :1308 and ``kv_stats``
+:1333; and the checkpoint-style weight round trip, ``CompressedParams``
+:146, ``compress_params`` :160 and ``decompress_params`` :196.  The stacks
+are any mix of global and rolling attention layers and RG-LRU recurrent
+layers, prefix or cycled.  Not ported: meshes, refused with their ROADMAP
+item.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
@@ -52,6 +57,19 @@ ones; ``slot_deadline_steps`` and the watchdog preempt slow slots; a page
 that fails an integrity check fails only its request.  ``kv_refresh``
 re-fits a layer's activation tables to drifting traffic and re-packs its
 pages under them, a budget a step.
+
+``scheduler="async"`` (fused paged KV only) runs each step as: the host
+work of the sync step (refresh and re-pack launches, chunked prefill
+ingest, spill readahead) while the previous decode step is still on the
+card, then ``_collect`` (the step's one pull: its tokens, the re-pack
+verdicts and the first tokens of prefills that finished ingesting; then
+the seals those chunks queued, then the step's own), admission, and the
+``_dispatch`` of the next step.  It all runs on one CUDA stream: kernel
+launches are already asynchronous to the host, and stream order keeps the
+pool's in-place writes behind the step that reads them.  The window,
+``_dispatch`` and ``_start_pump`` only enqueue work: every upload in them
+goes from pinned memory without a stream wait, and nothing in them reads
+the device.  Tokens equal the sync engine's.
 """
 from __future__ import annotations
 
@@ -68,6 +86,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels import fastpath
 from repro_torch.kernels.decompress_matmul import DEFAULT_WEIGHT_MIN_SIZE
 from repro_torch.models import model as M
+from repro_torch.models import modules as m
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.modules import PageIntegrityError
 from repro_torch.runtime.supervisor import StragglerWatchdog, WatchdogEvent
@@ -99,16 +118,55 @@ class Request:
     # steps this request may hold a decode slot while others queue (None:
     # the engine's slot_deadline_steps, or no deadline)
     deadline_steps: int | None = None
-    # end-to-end latency SLO (admission by deadline is not ported: a
-    # request that sets it is refused at submit)
+    # end-to-end latency SLO: admission orders by earliest deadline
+    # (t_submit + slo_ms); None sorts last, so traffic that sets no SLO
+    # keeps FIFO admission
     slo_ms: float | None = None
     # a failure (integrity quarantine): done with the error set and the
     # tokens cut at the failure, never silently wrong
     error: str | None = None
 
 
+@dataclasses.dataclass
+class _InFlight:
+    """A decode step dispatched and not yet collected (``_InFlight`` :102):
+    the slot binding at dispatch, against which ``_collect`` applies the
+    tokens, and the step's device results."""
+    slot_reqs: list                     # slot -> Request at dispatch
+    slot_rids: list                     # slot -> rid at dispatch
+    logits: torch.Tensor                # [B, 1, V], on the device
+    toks: torch.Tensor                  # [B] greedy ids, on the device
+
+
+@dataclasses.dataclass
+class _PendingPrefill:
+    """A queued request whose prefill is pumped in the background
+    (``_PendingPrefill`` :113): its forward was dispatched at pump start,
+    and its pages ingest chunk by chunk in the overlap window, so one long
+    prompt does not stall the batch."""
+    req: Request
+    s: int                              # prompt length
+    logits: torch.Tensor                # [1, 1, V], on the device
+    caches: list | None                 # the forward's caches until viewed
+    view: dict | None = None            # ``prefill_host_view`` of them
+    cursor: int = 0                     # tokens ingested so far
+    tok_dev: torch.Tensor | None = None  # first token, pulled at collect
+    tok: int | None = None              # first generated token when bound
+
+    @property
+    def ingested(self) -> bool:
+        return self.cursor >= self.s
+
+    @property
+    def ready(self) -> bool:
+        return self.tok is not None
+
+
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+SCHEDULERS = ("sync", "async")
 
 
 KV_CACHE_DTYPES = ("apack-int8", "int8", "bfloat16")
@@ -315,12 +373,13 @@ class ServeEngine:
         if mesh is not None:
             _refuse("mesh= (multi-device serving)",
                     "open item 1.10, multi-device serving")
-        if scheduler != "sync":
-            _refuse(f"scheduler={scheduler!r}",
-                    "open item 1.8, serving robustness (async scheduler)")
-        if prefill_chunk_tokens is not None:
-            _refuse("prefill_chunk_tokens (chunked prefill)",
-                    "open item 1.8, serving robustness (async scheduler)")
+        if scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {scheduler!r}")
+        if scheduler == "async" and not (cfg.kv_cache_dtype == "apack-int8"
+                                         and kv_fused is not False):
+            raise ValueError(
+                "scheduler='async' requires the fused paged apack-int8 KV "
+                "(the overlap window is the in-flight fused device step)")
         if weights not in (None, "apack-int8"):
             raise ValueError(f"unknown weights mode {weights!r}; "
                              "expected 'apack-int8' or None")
@@ -360,7 +419,8 @@ class ServeEngine:
                       "kv_pages_repacked": 0, "failed": 0,
                       "spilled_requests": 0, "admission_retries": 0,
                       "pressure_preempted": 0, "deadline_preempted": 0,
-                      "watchdog_preempted": 0,
+                      "watchdog_preempted": 0, "prefill_chunks": 0,
+                      "staged_readahead": 0,
                       "queue_wait_p50_ms": 0.0, "queue_wait_p99_ms": 0.0,
                       "e2e_p50_ms": 0.0, "e2e_p99_ms": 0.0}
         # pressure policy (``__init__`` :265-283): level 1 (always on)
@@ -416,12 +476,24 @@ class ServeEngine:
         self._preempted: dict[int, tuple] = {}
         self._lat_wait: list[float] = []
         self._lat_e2e: list[float] = []
+        # the async event loop (``__init__`` :379-393): the chunk budget of
+        # one overlap window covers a few pages, so a short prompt binds
+        # in one step and a long one spreads over many
+        self.scheduler = scheduler
+        self.prefill_chunk_tokens = (int(prefill_chunk_tokens)
+                                     if prefill_chunk_tokens
+                                     else kv_page_size * 4)
+        self._inflight: _InFlight | None = None
+        self._pump: dict[int, _PendingPrefill] = {}
+        # launched in the window, landed by ``_collect``: the refresh
+        # step's re-pack, the seals the chunks queued (in the reference's
+        # order) and the prefills whose last chunk went in
+        self._refresh_rs: dict | None = None
+        self._chunk_seals: list = []
+        self._finished: list[_PendingPrefill] = []
 
     # -------------------------------------------------------- scheduling
     def submit(self, req: Request) -> None:
-        if req.slo_ms is not None:
-            _refuse("Request.slo_ms (SLO admission)",
-                    "open item 1.8, serving robustness (SLO admission)")
         if self.paged:
             need = self._pages_for(req)
             if need > self.kv.pool.num_pages:
@@ -437,6 +509,26 @@ class ServeEngine:
         at the context window."""
         toks = min(self.max_len, len(req.prompt) + req.max_new_tokens)
         return self.kv.pages_needed(toks)
+
+    def _admission_order(self) -> list[Request]:
+        """The queue in admission priority order (``_admission_order``
+        :418): earliest SLO deadline first (EDF over ``t_submit +
+        slo_ms``), submission order among requests without an SLO and as
+        the tie-break; traffic that sets no SLO keeps FIFO admission."""
+        if not any(r.slo_ms is not None for r in self.queue):
+            return list(self.queue)
+
+        def key(ir):
+            i, r = ir
+            ddl = (r.t_submit + r.slo_ms / 1e3
+                   if r.slo_ms is not None else float("inf"))
+            return (ddl, i)
+
+        return [r for _, r in sorted(enumerate(self.queue), key=key)]
+
+    def _reserve(self, rid: int, need: int) -> None:
+        self._reserved[rid] = need
+        self._reserved_total += need
 
     def _unreserve(self, rid: int) -> int:
         need = self._reserved.pop(rid)
@@ -470,16 +562,16 @@ class ServeEngine:
         reservation again where it gave it up, and fail only it if its
         spilled pages come back corrupted."""
         if need:
-            self._reserved[req.rid] = need
-            self._reserved_total += need
+            self._reserve(req.rid, need)
         try:
             self._resume_into_slot(slot, req)
         except PageIntegrityError as e:
             self._fail_request(req, e)
 
     def _admit(self) -> None:
-        """Fill idle slots from the queue head (``_admit`` :514), FIFO;
-        with the pool short, the head may trigger pressure relief."""
+        """Fill idle slots from the head of ``_admission_order`` (``_admit``
+        :514); with the pool short, the head may trigger pressure relief
+        and the rest wait behind it."""
         for slot in range(self.max_batch):
             if self.active[slot] is not None or not self.queue:
                 continue
@@ -487,7 +579,7 @@ class ServeEngine:
                 self._prefill_into_slot(slot, self.queue.popleft(), 0)
                 continue
             self._admit_clock += 1
-            head = self.queue[0]
+            head = self._admission_order()[0]
             need = self._try_reserve(head, allow_relief=True)
             if need is None:
                 break                          # the head waits (FIFO)
@@ -517,6 +609,10 @@ class ServeEngine:
             return False                       # backing off
         victims = [s for s, r in enumerate(self.active) if r is not None]
         if not victims:
+            if self._pump:
+                # pumped prefills hold reservations and will bind, serve
+                # and retire: admission is delayed, not impossible
+                return False
             raise AdmissionImpossible(
                 head, need, self.kv.pool.num_pages,
                 "no active slots to retire and no spillable reservations")
@@ -546,6 +642,7 @@ class ServeEngine:
         req.t_done = time.perf_counter()
         self.stats["failed"] += 1
         rid = req.rid
+        self._pump.pop(rid, None)
         for s, r in enumerate(self.active):
             if r is req:
                 self.active[s] = None
@@ -580,6 +677,7 @@ class ServeEngine:
         if requeue not in ("head", "tail"):
             raise ValueError(f"requeue={requeue!r}: expected 'head' or "
                              "'tail'")
+        self._drain()        # async: the in-flight step lands first
         req = self.active[slot]
         if req is None:
             raise ValueError(f"slot {slot} is idle, nothing to preempt")
@@ -625,7 +723,7 @@ class ServeEngine:
         bucket = prefill_bucket(s, self.max_len)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :s] = np.asarray(prompt)
-        tokens = torch.as_tensor(toks, device=self.device)
+        tokens = m.to_device(toks, self.device)
         return M.forward(self.cfg, self.params, tokens, last_only=True,
                          true_len=None if s == bucket else s)
 
@@ -635,8 +733,7 @@ class ServeEngine:
         logits, caches = self._prefill_forward(req.prompt)
         if self.paged:
             self.kv.add_request(req.rid)
-            self._reserved[req.rid] = need
-            self._reserved_total += need
+            self._reserve(req.rid, need)
             self.kv.ingest_prefill(req.rid, caches, s)
             if self.fused and self.kv.state_layers:
                 self.kv.write_state_slot(slot, req.rid)
@@ -747,9 +844,11 @@ class ServeEngine:
     # ------------------------------------------------------------- step
     def step(self) -> int:
         """One engine iteration (``step`` :895): retire, deadlines, admit,
-        decode.  A page that fails an integrity check fails only its
-        request; the watchdog observes the step's time.  Returns the
-        number of active sequences."""
+        decode (the async scheduler: ``_step_async``).  A page that fails
+        an integrity check fails only its request; the watchdog observes
+        the step's time.  Returns the number of active sequences."""
+        if self.scheduler == "async":
+            return self._step_async()
         t0 = time.perf_counter()
         if self.faults is not None:
             d = self.faults.step_delay()
@@ -777,29 +876,41 @@ class ServeEngine:
                 self._on_hung(ev)
         return n_active
 
+    def _launch_fused(self, slot_rids: list) -> torch.Tensor:
+        """Enqueue one fused decode step for ``slot_rids`` and its
+        on-device append, without waiting for the card: the step meta,
+        tokens and positions go up from pinned memory.  Returns the
+        logits [B, 1, V] (on the device)."""
+        kv = self.kv
+        meta = kv.step_meta(slot_rids, self.max_len)
+        logits, new_kv, kv.dev_states = M.decode_step_paged(
+            self.cfg, self.params, kv.dev.planes, meta, kv.dev_states,
+            m.to_device(self.last_tokens, self.device),
+            m.to_device(self.positions, self.device))
+        M.device_append(kv.dev.planes, new_kv,
+                        kv.claim_append_targets(slot_rids))
+        return logits
+
     def _step_decode(self, slot_rids: list, n_active: int) -> int:
         kv = self.kv
-        tokens = torch.as_tensor(self.last_tokens, device=self.device)
-        positions = torch.as_tensor(self.positions, device=self.device)
         if self.fused:
-            meta = kv.step_meta(slot_rids, self.max_len)
-            logits, new_kv, kv.dev_states = M.decode_step_paged(
-                self.cfg, self.params, kv.dev.planes, meta, kv.dev_states,
-                tokens, positions)
-            targets = kv.claim_append_targets(slot_rids)
-            M.device_append(kv.dev.planes, new_kv, targets)
+            logits = self._launch_fused(slot_rids)
             kv.note_appended(slot_rids)
-        elif self.paged:
-            # the oracle: rebuild the dense int8 cache from the pool
-            # (PACKED pages through the gather-decode kernel), decode over
-            # it, move the new token back into pages, drop the dense view
-            cache = kv.materialize(slot_rids, self.max_len)
-            logits, cache = M.decode_step(self.cfg, self.params, cache,
-                                          tokens, positions)
-            kv.append_step_tokens(cache, slot_rids, self.positions)
         else:
-            logits, self.cache = M.decode_step(self.cfg, self.params,
-                                               self.cache, tokens, positions)
+            tokens = m.to_device(self.last_tokens, self.device)
+            positions = m.to_device(self.positions, self.device)
+            if self.paged:
+                # the oracle: rebuild the dense int8 cache from the pool
+                # (PACKED pages through the gather-decode kernel), decode
+                # over it, move the new token back into pages, drop the
+                # dense view
+                cache = kv.materialize(slot_rids, self.max_len)
+                logits, cache = M.decode_step(self.cfg, self.params, cache,
+                                              tokens, positions)
+                kv.append_step_tokens(cache, slot_rids, self.positions)
+            else:
+                logits, self.cache = M.decode_step(
+                    self.cfg, self.params, self.cache, tokens, positions)
         toks_dev = logits[:, 0].argmax(dim=-1)
         rs = None
         if self.paged and self.kv_refresh:
@@ -827,6 +938,272 @@ class ServeEngine:
         self.stats["steps"] += 1
         return n_active
 
+    # ------------------------------------------- async event-loop core
+    def _step_async(self) -> int:
+        """One iteration of the event loop (``_step_async`` :1011), in the
+        reference's phase order:
+
+        1. ``_overlap_host_work`` while the previous step is still on the
+           card: host delays, the refresh and its re-pack launch, chunked
+           prefill ingest, spill readahead;
+        2. ``_collect``: the step's one pull, then the pages it and the
+           chunks sealed, and its tokens against the dispatch-time slots;
+        3. retire, deadlines and ``_admit_async``: every change of a slot
+           binding happens here, after the collect;
+        4. ``_dispatch`` of the next step, without waiting for it.
+
+        The watchdog observes the step with the three phases' seconds."""
+        t0 = time.perf_counter()
+        if self.faults is not None:
+            d = self.faults.step_delay()
+            if d:
+                time.sleep(d)
+        self._overlap_host_work()
+        t_host = time.perf_counter()
+        self._collect()
+        t_collect = time.perf_counter()
+        self._retire()
+        self._check_deadlines()
+        self._admit_async()
+        n_active = sum(r is not None for r in self.active)
+        if n_active:
+            try:
+                self._dispatch()
+            except PageIntegrityError as e:
+                # step_meta's read guards fire before any page changes:
+                # fail the owner and dispatch again for the rest
+                self._handle_integrity_failure(e)
+                n_active = sum(r is not None for r in self.active)
+                if n_active:
+                    self._dispatch()
+        if self.watchdog is not None:
+            ev = self.watchdog.observe(
+                time.perf_counter() - t0,
+                phases={"overlap_host": t_host - t0,
+                        "collect": t_collect - t_host,
+                        "schedule_dispatch":
+                            time.perf_counter() - t_collect})
+            if ev is not None and ev.kind == "hung":
+                self._on_hung(ev)
+        return n_active
+
+    def _overlap_host_work(self) -> None:
+        """The host work of the sync step, run while the dispatched step
+        is on the card (``_overlap_host_work`` :1070).  With a step in
+        flight it only enqueues: the re-pack's verdicts, the chunks' seals
+        and the pumps' first tokens wait for ``_collect``'s pull.  With
+        none in flight, a pump is drained at once, as a sync prefill."""
+        if self.faults is not None:
+            d = self.faults.host_delay()
+            if d:
+                time.sleep(d)
+        if self.kv_refresh and self._inflight is not None:
+            # drift check, refresh and the re-pack launch, once a step as
+            # in the sync engine; ``_collect`` pulls the verdicts
+            rs = self.kv.refresh_step(self.kv_repack_budget)
+            self.stats["kv_refreshes"] += len(rs["refreshed_layers"])
+            self._refresh_rs = rs
+        for p in list(self._pump.values()):
+            while not p.ingested:
+                self._pump_chunk(p)
+                if self._inflight is not None:
+                    break          # paced: one chunk per overlapped step
+        self._stage_readahead()
+
+    def _pump_chunk(self, p: _PendingPrefill) -> None:
+        """Ingest the pump's next ``prefill_chunk_tokens`` positions
+        (``_pump_chunk`` :1097).  With a step in flight the chunk's seals,
+        and a last chunk's ``finish_prefill`` and first-token pull, wait
+        for ``_collect``; with none they run here."""
+        kv = self.kv
+        if p.view is None:
+            p.view = kv.prefill_host_view(p.caches)
+            p.caches = None
+        t1 = min(p.cursor + self.prefill_chunk_tokens, p.s)
+        flying = self._inflight is not None
+        events = kv.ingest_prefill_chunk(p.req.rid, p.view, p.cursor, t1,
+                                         p.s, seal=not flying)
+        p.cursor = t1
+        self.stats["prefill_chunks"] += 1
+        if not p.ingested:
+            if flying:
+                self._chunk_seals += events
+            return
+        p.tok_dev = p.logits[0, -1].argmax()
+        if flying:
+            self._chunk_seals += events
+            self._finished.append(p)
+            return
+        kv.finish_prefill(p.req.rid, p.view, p.s)
+        p.view = None
+        p.tok = int(p.tok_dev)            # nothing in flight to ride
+        p.tok_dev = None
+
+    def _stage_readahead(self) -> None:
+        """Spill-tier readahead in the window (``_stage_readahead`` :1119):
+        reserve and restore the highest-priority spilled request, so that
+        its upload and checksum checks ride the step on the card instead
+        of stalling the admission that resumes it.  One a step."""
+        for req in self._admission_order():
+            rid = req.rid
+            if rid in self._preempted and rid in self._spilled:
+                need = self._pages_for(req)
+                if self._reserved_total + need > self.kv.pool.num_pages:
+                    return                 # no headroom this step
+                self._reserve(rid, need)
+                try:
+                    self.kv.unspill_request(rid)
+                except PageIntegrityError as e:
+                    self._fail_request(req, e)
+                    return
+                self._spilled.discard(rid)
+                self.stats["staged_readahead"] += 1
+                return
+            if rid not in self._reserved and rid not in self._pump:
+                return     # a higher-priority request claims the headroom
+
+    def _start_pump(self, req: Request, need: int) -> None:
+        """Reserve the request's pages and dispatch its bucketed prefill
+        forward (``_start_pump`` :1147); it stays queued while the window
+        ingests its pages chunk by chunk."""
+        req.t_admit = time.perf_counter()
+        logits, caches = self._prefill_forward(req.prompt)
+        self.kv.add_request(req.rid)
+        self._reserve(req.rid, need)
+        self._pump[req.rid] = _PendingPrefill(
+            req=req, s=len(req.prompt), logits=logits, caches=caches)
+
+    def _bind_prefilled(self, slot: int, p: _PendingPrefill) -> None:
+        """Bind a fully ingested pumped prefill to ``slot``
+        (``_bind_prefilled`` :1158): its recurrent states into the device
+        store, its first token as the slot's last."""
+        req = p.req
+        if self.kv.state_layers:
+            self.kv.write_state_slot(slot, req.rid)
+        req.tokens.append(p.tok)
+        self.active[slot] = req
+        self.positions[slot] = p.s
+        self.last_tokens[slot, 0] = p.tok
+        self._slot_steps[slot] = 0
+
+    def _admit_async(self) -> None:
+        """Continuous admission after the collect (``_admit_async`` :1173):
+        bind ready pumped prefills and resume preempted requests into free
+        slots; start pumps for queued requests that can reserve pages now.
+        In ``_admission_order``; a blocked request stops the ones behind it
+        from taking new reservations, but binds of work that already holds
+        one still go ahead."""
+        if not self.queue:
+            return
+        self._admit_clock += 1
+        free = [s for s in range(self.max_batch) if self.active[s] is None]
+        blocked = False
+        for i, req in enumerate(self._admission_order()):
+            rid = req.rid
+            if rid in self._preempted:
+                if not free:
+                    # it still claims headroom while it waits for a slot
+                    blocked = blocked or rid not in self._reserved
+                    continue
+                if blocked and rid not in self._reserved:
+                    continue
+                need = self._try_reserve(req, allow_relief=(i == 0))
+                if need is None:
+                    blocked = True
+                    continue
+                self.queue.remove(req)
+                self._resume_request(free.pop(0), req, need)
+                continue
+            p = self._pump.get(rid)
+            if p is None:
+                if blocked or len(self._pump) >= self.max_batch:
+                    blocked = True
+                    continue
+                need = self._try_reserve(req, allow_relief=(i == 0))
+                if need is None:
+                    blocked = True
+                    continue
+                self._start_pump(req, need)
+                if free and not any(r is not None for r in self.active):
+                    # idle engine: no step to overlap the ingest with, so
+                    # admit as a sync prefill, in this very step
+                    p = self._pump.pop(rid)
+                    while not p.ingested:
+                        self._pump_chunk(p)
+                    self.queue.remove(req)
+                    self._bind_prefilled(free.pop(0), p)
+                continue
+            if p.ready and free:
+                self.queue.remove(req)
+                del self._pump[rid]
+                self._bind_prefilled(free.pop(0), p)
+            # a pump still ingesting binds on a later step
+
+    def _dispatch(self) -> None:
+        """Enqueue the fused decode step for the current binding and
+        return without waiting for it (``_dispatch`` :1230): the step, its
+        on-device append and the greedy ids are launched
+        (``_launch_fused``), and the binding is recorded for
+        ``_collect``."""
+        slot_rids = [r.rid if r is not None else None for r in self.active]
+        logits = self._launch_fused(slot_rids)
+        self._inflight = _InFlight(slot_reqs=list(self.active),
+                                   slot_rids=slot_rids, logits=logits,
+                                   toks=logits[:, 0].argmax(dim=-1))
+
+    def _collect(self) -> None:
+        """Land the step in flight (``_collect`` :1249): one pull brings
+        its tokens, the re-pack verdicts of the window's refresh and the
+        first tokens of the prefills that finished ingesting; then the
+        re-pack is finished, the chunks' seals run, the finished prefills'
+        ``finish_prefill`` (their evictions after those seals), and the
+        step's own appends are noted and sealed, the order in which the
+        reference's window and collect seal them; and the tokens go to the
+        dispatch-time slots (every binding change runs after this)."""
+        inf = self._inflight
+        if inf is None:
+            return
+        self._inflight = None
+        kv = self.kv
+        rs, self._refresh_rs = self._refresh_rs, None
+        tree = {"toks": inf.toks}
+        if rs is not None and rs["job"] is not None:
+            tree.update(rs["job"]["pull"])
+        for p in self._finished:
+            tree[f"tok/{p.req.rid}"] = p.tok_dev.reshape(1)
+        pulled = kv._fetch(tree)
+        toks = pulled["toks"]
+        if rs is not None:
+            self.stats["kv_pages_repacked"] += kv.finish_refresh(
+                rs, pulled if rs["job"] is not None else None)
+        seals, self._chunk_seals = self._chunk_seals, []
+        kv._seal(seals)
+        finished, self._finished = self._finished, []
+        for p in finished:
+            p.tok = int(pulled[f"tok/{p.req.rid}"][0])
+            p.tok_dev = None
+            kv.finish_prefill(p.req.rid, p.view, p.s)
+            p.view = None
+        kv.note_appended(inf.slot_rids)
+        self.last_logits = inf.logits
+        for slot, req in enumerate(inf.slot_reqs):
+            if req is None:
+                continue
+            tok = int(toks[slot])
+            req.tokens.append(tok)
+            self.last_tokens[slot, 0] = tok
+            self.positions[slot] += 1
+            self._slot_steps[slot] += 1
+            self.stats["generated"] += 1
+        self.stats["steps"] += 1
+
+    def _drain(self) -> None:
+        """Land the step in flight, if any (``_drain`` :1275), so that a
+        change from outside the loop (``preempt``) sees a consistent
+        engine; nothing on the sync scheduler."""
+        if self._inflight is not None:
+            self._collect()
+
     def run_until_drained(self, max_steps: int = 10_000) -> None:
         """Step until every request is done (``run_until_drained`` :1283);
         with work queued and nothing active for more than twice the
@@ -834,7 +1211,9 @@ class ServeEngine:
         spinning."""
         stalled = 0
         for _ in range(max_steps):
-            if self.step() > 0:
+            # an idle step that advanced a pumped prefill is progress (the
+            # async scheduler ingests chunks before the first slot binds)
+            if self.step() > 0 or self._pump:
                 stalled = 0
                 continue
             if not self.queue:

@@ -50,6 +50,42 @@ def test_find_table_matches_reference(bits, is_act):
         jtables.expected_bits_per_value(h, t)
 
 
+def _shaped_hist(rng, shape):
+    """An 8-bit histogram of int8 values two's-complement coded: a normal
+    weight column, a narrow or wide Laplace activation body, or a few
+    spikes."""
+    n = 50_000
+    x = {"normal": lambda: rng.normal(0, 40, n),
+         "narrow": lambda: rng.laplace(0, 2, n),
+         "wide": lambda: rng.laplace(0, 30, n),
+         "spikes": lambda: rng.choice([-90, -3, 0, 5, 60], n)}[shape]()
+    v = np.clip(np.round(x), -127, 127).astype(np.int64) & 0xFF
+    return np.bincount(v, minlength=256).astype(np.int64)
+
+
+@pytest.mark.parametrize("shape", ["normal", "narrow", "wide", "spikes"])
+def test_table_search_scores_equal_reference(shape):
+    """The search scores a candidate from per-range terms summed in numpy's
+    order; each score equals the JAX package's ``_encoded_size_csum`` bit
+    for bit, so both searches take the same path to the same table."""
+    rng = np.random.default_rng(len(shape))
+    h = _shaped_hist(rng, shape)
+    csum = np.concatenate([[0], np.cumsum(h)])
+    total = int(h.sum())
+    terms = ptables._range_terms(csum, total, 8)
+    for i in range(300):
+        # every other draw packs the boundaries into 30 values: ranges of
+        # width 1 and 2 beside wide ones
+        pool = np.arange(1, 256) if i % 2 else np.arange(110, 140)
+        v_min = [0] + sorted(rng.choice(pool, 15, replace=False).tolist())
+        xs = [terms[a][b] for a, b in zip(v_min, v_min[1:] + [256])]
+        got = ptables._np_sum([x for x in xs if x >= 0.0])
+        assert got == jtables._encoded_size_csum(csum, total, v_min, 8)
+    for is_act in (False, True):
+        assert _same_table(ptables.find_table(h, 8, is_act),
+                           jtables.find_table(h, 8, is_act))
+
+
 CASES = [(4, 37, 33, "fitted"), (8, 4, 128, "fitted"),
          (16, 130, 7, "fitted"), (8, 37, 33, "uniform")]
 

@@ -1,8 +1,7 @@
 """Port ServeEngine vs the JAX ServeEngine (``kv_backend="ref"``) on
 qwen3-1.7b SMOKE with the same params and prompts; preemption and resume;
 the steady-state step's device-to-host reads; the device default; the
-refusal of unported features (the async scheduler, SLO admission,
-meshes)."""
+refusal of meshes, and the scheduler options the engine serves."""
 import dataclasses
 
 import numpy as np
@@ -241,18 +240,41 @@ def test_page_pool_defaults_to_cuda():
                                 {"scheduler": "async",
                                  "prefill_chunk_tokens": 8}])
 def test_unported_features_are_refused(kw):
-    """Unported features (the async scheduler and its chunked prefill,
-    meshes, SLO admission) raise NotImplementedError naming their ROADMAP
-    item; an unknown weights mode (packed ``apack-int8`` is served) raises
-    ValueError naming the one that exists.  Refresh, pressure and the spill
-    tier are served (``test_torch_refresh*.py``, ``test_torch_faults.py``)."""
+    """Meshes, the one feature not ported, raise NotImplementedError naming
+    their ROADMAP item; an unknown weights mode (packed ``apack-int8`` is
+    served) raises ValueError naming the one that exists.  The async
+    scheduler, its chunk size and SLO admission are served: the engine
+    takes them, defaults the chunk to four pages as the reference does,
+    orders a request with ``slo_ms`` first, and raises the reference's
+    ValueErrors for the async scheduler on a dense cache and for an
+    unknown scheduler (``test_torch_async*.py`` serve them against the JAX
+    package)."""
     cfg = _cfg()
     params = PM.init_params(cfg, torch.Generator(), "cpu")
-    exc, match = ((ValueError, "apack-int8") if "weights" in kw
-                  else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(exc, match=match):
-        ServeEngine(cfg, params, device="cpu", **KW, **kw)
+    if "mesh" in kw or "weights" in kw:
+        exc, match = ((ValueError, "apack-int8") if "weights" in kw
+                      else (NotImplementedError, "ROADMAP"))
+        with pytest.raises(exc, match=match):
+            ServeEngine(cfg, params, device="cpu", **KW, **kw)
+        return
     eng = ServeEngine(cfg, params, device="cpu", kv_refresh=True,
-                      kv_pressure=True, **KW)
-    with pytest.raises(NotImplementedError, match="SLO admission"):
-        eng.submit(Request(0, _prompts(cfg)[0], slo_ms=100.0))
+                      kv_pressure=True, **KW, **kw)
+    assert eng.scheduler == kw.get("scheduler", "sync")
+    assert eng.prefill_chunk_tokens == kw.get("prefill_chunk_tokens",
+                                              4 * KW["kv_page_size"])
+    prompts = _prompts(cfg)
+    eng.submit(Request(0, prompts[0], max_new_tokens=2))
+    eng.submit(Request(1, prompts[1], max_new_tokens=2, slo_ms=100.0))
+    assert [r.rid for r in eng._admission_order()] == [1, 0]
+    eng.run_until_drained(max_steps=100)
+    assert eng.stats["completed"] == 2
+    assert eng.stats["prefill_chunks"] == (
+        0 if eng.scheduler == "sync" else sum(
+            -(-len(p) // eng.prefill_chunk_tokens) for p in prompts[:2]))
+    dense = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    if eng.scheduler == "async":
+        with pytest.raises(ValueError, match="scheduler='async' requires"):
+            ServeEngine(dense, params, device="cpu", **KW, **kw)
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        ServeEngine(cfg, params, device="cpu", **KW,
+                    **{**kw, "scheduler": "overlapped"})

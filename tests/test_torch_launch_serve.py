@@ -1,11 +1,13 @@
 """The port's serving CLI, ``python -m repro_torch.launch.serve``, on the CPU:
 the default weight path (the checkpoint-style round trip) and a
 packed-weight run, both on the paged APack KV cache, print the JAX CLI's
-summary lines; the materialize oracle and a dense int8 cache serve; every
-flag the port does not serve yet raises ``NotImplementedError`` naming its
-ROADMAP item, ``--kv-refresh`` and ``--kv-pressure`` serve and print
-their report lines, and without ``--device cpu`` the CLI asks for the
-card and raises where there is none, instead of falling back."""
+summary lines; the materialize oracle and a dense int8 cache serve;
+``--mesh``, the one flag the port does not serve yet, raises
+``NotImplementedError`` naming its ROADMAP item; ``--scheduler async``,
+``--prefill-chunk``, ``--slo-ms``, ``--kv-refresh`` and ``--kv-pressure``
+serve and print their report lines; and without ``--device cpu`` the CLI
+asks for the card and raises where there is none, instead of falling
+back."""
 import dataclasses
 import pathlib
 import subprocess
@@ -64,18 +66,35 @@ def test_cli_serves_the_oracle_and_dense_cache(extra, path, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--no-compress", "--mesh", "2x1"],
-    ["--no-compress", "--scheduler", "async"],
-    ["--no-compress", "--prefill-chunk", "8"],
-    ["--no-compress", "--slo-ms", "100"],
     ["--weights", "apack-int8", "--mesh", "1x1"],
-    ["--kv-refresh", "--scheduler", "async"],
 ])
 def test_cli_refuses_unported_flags(extra):
-    """The async scheduler, chunked prefill, SLO admission and meshes are
-    refused naming their ROADMAP item (refresh, pressure and packed weights
+    """Meshes are refused naming their ROADMAP item (the async scheduler,
+    chunked prefill, SLO admission, refresh, pressure and packed weights
     on heterogeneous stacks are served: the tests below)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve.main(BASE + extra)
+
+
+@pytest.mark.parametrize("extra,want", [
+    (["--no-compress", "--scheduler", "async"],
+     "latency (async scheduler, n=3)"),
+    (["--no-compress", "--prefill-chunk", "8"], "'completed': 3"),
+    (["--no-compress", "--slo-ms", "100"], "latency (sync scheduler, n=3)"),
+    (["--kv-refresh", "--scheduler", "async", "--prefill-chunk", "3"],
+     "latency (async scheduler, n=3)"),
+])
+def test_cli_serves_async_chunked_and_slo(extra, want, capsys):
+    """``--scheduler async`` (also with ``--kv-refresh`` and the default
+    weight round trip), ``--prefill-chunk`` and ``--slo-ms`` serve every
+    request and print the JAX CLI's lines, the latency line naming the
+    scheduler."""
+    serve.main(BASE + ["--requests", "3", "--prompt-len", "8",
+                       "--max-new", "4", "--max-batch", "2",
+                       "--kv-page-size", "4"] + extra)
+    out = capsys.readouterr().out
+    assert want in out, out
+    assert "'completed': 3" in out, out
 
 
 @pytest.mark.parametrize("extra,want", [
