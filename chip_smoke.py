@@ -40,6 +40,14 @@ Phases (any failure exits non-zero):
    a re-pack batch of 32 qwen3 pages with per-page table rows, and kernel
    5 at recurrentgemma-9b's packed sites (wq, wk, w_up, w_down at M = 4,
    w_up at M = 77) against the plain version, f64 and ``torch.matmul``;
+   fused attention at the new architectures' pages: minitron-8b's
+   [16, 8, 128] with 32 query heads (4096 values, one head block), and,
+   past 4096 query-head values a page, where the kernel splits the KV
+   heads over blocks, dbrx-132b's [16, 8, 128] with 48 and kimi-k2's
+   [16, 8, 112] with 64, J = 4, P = 16, each timed with its bound and
+   SDPA yardstick; kernel 5 at minitron-8b's
+   untied head [4096, 256000] and squared-ReLU w_up/w_down [4096, 16384]
+   / [16384, 4096] (M = 4, w_up also M = 77);
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
@@ -60,8 +68,10 @@ Phases (any failure exits non-zero):
    with its own launch counts; after the serve, build the oracle stores
    from a host copy of the f32 weights; check every packed site of two
    layers against f32 and f64 products; re-score the packed engine's
-   sequences teacher-forced under the packed store, its f32 and f64
-   oracles and the dense store dequantized from the same int8 codes;
+   sequences teacher-forced through their first ``CUT_LAYERS`` layers
+   under the packed store, its f32 and f64 oracles and the dense store
+   dequantized from the same int8 codes (the checks hold copies of those
+   layers' weights only);
    profile steady steps of both engines; then serve them on the async
    scheduler from the same packed planes (not packed again), with (e)'s
    gates;
@@ -76,8 +86,9 @@ Phases (any failure exits non-zero):
    steady steps;
    phase 3's engine then serves phase B of the refresh serve (8 requests
    of one hot prompt), the frozen control of (a);
-6. serve them on the fused path with slot 0 preempted after ten decode
-   steps and resumed: the tokens must equal phase 3's;
+6. serve them on the fused path at ``CUT_LAYERS`` layers with slot 0
+   preempted after ten decode steps and resumed: the tokens must equal
+   phase 5's fused serve at that depth;
 7. serve them from a dense int8 KV cache, the uncompressed baseline, at
    ``CUT_LAYERS`` layers, and profile steady steps;
 8. the JAX CLI's default weight path at full width: ``compress_params``
@@ -122,12 +133,33 @@ Phases (any failure exits non-zero):
    fused serve again on the async scheduler, chunks of 64 tokens (about
    32 a prompt): tokens equal to the sync serve's, pages evicted, (e)'s
    sync gates; both schedulers' median and longest step printed;
+   (g) minitron-8b at published widths and depth (32 layers, d_model
+   4096, GQA 32/8, squared-ReLU d_ff 16384, untied head, vocab 256000;
+   7.7 G params, 30.9 GB f32 drawn from seed 0, served from a 15.5 GB
+   bf16 copy): the fused serve of phase 3's requests with a profiler
+   window, then from packed weights (the head through kernel 5): layer 0's
+   sites and the head against f32 and f64 products, ``weight_stats()``,
+   packing seconds, and phase 4's teacher-forced re-score through the
+   first ``CUT_LAYERS`` layers and the head (its RMS drift gate, and the
+   agreement with the dense store printed against ``AGREEMENT_GATE``);
+   (h) dbrx-132b at published widths (d_model 6144, GQA 48/8: kernel 3's
+   head blocks; 16 experts top-4 of d_ff 10752, vocab 100352), cut to
+   ``DBRX_LAYERS`` (2) layers, seed-0 bf16 weights: the fused serve with a
+   profiler window and a serve with the attention sites and the head
+   packed, its sites and re-score checked as (g)'s; both with
+   ``kv_ratio`` < 1; then hubert-xlarge at published widths and depth:
+   one forward of [2, 400] frames, finite logits, the first frame's
+   logits moved by a change to the last frame (bidirectional), the engine
+   refusing an encoder;
 10. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
     caches, and the fused one on round-tripped weights, whose
     ``compress_params`` containers must match too; and fused, oracle and
     dense int8 engines on ``hetero-serve-smoke`` and recurrentgemma-9b
     SMOKE with window 8, whose KV stats must match too, and packed weights
-    on both) on the card against the same engines on the CPU, and the
+    on both; fused engines on minitron-8b, command-r-plus-104b,
+    paligemma-3b, dbrx-132b and kimi-k2-1t-a32b SMOKE, packed ones on
+    minitron-8b and kimi-k2, whose ``kv_ratio`` must match too) on the
+    card against the same engines on the CPU, and the
     oracle's tokens against the fused engine's on the card; (d) SMOKE
     refresh, pressure and fault engines (a flipped bit of a spilled record
     fails only its owner) card against CPU: tokens, ``kv_ratio``, refresh
@@ -141,11 +173,13 @@ Phases (any failure exits non-zero):
     with the decode kernel and with the plain decoder, and re-encode a
     sample with the plain encoder;
 12. print the phase-2 records at recurrentgemma-9b's page, at the re-pack
-    batch and at recurrentgemma-9b's packed sites, the script's seconds,
+    batch, at recurrentgemma-9b's packed sites, at dbrx's and kimi's pages
+    and at minitron-8b's packed sites, the script's seconds,
     the ``kernels`` JSON line (kernels 1 and 2 with their re-pack launches
     a step of (a), kernel 5 with its launches a step of (c), kernels 1,
-    2, 3 and 5 with their launches a step of the async serves (e)), then
-    the result line.
+    2, 3 and 5 with their launches a step of the async serves (e), kernel
+    3 with its launches a step of (g)'s and (h)'s fused serves and kernel
+    5 of their packed ones), then the result line.
 
 It exits non-zero without a result when CUDA is unavailable or when it is
 not run from a checkout of the repository.
@@ -167,6 +201,14 @@ PAGE = dict(ps=16, h=8, dh=128, hq=16)   # qwen3-1.7b page [16, 8, 128]
 RG_PAGE = dict(ps=16, h=1, dh=256, hq=16)
 RG_WINDOW = 2048
 AGREEMENT_GATE = 0.98             # the reference's teacher-forced gate
+# minitron-8b's page: 32 query heads over 8 KV heads, the 4096 query-head
+# values one block of kernel 3 accumulates; dbrx-132b's and kimi-k2's: 48
+# and 64, past them (head blocks)
+MINITRON_PAGE = dict(ps=16, h=8, dh=128, hq=32)
+DBRX_PAGE = dict(ps=16, h=8, dh=128, hq=48)
+KIMI_PAGE = dict(ps=16, h=8, dh=112, hq=64)
+# dbrx-132b's depth on one card: 2 of its 40 layers (3.26 G params each)
+DBRX_LAYERS = 2
 # depth of the oracle (phase 5), int8-KV (phase 7) and round-trip (phase
 # 8, its serve; the round trip itself stays at 28 layers) serves, cut from
 # 28 so that the script stays within its time on the slower chip hosts
@@ -703,9 +745,7 @@ def check_attention(device, records):
     each with a job whose slots are all FREE, with and without the
     softcap; timed at J = 4, P = 16."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import fused_page_attention as fpa
-    from repro_torch.kernels.fused_page_attention import _page_tiles
     err = 0.0
     plain_ms = {}
     for p_slots in (1, 7, 16):
@@ -746,23 +786,12 @@ def check_attention(device, records):
     plain = plain_ms[16, 0.0]
     bound, by = attention_bound(q, pid, tid, meta, jobmeta, planes,
                                 packed_bytes, acc, m, l)
-    # yardstick: SDPA over the equivalent dense dequantized cache
-    kt, vt = _page_tiles(planes, pid, tid, meta[..., 0], 128, 8)
-    j, p = pid.shape
-    ps, h, dh, hq = PAGE["ps"], PAGE["h"], PAGE["dh"], PAGE["hq"]
-    kd = kt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
-        hq // h, dim=1).contiguous()
-    vd = vt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
-        hq // h, dim=1).contiguous()
-    pos = meta[..., 1:2] + torch.arange(ps, device=device)
-    valid = (pos < jobmeta[:, 0, None, None]) & (meta[..., 0:1] != 0)
-    mask = valid.reshape(j, 1, 1, p * ps)
-    qd = q[:, :, None, :]
-    lib = graph_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask), 20)
+    ps, h, dh = PAGE["ps"], PAGE["h"], PAGE["dh"]
     records["fused_page_attention"] = dict(
         ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound, bound_by=by,
-        library_ms=lib, shape=[j, p, ps, h, dh])
+        library_ms=attention_yardstick_ms(q, pid, tid, meta, jobmeta, planes,
+                                          PAGE, 128),
+        shape=[*pid.shape, ps, h, dh])
     print("fused_page_attention: " + json.dumps(dict(
         records["fused_page_attention"], eager_ms=eager)))
 
@@ -886,9 +915,7 @@ def check_attention_rolling(device, records):
     over a CUDA graph of 20, with its bound and SDPA over the same pages
     dequantized into a dense f32 cache (masked alike) as its yardstick."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import fused_page_attention as fpa
-    from repro_torch.kernels.fused_page_attention import _page_tiles
     page = RG_PAGE
     ps, h, dh, hq = page["ps"], page["h"], page["dh"], page["hq"]
     jobs, slots, base = 4, 130, 3
@@ -937,24 +964,17 @@ def check_attention_rolling(device, records):
         q, pid, tid, meta, jobmeta, planes, **kw), 20)
     bound, by = attention_bound(q, pid, tid, meta, jobmeta, planes,
                                 packed_bytes, *got, page=page)
-    kt, vt = _page_tiles(planes, pid, tid, meta[..., 0], n_steps, 8)
-    j, p = pid.shape
-    kd = kt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
-        hq // h, dim=1).contiguous()
-    vd = vt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
-        hq // h, dim=1).contiguous()
     pos = meta[..., 1:2] + torch.arange(ps, device=device)
     qp, win = jobmeta[:, 0, None, None], jobmeta[:, 1, None, None]
     valid = (pos < qp) & (meta[..., 0:1] != 0)
     valid &= torch.where(win > 0, pos > qp - win, True)
-    mask = valid.reshape(j, 1, 1, p * ps)
-    lib = graph_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=mask), 20)
     records["fused_page_attention [16, 1, 256]"] = dict(
         ms=ms, plain_ms=plain, max_abs_err=err, bound_ms=bound, bound_by=by,
-        library_ms=lib, shape=[j, p, ps, h, dh], window=RG_WINDOW,
+        library_ms=attention_yardstick_ms(q, pid, tid, meta, jobmeta, planes,
+                                          page, n_steps),
+        shape=[*pid.shape, ps, h, dh], window=RG_WINDOW,
         acc_worst_of_tolerance=worst,
-        keys_per_job=valid.reshape(j, -1).sum(-1).tolist())
+        keys_per_job=valid.reshape(len(pid), -1).sum(-1).tolist())
     print("fused_page_attention [16, 1, 256]: " + json.dumps(
         records["fused_page_attention [16, 1, 256]"]))
 
@@ -1014,6 +1034,123 @@ def check_rg_matmul(device, records):
         for row in rows:
             records[f"decompress_matmul {name} M={row['shape'][0]}"] = row
             print("decompress_matmul recurrentgemma-9b: " + json.dumps(row))
+        del q, rows
+        torch.cuda.empty_cache()
+
+
+def attention_yardstick_ms(q, pid, tid, meta, jobmeta, planes, page,
+                           n_steps):
+    """SDPA over the pages of a fused attention call dequantized into a
+    dense f32 cache, masked alike (causal, window): device time per call
+    over a CUDA graph of 20."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_page_attention import _page_tiles
+    ps, h, dh, hq = page["ps"], page["h"], page["dh"], page["hq"]
+    kt, vt = _page_tiles(planes, pid, tid, meta[..., 0], n_steps, 8)
+    j, p = pid.shape
+    kd = kt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
+        hq // h, dim=1).contiguous()
+    vd = vt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
+        hq // h, dim=1).contiguous()
+    pos = meta[..., 1:2] + torch.arange(ps, device=q.device)
+    qp, win = jobmeta[:, 0, None, None], jobmeta[:, 1, None, None]
+    valid = (pos < qp) & (meta[..., 0:1] != 0)
+    valid &= torch.where(win > 0, pos > qp - win, True)
+    mask = valid.reshape(j, 1, 1, p * ps)
+    return graph_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask), 20)
+
+
+def check_attention_heads(device, records):
+    """The fused attention kernel at the new architectures' pages:
+    minitron-8b's [16, 8, 128] with Hq 32 (4096 query-head values, one
+    head block: 16 accumulators a thread over 4 query heads a KV head)
+    and, past 4096 values, where it splits the KV heads over blocks
+    (``heads_per_block``), dbrx-132b's [16, 8, 128] with Hq 48 and
+    kimi-k2's [16, 8, 112] with Hq 64 (2 head blocks each; kimi's
+    128-value streams straddle heads), on the mixed HOT/COLD/PACKED/FREE
+    pool at J = 4, P = 16, with and without the softcap, against the
+    plain version at f32 rtol 1e-5 / atol 1e-6 (``acc``'s relative part
+    against sum(w |v|), ``fused_page_attention_f64``; each case's worst
+    error as a share of that tolerance is recorded); timed as device time
+    per call over a CUDA graph of 20, with its bound and SDPA over the
+    same pages dequantized as its yardstick."""
+    import torch
+    from repro_torch.kernels import fused_page_attention as fpa
+    for name, page in (("minitron-8b", MINITRON_PAGE),
+                       ("dbrx-132b", DBRX_PAGE),
+                       ("kimi-k2-1t-a32b", KIMI_PAGE)):
+        q, pid, tid, meta, jobmeta, planes, packed_bytes = mixed_pool(
+            device, page=page)
+        err = 0.0
+        share = {}
+        for softcap in (0.0, 30.0):
+            kw = dict(n_steps=128, softcap=softcap)
+            got = fpa.fused_page_attention(q, pid, tid, meta, jobmeta,
+                                           planes, **kw)
+            want, plain = timed_call(lambda: fpa.fused_page_attention_plain(
+                q, pid, tid, meta, jobmeta, planes, **kw))
+            # acc's relative part against sum(w |v|), the magnitude of its
+            # f32 sums, where acc cancels toward zero (as the rolling check)
+            mag = fpa.fused_page_attention_f64(q, pid, tid, meta, jobmeta,
+                                               planes, **kw)[3].float()
+            worst = ((got[0] - want[0]).abs()
+                     / (1e-5 * mag + 1e-6)).max().item()
+            share[f"softcap {softcap:g}"] = worst
+            if not worst <= 1.0:
+                raise AssertionError(
+                    f"fused attention {name} softcap={softcap}: acc off by "
+                    f"{(got[0] - want[0]).abs().max().item()} ({worst:.3g}x "
+                    "the tolerance)")
+            for g_, w_, what in zip(got[1:], want[1:], ("m", "l")):
+                if not torch.allclose(g_, w_, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(
+                        f"fused attention {name} softcap={softcap}: {what} "
+                        f"off by {(g_ - w_).abs().max().item()}")
+            err = max(err, *((g_ - w_).abs().max().item()
+                             for g_, w_ in zip(got, want)))
+            if softcap == 0.0:
+                plain_ms, acc = plain, got
+        kw = dict(n_steps=128)
+        ms = graph_ms(lambda: fpa.fused_page_attention(
+            q, pid, tid, meta, jobmeta, planes, **kw), 20)
+        bound, by = attention_bound(q, pid, tid, meta, jobmeta, planes,
+                                    packed_bytes, *acc, page=page)
+        ps, h, dh, hq = page["ps"], page["h"], page["dh"], page["hq"]
+        key = f"fused_page_attention [{ps}, {h}, {dh}] Hq {hq}"
+        records[key] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bound,
+            bound_by=by, library_ms=attention_yardstick_ms(
+                q, pid, tid, meta, jobmeta, planes, page, 128),
+            shape=[*pid.shape, ps, h, dh], hq=hq,
+            head_blocks=h // fpa.heads_per_block(hq, h, dh),
+            acc_err_share_of_tolerance=share)
+        print(f"{key} ({name}): " + json.dumps(records[key]))
+        del q, planes
+        torch.cuda.empty_cache()
+
+
+def check_minitron_matmul(device, records):
+    """Kernel 5 at minitron-8b's new packed sites (``matmul_rows``),
+    quantized from normal weights as ``pack_weights`` does: the untied
+    head ``unembed`` [4096, 256000] and the squared-ReLU FFN's w_up
+    [4096, 16384] and w_down [16384, 4096] at M = 4 (a decode step), and
+    w_up at M = 77 (a prefill)."""
+    import torch
+    from repro_torch.core import quant
+    g = torch.Generator(device=device).manual_seed(9)
+    for name, k, n, ms_ in (("unembed", 4096, 256000, (4,)),
+                            ("w_up", 4096, 16384, (4, 77)),
+                            ("w_down", 16384, 4096, (4,))):
+        w = torch.randn(k, n, generator=g, device=device) * k ** -0.5
+        q, qp = quant.quantize_symmetric(w, axis=-1)
+        del w
+        _, rows = matmul_rows(name, q, qp.scale.reshape(-1), ms_, g)
+        for row in rows:
+            records[f"decompress_matmul minitron-8b {name} "
+                    f"M={row['shape'][0]}"] = row
+            print("decompress_matmul minitron-8b: " + json.dumps(row))
         del q, rows
         torch.cuda.empty_cache()
 
@@ -1195,9 +1332,34 @@ def packed_sites(params):
             for name, pw in b[grp].items() if isinstance(pw, PackedWeight)]
 
 
+def with_head(params):
+    """``packed_sites`` of a packed tree, and its untied head when that is
+    packed, as (None, "head", "unembed", PackedWeight)."""
+    from repro_torch.models.modules import PackedWeight
+    head = params.get("unembed")
+    return packed_sites(params) + ([(None, "head", "unembed", head)]
+                                   if isinstance(head, PackedWeight) else [])
+
+
+def site(params, i, grp, name):
+    """The leaf of ``params`` at a site as ``with_head`` names it."""
+    return params["unembed"] if i is None else params["blocks"][i][grp][name]
+
+
+def cut_sites(layers: int) -> set:
+    """(layer, group, name) of every site a packed engine may pack in the
+    first ``layers`` layers, and the untied head: the sites whose
+    originals a packed serve keeps for the checks after it."""
+    return {(i, grp, n) for i in range(layers)
+            for grp, names in (("inner", ("wq", "wk", "wv", "wo")),
+                               ("ffn", ("w_up", "w_gate", "w_down")))
+            for n in names} | {(None, "head", "unembed")}
+
+
 def oracle_stores(packed_params, host_weights):
     """The stores the packed path is checked against, built from a host
-    copy of the original f32 weights of every packed site: each quantized
+    copy of the original weights of every packed site (``with_head``: the
+    untied head too), in f32 as ``pack_weights`` reads them: each quantized
     again with the same convention and multiplied back, as the JAX
     package's parity oracle does (``tests/test_packed_weights.py::
     _packed_and_dense``).  Returns param trees keyed by store:
@@ -1227,16 +1389,19 @@ def oracle_stores(packed_params, host_weights):
                               for g, v in b.items()}
                              for b in packed_params["blocks"]]}
               for k in ("oracle32", "oracle64", "dense")}
-    for i, grp, name, pw in packed_sites(packed_params):
-        w = host_weights[i, grp, name].to(pw.cw.scale.device)
+    for i, grp, name, pw in with_head(packed_params):
+        w = host_weights[i, grp, name].to(pw.cw.scale.device).float()
         q, qp = quant.quantize_symmetric(w, axis=-1)
+        del w
         wd = quant.dequantize_symmetric(q, qp)
         w2 = wd.reshape(pw.cw.k, pw.cw.n)
-        stores["oracle32"]["blocks"][i][grp][name] = OracleWeight(
-            pw, w2, torch.float32)
-        stores["oracle64"]["blocks"][i][grp][name] = OracleWeight(
-            pw, w2, torch.float64)
-        stores["dense"]["blocks"][i][grp][name] = wd.to(torch.bfloat16)
+        for k, leaf in (("oracle32", OracleWeight(pw, w2, torch.float32)),
+                        ("oracle64", OracleWeight(pw, w2, torch.float64)),
+                        ("dense", wd.to(torch.bfloat16))):
+            if i is None:
+                stores[k]["unembed"] = leaf
+            else:
+                stores[k]["blocks"][i][grp][name] = leaf
     return stores
 
 
@@ -1257,8 +1422,9 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
     steps).  Returns a dict with the summary, the counts, a snapshot of
     the PACKED KV pages, the first step's logits, the engine, the
     requests and (packed weights only) a host copy of the original f32
-    weight of every packed site (of ``keep_sites``, (layer, group, name)
-    triples, when given), from which the checks after the serve build
+    weight of every packed site, the untied head included (of
+    ``keep_sites``, (layer, group, name) triples as ``with_head`` names
+    them, when given), from which the checks after the serve build
     their oracle stores; nothing but the engine is on the card while it
     serves, so ``max_memory_gb`` is the engine's.  ``engine_kw`` adds
     engine options (refresh, pressure); ``setup(eng)`` runs once the engine
@@ -1287,8 +1453,8 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                       kv_page_size=16, kv_calib_pages=calib_pages,
                       kv_fused=fused, weights=weights, device=device,
                       **(engine_kw or {}))
-    host_weights = {(i, grp, name): params["blocks"][i][grp][name].cpu()
-                    for i, grp, name, _ in packed_sites(eng.params)
+    host_weights = {(i, grp, name): site(params, i, grp, name).cpu()
+                    for i, grp, name, _ in with_head(eng.params)
                     if keep_sites is None or (i, grp, name) in keep_sites}
     del params
     if setup is not None:
@@ -1332,6 +1498,7 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                "steps": eng.stats["steps"],
                "median_step_ms": d["median_step_ms"],
                "max_step_ms": d["max_step_ms"],
+               "longest_step": d["longest_step"],
                "first_step_s": d["first_step_s"],
                "weight_pack_s": eng.weight_pack_s, "launches": launches,
                "launches_per_step": {k: v / eng.stats["steps"]
@@ -1395,8 +1562,12 @@ def drive(eng, reqs, hook=None, tag="drive") -> dict:
     the timing, its kernel launches (checks) counted apart and its memory
     left out of the peak.  Returns the tokens, the wall, median and
     longest step time (step 0 admits and calibrates, so they leave it
-    out), the hooks' launches, the peak memory and (paged KV) this serve's
-    KV read ratio, tables included."""
+    out), the hooks' launches, the peak memory, where the longest step's
+    time went (``longest_step``: its index, the host's time to return from
+    ``step()``, the process's CPU time over it, all threads, and the
+    allocator's retries over the serve, each a cudaFree of the cache and
+    a cudaMalloc again) and (paged KV) this serve's KV read ratio, tables
+    included."""
     import numpy as np
     import torch
     import repro_torch
@@ -1406,15 +1577,19 @@ def drive(eng, reqs, hook=None, tag="drive") -> dict:
     checks = dict.fromkeys(repro_torch.launch_counts(), 0)
     peak = 0
     step_s = []
+    parts = []
     paused = 0.0
     sync_each = getattr(eng, "scheduler", "sync") == "sync"
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     t0 = time.perf_counter()
     while True:
-        ts = time.perf_counter()
+        ts, cs = time.perf_counter(), time.process_time()
         n = eng.step()
+        th = time.perf_counter()
         if sync_each:
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - ts)
+        parts.append((th - ts, time.process_time() - cs))
         if n == 0 and not eng.queue:
             break
         if hook is not None:
@@ -1431,7 +1606,13 @@ def drive(eng, reqs, hook=None, tag="drive") -> dict:
     wall = time.perf_counter() - t0 - paused
     if not all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs):
         raise AssertionError(f"{tag}: not every request completed")
+    i = int(np.argmax(step_s[1:])) + 1
     out = {"tokens": [r.tokens for r in reqs], "wall_s": wall,
+           "longest_step": {
+               "index": i, "ms": step_s[i] * 1e3,
+               "host_ms": parts[i][0] * 1e3, "cpu_ms": parts[i][1] * 1e3,
+               "alloc_retries": torch.cuda.memory_stats().get(
+                   "num_alloc_retries", 0) - retries},
            "median_step_ms": float(np.median(step_s[1:]) * 1e3),
            "max_step_ms": float(np.max(step_s[1:]) * 1e3),
            "first_step_s": step_s[0], "check_launches": checks,
@@ -1637,13 +1818,13 @@ def pressure_phase(device, fused_tokens: list, layers: int = 28) -> None:
 ROBUSTNESS_RUNS = ("refresh two-phase", "pressure", "fault")
 
 
-def _on(base: dict, dev):
-    """A copy of a CPU param tree on ``dev``."""
-    return {"embed": base["embed"].to(dev),
-            "final_norm": base["final_norm"].to(dev),
-            "blocks": [{k: ({kk: vv.to(dev) for kk, vv in v.items()}
-                            if isinstance(v, dict) else v.to(dev))
-                        for k, v in b.items()} for b in base["blocks"]]}
+def _on(base, dev):
+    """A copy of a CPU param tree (dicts, lists, tensors) on ``dev``."""
+    if isinstance(base, dict):
+        return {k: _on(v, dev) for k, v in base.items()}
+    if isinstance(base, list):
+        return [_on(v, dev) for v in base]
+    return base.to(dev)
 
 
 def robustness_run(name: str, dev) -> dict:
@@ -1866,8 +2047,9 @@ def async_smoke_vs_cpu(device, twins: dict, arch: str) -> None:
                              "with the CPU")
 
 
-def check_packed_sites(eng, weight_of, tag):
-    """Each packed site of the served model for which
+def check_packed_sites(eng, weight_of, tag, sites=None):
+    """Each packed site (``sites``, by default ``packed_sites`` of the
+    engine's params) of the served model for which
     ``weight_of(layer, group, name, packed)`` gives a weight (the f32
     dequantized weight on the card, else None), through the kernel,
     against one f32 product on that weight, at M = 4 and a prefill M (77):
@@ -1877,8 +2059,9 @@ def check_packed_sites(eng, weight_of, tag):
     import torch
     g = torch.Generator(device=eng.device).manual_seed(4)
     worst = worst_ratio = 0.0
-    sites = []
-    for i, grp, name, pw in packed_sites(eng.params):
+    checked = []
+    for i, grp, name, pw in (packed_sites(eng.params) if sites is None
+                             else sites):
         w = weight_of(i, grp, name, pw)
         if w is None:
             continue
@@ -1896,19 +2079,21 @@ def check_packed_sites(eng, weight_of, tag):
                     "f64")
             worst = max(worst, (err / bound).max().item())
             worst_ratio = max(worst_ratio, ratio)
-        sites.append(f"{i}/{grp}/{name}")
-    print(f"{tag} packed sites {sites}: M = 4 and 77 within the f32 bound "
-          f"(worst {worst:.3g} of it); error against f64 at most "
+        checked.append(name if i is None else f"{i}/{grp}/{name}")
+    print(f"{tag} packed sites {checked}: M = 4 and 77 within the f32 bound"
+          f" (worst {worst:.3g} of it); error against f64 at most "
           f"{worst_ratio:.3g}x cuBLAS f32's (limit {F64_ERR_RATIO})")
-    return sites
+    return checked
 
 
-def teacher_forced(run, stores):
+def teacher_forced(run, stores, layers=None):
     """Re-score the packed engine's sequences teacher-forced, one forward
     per store, as the JAX package scores packed-weight parity
     (``tests/test_packed_weights.py::_parity``), over the positions that
-    predicted generated tokens.  The stores: ``packed`` (the engine's, the
-    kernel), ``oracle32``/``oracle64`` and ``dense`` (``oracle_stores``).
+    predicted generated tokens; through the first ``layers`` layers of
+    every store when given (the stores may hold only those) and its head.
+    The stores: ``packed`` (the engine's, the kernel),
+    ``oracle32``/``oracle64`` and ``dense`` (``oracle_stores``).
 
     The gate: the RMS logit drift of ``packed~oracle64`` at most
     ``RMS_DRIFT_RATIO`` times that of ``oracle32~oracle64``, the drift of
@@ -1922,10 +2107,15 @@ def teacher_forced(run, stores):
     accumulate from any difference in f32 rounding, and
     ``oracle32~oracle64`` (two implementations of the same exact math)
     agree no better."""
+    import dataclasses
     import torch
     from repro_torch.models import model as M
     cfg, eng = run["cfg"], run["eng"]
     stores = {"packed": eng.params, **stores}
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        stores = {k: {**p, "blocks": p["blocks"][:layers]}
+                  for k, p in stores.items()}
     pairs = ("packed~oracle64", "oracle32~oracle64", "packed~dense")
     agree = dict.fromkeys(pairs, 0)
     sq = dict.fromkeys(pairs, 0.0)
@@ -1947,7 +2137,8 @@ def teacher_forced(run, stores):
     rms = {k: (v / (total * cfg.vocab_size)) ** 0.5 for k, v in sq.items()}
     drift = rms["packed~oracle64"] / rms["oracle32~oracle64"]
     print("teacher-forced: " + json.dumps(
-        {"positions": total, "agreement": rates, "rms_logit_diff": rms,
+        {"layers": cfg.num_layers, "positions": total, "agreement": rates,
+         "rms_logit_diff": rms,
          "reference_metric": {"packed~dense": rates["packed~dense"],
                               "reference_gate": AGREEMENT_GATE,
                               "met": rates["packed~dense"] >= AGREEMENT_GATE},
@@ -2282,7 +2473,17 @@ SMOKE_CASES = (
     for w, mode, kw in (("dense", "fused", {}),
                         ("dense", "oracle", {"fused": False}),
                         ("dense", "int8", {"kv": "int8"}),
-                        ("apack-int8", "fused", {"weights": "apack-int8"})))
+                        ("apack-int8", "fused", {"weights": "apack-int8"}))
+) + tuple(
+    ((arch, w, "fused"), {"arch": arch, **kw})
+    for arch, packed in (("minitron-8b", True), ("command-r-plus-104b", False),
+                         ("paligemma-3b", False), ("dbrx-132b", False),
+                         ("kimi-k2-1t-a32b", True))
+    for w, kw in (("dense", {}),) + ((("apack-int8", {"weights":
+                                                      "apack-int8"}),)
+                                     if packed else ()))
+# the stacks with rolling layers, whose SMOKE engines must evict pages
+ROLLING_SMOKE = ("hetero-serve-smoke", "recurrentgemma-9b")
 
 
 def smoke_engine_run(dev, weights=None, kv="apack-int8", fused=True,
@@ -2295,7 +2496,9 @@ def smoke_engine_run(dev, weights=None, kv="apack-int8", fused=True,
     ``roundtrip=True`` serves the weights after ``compress_params`` (every
     stacked matrix of 64 elements or more, the norm scales included) and
     ``decompress_params``.  ``arch`` "hetero-serve-smoke" or
-    "recurrentgemma-9b" (window 8) serves a heterogeneous stack.  Returns
+    "recurrentgemma-9b" (window 8) serves a heterogeneous stack; another
+    decoder of the registry (minitron-8b, command-r-plus-104b,
+    paligemma-3b, dbrx-132b, kimi-k2-1t-a32b) its own SMOKE stack.  Returns
     the tokens, the first request's prefill logits, ``weight_stats()``,
     the KV stats and (round trip) the ``CompressedParams`` and the
     decompressed weights on the CPU."""
@@ -2345,9 +2548,11 @@ def smoke_vs_cpu(device, twins: dict, key) -> list:
     the decompress-matmul kernel sums inside a K tile in another order
     than the CPU's f32 GEMM).  With the round trip, the two devices'
     ``CompressedParams`` must be identical (containers, scales, byte
-    counts) and so must the decompressed weights.  A heterogeneous stack's
-    paged engines must also give equal ``kv_ratio``, stream stats and
-    ``kv_pages_evicted`` (> 0).  Returns the card's tokens."""
+    counts) and so must the decompressed weights.  The paged engines of
+    every stack but qwen3-1.7b must also give equal ``kv_ratio``, stream
+    stats and page counts, and those of a stack with rolling layers
+    (``ROLLING_SMOKE``) ``kv_pages_evicted`` > 0.  Returns the card's
+    tokens."""
     import torch
     arch = key[0]
     case = dict(SMOKE_CASES)[key]
@@ -2361,7 +2566,8 @@ def smoke_vs_cpu(device, twins: dict, key) -> list:
     same_ws = c["ws"] == d["ws"]
     same_kv = c["kv"] == d["kv"]
     hetero = arch != "qwen3-1.7b"
-    if hetero and d["paged"] and not d["kv"]["kv_pages_evicted"] > 0:
+    if arch in ROLLING_SMOKE and d["paged"] \
+            and not d["kv"]["kv_pages_evicted"] > 0:
         raise AssertionError(f"SMOKE {arch}: no page rolled out")
     tag = f"{arch}, {key[1]} weights, {key[2]} KV"
     if d["cp"] is not None:
@@ -2379,8 +2585,10 @@ def smoke_vs_cpu(device, twins: dict, key) -> list:
     print(f"smoke engine [{tag}] card vs cpu: prefill logit "
           f"max diff {diff:.3g} (bound {step:.3g}), greedy tokens identical "
           f"{same}, weight_stats equal {same_ws}, kv stats equal {same_kv}"
-          + (f" {json.dumps(d['kv'])}" if hetero else ""))
-    if diff > step or not same or not same_ws or (hetero and not same_kv):
+          + (f" {json.dumps(d['kv'])}" if arch in ROLLING_SMOKE
+             else f" kv_ratio {d['kv'].get('kv_ratio')}" if hetero else ""))
+    if diff > step or not same or not same_ws or (
+            hetero and d["paged"] and not same_kv):
         raise AssertionError(f"SMOKE engine [{tag}] on the card disagrees "
                              "with the CPU")
     return d["tokens"]
@@ -2686,7 +2894,6 @@ def recurrentgemma_phase(device):
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import quant
     from repro_torch.models import model as M
     t_phase = time.perf_counter()
     cfg = get_config("recurrentgemma-9b")
@@ -2800,15 +3007,8 @@ def recurrentgemma_phase(device):
                              .manual_seed(0), device))
     eng, s = packed["eng"], packed["summary"]
     host = packed.pop("host_weights")
-
-    def dequantized(i, grp, name, pw):
-        if (i, grp, name) not in host:
-            return None
-        q, qp = quant.quantize_symmetric(host[i, grp, name].to(eng.device),
-                                         axis=-1)
-        return quant.dequantize_symmetric(q, qp).reshape(pw.cw.k, pw.cw.n)
-    if len(check_packed_sites(eng, dequantized, "recurrentgemma-9b")) \
-            != len(host):
+    if len(check_packed_sites(eng, dequantized_site(host, eng.device),
+                              "recurrentgemma-9b")) != len(host):
         raise AssertionError(f"recurrentgemma-9b: a site of {sorted(host)} "
                              "was not checked")
     ws = s["weight_stats"]
@@ -2831,6 +3031,178 @@ def recurrentgemma_phase(device):
     torch.cuda.empty_cache()
     print(f"recurrentgemma-9b phase: {time.perf_counter() - t_phase:.1f} s")
     return launches, rg_k5
+
+
+# ------------------------------------------------------ new architectures
+def arch_params(device, arch, layers=None, serving=True):
+    """Seed-0 random params of ``arch`` at published widths (``layers``
+    layers, its own depth when None) on the card, in ``param_dtype``, and
+    their bf16 serving copy when ``serving``; prints the count, the init
+    seconds and the peak memory.  Returns (cfg, params)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    n_params = sum(t.numel() for t in param_leaves(params))
+    if serving:
+        params = M.serving_params(params)
+    torch.cuda.synchronize()
+    print(f"{arch}: " + json.dumps({
+        "layers": cfg.num_layers, "params": n_params,
+        "param_dtype": cfg.param_dtype, "init_s": time.perf_counter() - t0,
+        "weights_gb": sum(nbytes(t) for t in param_leaves(params)) / 1e9,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    return cfg, params
+
+
+def dequantized_site(host, device):
+    """``weight_of`` for ``check_packed_sites``: the f32 weight of a site
+    whose original is in ``host`` (keyed as ``packed_sites`` names it, the
+    head as (None, "head", "unembed")), quantized and dequantized again on
+    the card as ``pack_weights`` does, as the [K, N] matrix."""
+    from repro_torch.core import quant
+
+    def weight_of(i, grp, name, pw):
+        if (i, grp, name) not in host:
+            return None
+        q, qp = quant.quantize_symmetric(
+            host[i, grp, name].to(device).float(), axis=-1)
+        return quant.dequantize_symmetric(q, qp).reshape(pw.cw.k, pw.cw.n)
+    return weight_of
+
+
+def new_arch_summary(fused, packed, prof) -> dict:
+    """The numbers (g) and (h) print of their fused and packed serves."""
+    s, p = fused["summary"], packed["summary"]
+    ws = p["weight_stats"]
+    return {"layers": s["layers"],
+            "kv_ratio": {"fused": s["kv_ratio"], "packed": p["kv_ratio"]},
+            "weight_ratio": ws["weight_ratio"],
+            "native_ratio": ws["native_ratio"],
+            "packed_tensors": ws["packed_tensors"],
+            "weight_pack_s": p["weight_pack_s"],
+            "median_step_ms": {"fused": s["median_step_ms"],
+                               "packed": p["median_step_ms"]},
+            "max_step_ms": {"fused": s["max_step_ms"],
+                            "packed": p["max_step_ms"]},
+            "tokens_per_s": {"fused": s["tokens_per_s"],
+                             "packed": p["tokens_per_s"]},
+            "idle_share_fused": prof["idle_share"],
+            "max_memory_gb": {"fused": s["max_memory_gb"],
+                              "packed": p["max_memory_gb"]},
+            "token_agreement_packed_vs_fused": token_agreement(
+                [r.tokens for r in packed["reqs"]], fused["tokens"]),
+            "launches_per_step": {
+                "fused_page_attention":
+                    s["launches_per_step"]["fused_page_attention"],
+                "decompress_matmul":
+                    p["launches_per_step"]["decompress_matmul"]}}
+
+
+def new_arch_phase(device, arch, tag, layers=None, sites=()):
+    """(g) and (h): ``arch`` at published widths (``layers`` layers, its
+    own depth when None), seed-0 random weights: the fused paged APack KV
+    serve of phase 3's requests from the bf16 serving copy, with a
+    profiler window; then a serve from packed weights (the draw again in
+    ``param_dtype``, packed with its untied head: the head's product
+    through kernel 5), checked as phase 4's: layer 0's packed sites (which
+    must be ``sites``, (group, name) pairs) and the head against f32 and
+    f64 products, and ``teacher_forced`` through the first ``CUT_LAYERS``
+    layers (all of a shallower cut) and the head against ``oracle_stores``
+    (its RMS drift gate); ``weight_stats()`` and the packing seconds
+    printed.  Returns the summary (``new_arch_summary``)."""
+    import gc
+    import torch
+    t_phase = time.perf_counter()
+    gc.collect()                # the previous phase's engines, before the
+    torch.cuda.empty_cache()    # draw: its peak memory is this phase's
+    cfg, params = arch_params(device, arch, layers)
+    kw = dict(arch=arch, layers=cfg.num_layers)
+    fused = serve_full_width(device, params=params, **kw)
+    del params
+    prof = profile_steady_steps(fused["eng"], fused["cfg"], fused["rng"],
+                                f"{arch} fused")
+    verify_packed(fused["snapshot"])
+    fused = {"summary": fused["summary"],
+             "tokens": [r.tokens for r in fused["reqs"]]}
+    torch.cuda.empty_cache()
+    box = [arch_params(device, arch, layers, serving=False)[1]]
+    cut = min(CUT_LAYERS, cfg.num_layers)
+    packed = serve_full_width(device, weights="apack-int8",
+                              keep_sites=cut_sites(cut), params=box.pop(),
+                              **kw)
+    eng = packed["eng"]
+    stores = oracle_stores({**eng.params,
+                            "blocks": eng.params["blocks"][:cut]},
+                           packed.pop("host_weights"))
+    checked = check_packed_sites(eng, lambda i, grp, name, pw: (
+        site(stores["oracle32"], i, grp, name).w if i in (0, None)
+        else None), arch, sites=with_head(eng.params))
+    want = [f"0/{g}/{n}" for g, n in sites] + ["unembed"]
+    if sorted(checked) != sorted(want):
+        raise AssertionError(f"{arch}: checked the packed sites {checked}, "
+                             f"expected {want}")
+    out = new_arch_summary(fused, packed, prof)
+    out["teacher_forced"] = teacher_forced(packed, stores, layers=cut)
+    del stores
+    print(f"{arch} ({tag}): " + json.dumps(out))
+    verify_packed(packed["snapshot"])
+    del packed, eng
+    torch.cuda.empty_cache()
+    print(f"{arch} phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def hubert_phase(device) -> dict:
+    """hubert-xlarge at published widths and depth (48 encoder layers,
+    d_model 1280, 16 heads of 80, gelu d_ff 5120, 504 cluster units),
+    seed-0 random weights from their bf16 serving copy: one forward of
+    [2, 400] frame embeddings (the audio stub frontend), finite logits of
+    shape [2, 400, 504], and the encoder's bidirectionality
+    (``test_encoder_is_bidirectional``): a change to the last frame of
+    sequence 0 moves its first frame's logits.  The engine refuses an
+    encoder (no decode path)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    cfg, params = arch_params(device, "hubert-xlarge")
+    g = torch.Generator(device=device).manual_seed(3)
+    fe = torch.randn(2, 400, cfg.d_model, generator=g, device=device)
+    M.forward(cfg, params, frame_embeds=fe)             # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = M.forward(cfg, params, frame_embeds=fe)[0]
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fe2 = fe.clone()
+    fe2[0, -1] += 10.0
+    logits2 = M.forward(cfg, params, frame_embeds=fe2)[0]
+    moved = (logits2[0, 0] - logits[0, 0]).abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    if tuple(logits.shape) != (2, 400, cfg.vocab_size) or not finite \
+            or not moved > 0:
+        raise AssertionError(f"hubert-xlarge: logits {tuple(logits.shape)},"
+                             f" finite {finite}, first frame moved by "
+                             f"{moved}")
+    try:
+        ServeEngine(cfg, params, device=device)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("hubert-xlarge: the engine served an encoder")
+    out = {"layers": cfg.num_layers, "frames": [2, 400],
+           "forward_ms": fwd_ms, "first_frame_moved_by": moved,
+           "engine_refusal": refused}
+    print("hubert-xlarge: " + json.dumps(out))
+    del params, logits, logits2
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------- phase 5
@@ -3055,6 +3427,11 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     new_records: dict = {}
     check_repack_batch(device, new_records)
     check_rg_matmul(device, new_records)
+    # kernel 3 at minitron's, dbrx's and kimi's pages (head blocks past
+    # 4096 values), kernel 5 at
+    # minitron-8b's head and squared-ReLU FFN
+    check_attention_heads(device, new_records)
+    check_minitron_matmul(device, new_records)
     lap("2 kernel checks")
     # phase 3: dense weights, the fused KV path's three kernels
     sync_parts: dict = {}
@@ -3082,14 +3459,21 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     # background: after the kernel checks, whose plain versions use every
     # core, and after the step times that (e) compares
     twins_run["proc"], twins_path = start_cpu_twins()
-    # phase 4: the main path, packed weights at full depth
-    packed = serve_full_width(device, layers=28, weights="apack-int8")
-    stores = oracle_stores(packed["eng"].params, packed.pop("host_weights"))
-    ends = (0, len(stores["oracle32"]["blocks"]) - 1)
-    check_packed_sites(packed["eng"], lambda i, grp, name, pw: (
+    # phase 4: the main path, packed weights at full depth; its checks
+    # after the serve (sites, teacher-forced re-score) at the first
+    # CUT_LAYERS layers
+    packed = serve_full_width(device, layers=28, weights="apack-int8",
+                              keep_sites=cut_sites(CUT_LAYERS))
+    eng4 = packed["eng"]
+    stores = oracle_stores({**eng4.params,
+                            "blocks": eng4.params["blocks"][:CUT_LAYERS]},
+                           packed.pop("host_weights"))
+    ends = (0, CUT_LAYERS - 1)
+    check_packed_sites(eng4, lambda i, grp, name, pw: (
         stores["oracle32"]["blocks"][i][grp][name].w if i in ends else None),
-        "qwen3-1.7b, layers 0 and 27,")
-    teacher_forced(packed, stores)
+        f"qwen3-1.7b, layers 0 and {CUT_LAYERS - 1},")
+    del eng4
+    teacher_forced(packed, stores, layers=CUT_LAYERS)
     del stores
     torch.cuda.empty_cache()
     profile_steady_steps(packed["eng"], packed["cfg"], packed["rng"],
@@ -3121,6 +3505,7 @@ def card_phases(t_script: float, twins_run: dict) -> int:
         "first_step_max_logit_diff": (oracle["first_logits"]
                                       - cut["first_logits"]).abs().max()
         .item()}))
+    cut_tokens = [r.tokens for r in cut["reqs"]]
     del cut
     profile_steady_steps(oracle["eng"], oracle["cfg"], oracle["rng"],
                          "oracle")
@@ -3129,15 +3514,16 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     del oracle
     torch.cuda.empty_cache()
     lap("5 oracle serve")
-    # phase 6: preempt and resume on the fused path
-    pre = serve_full_width(device, layers=28, hook=preempt_hook)
+    # phase 6: preempt and resume on the fused path, at phase 5's fused
+    # twin's depth (tables differ, tokens cannot: the coder is lossless)
+    pre = serve_full_width(device, layers=CUT_LAYERS, hook=preempt_hook)
     st = pre["eng"].stats
     print(f"preempt serve: preempted {st['preempted']} resumed "
           f"{st['resumed']}")
     if st["preempted"] != 1 or st["resumed"] != 1:
         raise AssertionError("preempt serve: slot 0 was not preempted and "
                              "resumed once")
-    if [r.tokens for r in pre["reqs"]] != fused_tokens:
+    if [r.tokens for r in pre["reqs"]] != cut_tokens:
         raise AssertionError("preempt serve: tokens differ from the "
                              "uninterrupted fused serve")
     del pre
@@ -3172,6 +3558,17 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     # page eviction and state snapshots; (c) from packed weights
     rg_launches, rg_k5 = recurrentgemma_phase(device)
     lap("9 recurrentgemma-9b, (c)")
+    # (g) minitron-8b at published widths and depth, (h) dbrx-132b at
+    # published widths, 2 layers, and hubert-xlarge's forward
+    attn = tuple(("inner", n) for n in ("wq", "wk", "wv", "wo"))
+    mini = new_arch_phase(device, "minitron-8b", "g", sites=attn + (
+        ("ffn", "w_up"), ("ffn", "w_down")))
+    lap("(g) minitron-8b")
+    dbrx = new_arch_phase(device, "dbrx-132b", "h", layers=DBRX_LAYERS,
+                          sites=attn)
+    lap("(h) dbrx-132b")
+    hubert_phase(device)
+    lap("hubert-xlarge")
     twins = wait_cpu_twins(twins_run["proc"], twins_path)
     lap("10 wait for the CPU twins")
     tokens = {key: smoke_vs_cpu(device, twins, key)
@@ -3185,7 +3582,7 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     for key, _ in SMOKE_CASES:
         if key[0] != "qwen3-1.7b":
             smoke_vs_cpu(device, twins, key)
-    lap("10 SMOKE heterogeneous")
+    lap("10 SMOKE other stacks")
     # (d) refresh, pressure and a fault run, and the async engine on the
     # heterogeneous stack, card against CPU
     smoke_robustness_vs_cpu(device, twins)
@@ -3218,6 +3615,10 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     for name in ("apack_decode", "apack_encode", "fused_page_attention"):
         extra.setdefault(name, {})["async_launches_per_step"] = \
             async_per_step[name]
+    # kernels 3 and 5 a step of (g) (fused, packed) and (h)
+    for tag, run in (("minitron", mini), ("dbrx", dbrx)):
+        for name, n in run["launches_per_step"].items():
+            extra[name][f"{tag}_launches_per_step"] = n
     kernels = []
     for name in _build.KERNELS:
         r = records[name]
@@ -3232,8 +3633,10 @@ def card_phases(t_script: float, twins_run: dict) -> int:
                         **extra.get(name, {})})
     print("kernels at recurrentgemma-9b's page [16, 1, 256]: " + json.dumps(
         {"records": rg_records, "serve_launches": rg_launches}))
-    print("kernels at the re-pack batch and recurrentgemma-9b's packed "
-          "sites: " + json.dumps(new_records))
+    print("kernels at the re-pack batch, recurrentgemma-9b's packed sites, "
+          "minitron-8b's, dbrx's and kimi's pages and minitron-8b's packed "
+          "sites: "
+          + json.dumps(new_records))
     print(f"phase seconds: {json.dumps(laps)}")
     print(f"script: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps({"kernels": kernels}))

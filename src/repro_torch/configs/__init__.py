@@ -1,25 +1,41 @@
 """Architecture registry of the port: ``get_config(name)`` /
-``get_smoke_config(name)``.  Port of ``repro/configs/__init__.py``; it holds
-only the architectures the port serves so far, plus the synthetic
-``hetero-serve-smoke`` stack (``get_hetero_smoke_config``, :48)."""
+``get_smoke_config(name)`` / ``all_arch_ids()``.  Port of
+``repro/configs/__init__.py``; it holds every architecture of the JAX
+package but xlstm-125m, which is refused naming its ROADMAP item, plus
+the synthetic ``hetero-serve-smoke`` stack (``get_hetero_smoke_config``,
+:48)."""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 
-from . import qwen3_1_7b, recurrentgemma_9b
-
-_ARCHS = {"qwen3-1.7b": qwen3_1_7b, "qwen3_1_7b": qwen3_1_7b,
-          "recurrentgemma-9b": recurrentgemma_9b,
-          "recurrentgemma_9b": recurrentgemma_9b}
+# assignment ids -> module names (``ALIASES`` :13), the JAX registry's order
+ALIASES = {
+    "qwen3-1.7b": "qwen3_1_7b",
+    "minitron-4b": "minitron_4b",
+    "minitron-8b": "minitron_8b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "hubert-xlarge": "hubert_xlarge",
+    "paligemma-3b": "paligemma_3b",
+    "dbrx-132b": "dbrx_132b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "xlstm-125m": "xlstm_125m",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+}
+# architectures whose layer kinds the port does not serve yet
+UNPORTED = {"xlstm_125m": "mLSTM/sLSTM layers"}
 
 
 def _module(name: str):
-    if name not in _ARCHS:
+    mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod in UNPORTED:
         raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ROADMAP open item "
-            "1.9, remaining architectures); the port serves "
-            "qwen3-1.7b, recurrentgemma-9b and hetero-serve-smoke")
-    return _ARCHS[name]
+            f"architecture {name!r} is not ported yet: {UNPORTED[mod]} "
+            "(ROADMAP open item 1.9, remaining architectures)")
+    if mod not in ALIASES.values():
+        raise ValueError(f"unknown architecture {name!r}; expected one of "
+                         f"{all_arch_ids()} or hetero-serve-smoke")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def get_config(name: str):
@@ -34,12 +50,19 @@ def get_smoke_config(name: str):
     return _module(name).SMOKE
 
 
+def all_arch_ids() -> list[str]:
+    """Every architecture id of the JAX registry (``all_arch_ids`` :42),
+    xlstm-125m included, which ``get_config`` refuses."""
+    return list(ALIASES)
+
+
 def get_hetero_smoke_config():
     """Synthetic heterogeneous serving smoke: one cycle of global +
     rolling-window + recurrent blocks after a recurrent prefix layer, with
     a window small enough that rolling-page eviction triggers within a few
     dozen decode steps."""
     return dataclasses.replace(
-        qwen3_1_7b.SMOKE, name="hetero-serve-smoke", family="hybrid",
-        num_layers=4, block_pattern=("global", "local", "recurrent"),
+        get_smoke_config("qwen3-1.7b"), name="hetero-serve-smoke",
+        family="hybrid", num_layers=4,
+        block_pattern=("global", "local", "recurrent"),
         prefix_pattern=("recurrent",), window_size=8, lru_width=64)

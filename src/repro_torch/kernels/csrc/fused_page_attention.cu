@@ -35,6 +35,21 @@
 //     rounding, and deterministic (no atomics).  With one pass-1 block per
 //     job it is exact.
 //
+// Head blocks: a thread keeps MAX_ACC accumulators, so one block holds the
+// acc of at most MAX_ACC * THREADS = 4096 query-head values.  Past that
+// (dbrx-132b's 48 x 128, kimi-k2's 64 x 112, command-r-plus's 96 x 128) a
+// third grid axis splits the KV heads into blocks of `hpb` heads, each
+// within the limit (the wrapper picks the largest divisor of H that fits):
+// block (j, b, z) scores and folds only query heads [z hpb g, (z+1) hpb g)
+// and writes their slice of the partials; the combine pass is unchanged.
+// A PACKED page's K/V streams interleave heads (each stream is a run of
+// n_steps values of the [ps, H, dh] page), so a head block decodes only the
+// streams whose run touches its heads: with runs aligned to a head's dh
+// values (dbrx) each stream is decoded once over all head blocks, and where
+// a run straddles two heads (kimi's 128-value runs over dh 112) it is
+// decoded by both head blocks.  With one head block (every page at most
+// 4096 query-head values) the kernel is the single-block design above.
+//
 // What bounds it on the card: the serial decode of a PACKED page (128
 // dependent steps a stream at full width), not bytes: a page is ~24 KB of
 // planes and the job's scores are a few MFLOP.  One page a block puts all
@@ -50,7 +65,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int COMBINE_THREADS = 128;
-constexpr int MAX_ACC = 16;         // Hq * dh <= MAX_ACC * THREADS
+constexpr int MAX_ACC = 16;         // hpb * g * dh <= MAX_ACC * THREADS
 constexpr float NEG_INF = -1e30f;   // the reference's mask value
 constexpr int PAGE_FREE = 0, PAGE_HOT = 1, PAGE_COLD = 2, PAGE_PACKED = 3;
 
@@ -75,10 +90,25 @@ struct Args {
   float* l_out;                    // [J, NB, Hq]
   int P, Pp, T, Hq, H, dh, ps, S, Ws, Wo, n_steps, bits;
   int ppb, rs, ro;                 // pages a block; staged plane rows
+  int hpb;                         // KV heads a block (blockIdx.z's)
   float scale, softcap;
 };
 
 constexpr int TAB_BYTES = 16 * 16 + 80;   // int4 rows[16], int cum[17] + pad
+
+// Does the run of values of stream s (n_steps values of the [ps, H, dh]
+// page, flattened) hold a value of KV heads [kh0, kh0 + hpb)?
+__device__ __forceinline__ bool stream_in_heads(int s, int n_steps, int dh,
+                                                int H, int kh0, int hpb) {
+  const int r0 = s * n_steps / dh;                 // first (token, head) row
+  const int r1 = ((s + 1) * n_steps - 1) / dh;     // last
+  if (r1 - r0 + 1 >= H) return true;
+  for (int r = r0; r <= r1; ++r) {
+    const int kh = r % H;
+    if (kh >= kh0 && kh < kh0 + hpb) return true;
+  }
+  return false;
+}
 
 // Shared memory of pass 1: the int8 K and V tiles, two staged table rows,
 // the staged K and V planes, then the f32 scratch.
@@ -105,6 +135,14 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
   const int tile = a.ps * a.H * a.dh;
   const int g = a.Hq / a.H;
   const size_t part = (size_t)j * nb + b;
+  // this block's KV heads [kh0, kh0 + hpb): query heads [hq0, hq0 + Hb)
+  const int kh0 = blockIdx.z * a.hpb;
+  const int Hb = a.hpb * g;
+  const int hq0 = kh0 * g;
+  const bool all_heads = a.hpb == a.H;
+  float* acc_out = a.acc + part * a.Hq * a.dh + (size_t)hq0 * a.dh;
+  float* m_part = a.m_out + part * a.Hq + hq0;
+  float* l_part = a.l_out + part * a.Hq + hq0;
   const int qpos = a.jobmeta[j * 2 + 0];
   const int window = a.jobmeta[j * 2 + 1];
   const int p0 = b * a.ppb;
@@ -122,11 +160,10 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
   bool any_live = false;
   for (int p = p0; p < p1; ++p) any_live = any_live || live_at(p);
   if (!any_live) {
-    for (int e = threadIdx.x; e < a.Hq * a.dh; e += THREADS)
-      a.acc[part * a.Hq * a.dh + e] = 0.f;
-    for (int h = threadIdx.x; h < a.Hq; h += THREADS) {
-      a.m_out[part * a.Hq + h] = masked;
-      a.l_out[part * a.Hq + h] = 0.f;
+    for (int e = threadIdx.x; e < Hb * a.dh; e += THREADS) acc_out[e] = 0.f;
+    for (int h = threadIdx.x; h < Hb; h += THREADS) {
+      m_part[h] = masked;
+      l_part[h] = 0.f;
     }
     return;
   }
@@ -148,15 +185,15 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
   float* f = reinterpret_cast<float*>(
       smem + float_offset(tile, a.S, a.rs, a.ro));
   float* sc_t[2] = {f, f + a.ps * a.H};                  // per (token, head)
-  float* qs = f + 2 * a.ps * a.H;                        // [Hq, dh]
-  float* w_s = qs + a.Hq * a.dh;                         // [Hq, ps]
-  float* m_s = w_s + a.Hq * a.ps;
-  float* l_s = m_s + a.Hq;
-  float* alpha_s = l_s + a.Hq;
+  float* qs = f + 2 * a.ps * a.H;                        // [Hb, dh]
+  float* w_s = qs + Hb * a.dh;                           // [Hb, ps]
+  float* m_s = w_s + Hb * a.ps;
+  float* l_s = m_s + Hb;
+  float* alpha_s = l_s + Hb;
 
-  for (int i = threadIdx.x; i < a.Hq * a.dh; i += THREADS)
-    qs[i] = a.q[(size_t)j * a.Hq * a.dh + i];
-  for (int h = threadIdx.x; h < a.Hq; h += THREADS) {
+  for (int i = threadIdx.x; i < Hb * a.dh; i += THREADS)
+    qs[i] = a.q[((size_t)j * a.Hq + hq0) * a.dh + i];
+  for (int h = threadIdx.x; h < Hb; h += THREADS) {
     m_s[h] = NEG_INF;
     l_s[h] = 0.f;
   }
@@ -193,6 +230,9 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
         __syncthreads();
         for (int st = threadIdx.x; st < 2 * a.S; st += THREADS) {
           const int kind = st / a.S, s = st % a.S;
+          if (!all_heads &&
+              !stream_in_heads(s, a.n_steps, a.dh, a.H, kh0, a.hpb))
+            continue;
           const apack::SmemTable tb{tab_rows(kind), tab_cum(kind)};
           const bool stored = (kind ? a.stored[1] : a.stored[0])
                                   [(size_t)pid * a.S + s] != 0;
@@ -235,9 +275,9 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
       }
     }
     __syncthreads();
-    // scores [Hq, ps]: QK^T * dh^-0.5, mask, softcap
-    for (int i = threadIdx.x; i < a.Hq * a.ps; i += THREADS) {
-      const int h = i / a.ps, t = i % a.ps, kh = h / g;
+    // scores [Hb, ps]: QK^T * dh^-0.5, mask, softcap
+    for (int i = threadIdx.x; i < Hb * a.ps; i += THREADS) {
+      const int h = i / a.ps, t = i % a.ps, kh = kh0 + h / g;
       const int pos = t0 + t;
       const bool valid = live && pos < qpos &&
                          (window <= 0 || pos > qpos - window);
@@ -255,7 +295,7 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
     }
     __syncthreads();
     // online-softmax update, one thread per query head
-    for (int h = threadIdx.x; h < a.Hq; h += THREADS) {
+    for (int h = threadIdx.x; h < Hb; h += THREADS) {
       float mx = NEG_INF;
       for (int t = 0; t < a.ps; ++t) mx = fmaxf(mx, w_s[h * a.ps + t]);
       const float m_old = m_s[h];
@@ -280,8 +320,8 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
 #pragma unroll
     for (int k = 0; k < MAX_ACC; ++k) {
       const int e = threadIdx.x + k * THREADS;
-      if (e < a.Hq * a.dh) {
-        const int h = e / a.dh, d = e % a.dh, kh = h / g;
+      if (e < Hb * a.dh) {
+        const int h = e / a.dh, d = e % a.dh, kh = kh0 + h / g;
         float pv = 0.f;
         if (live) {
           for (int t = 0; t < a.ps; ++t)
@@ -297,11 +337,11 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
 #pragma unroll
   for (int k = 0; k < MAX_ACC; ++k) {
     const int e = threadIdx.x + k * THREADS;
-    if (e < a.Hq * a.dh) a.acc[part * a.Hq * a.dh + e] = acc[k];
+    if (e < Hb * a.dh) acc_out[e] = acc[k];
   }
-  for (int h = threadIdx.x; h < a.Hq; h += THREADS) {
-    a.m_out[part * a.Hq + h] = m_s[h];
-    a.l_out[part * a.Hq + h] = l_s[h];
+  for (int h = threadIdx.x; h < Hb; h += THREADS) {
+    m_part[h] = m_s[h];
+    l_part[h] = l_s[h];
   }
 }
 
@@ -340,16 +380,19 @@ fused_page_attention_combine_kernel(const float* __restrict__ acc_p,
 
 }  // namespace
 
-extern "C" int fused_page_attention_smem_bytes(int Hq, int H, int dh, int ps,
+// Hb: the query heads of one head block (Hq with one block)
+extern "C" int fused_page_attention_smem_bytes(int Hb, int H, int dh, int ps,
                                                int S, int rs, int ro) {
   const int tile = ps * H * dh;
   return float_offset(tile, S, rs, ro) +
-         4 * (2 * ps * H + Hq * dh + Hq * ps + 3 * Hq);
+         4 * (2 * ps * H + Hb * dh + Hb * ps + 3 * Hb);
 }
 
 // q f32 [J, Hq, dh]; the page table, metadata and pool planes as listed in
 // Args; acc_p / m_p / l_p f32 scratch [J, NB, Hq, dh] / [J, NB, Hq] with
-// NB = ceil(P / ppb); acc / m_out / l_out f32 [J, Hq, dh] / [J, Hq].
+// NB = ceil(P / ppb); acc / m_out / l_out f32 [J, Hq, dh] / [J, Hq]; hpb
+// KV heads a pass-1 block (a divisor of H), H / hpb blocks a (job, page
+// chunk).
 extern "C" int fused_page_attention_launch(
     const void* q, const void* page_idx, const void* table_idx,
     const void* meta, const void* jobmeta, const void* tok_k,
@@ -360,11 +403,11 @@ extern "C" int fused_page_attention_launch(
     const void* stored_v, const void* vm, const void* ol, const void* cum,
     void* acc_p, void* m_p, void* l_p, void* acc, void* m_out, void* l_out,
     int J, int P, int Pp, int T, int Hq, int H, int dh, int ps, int S, int Ws,
-    int Wo, int n_steps, int bits, int ppb, int rs, int ro, float scale,
-    float softcap, void* stream) {
+    int Wo, int n_steps, int bits, int ppb, int rs, int ro, int hpb,
+    float scale, float softcap, void* stream) {
   if (J == 0) return 0;
-  if (Hq * dh > MAX_ACC * THREADS || ppb < 1 || rs < 1 || rs > Ws + 1 ||
-      ro < 1 || ro > Wo + 1)
+  if (hpb < 1 || H % hpb || hpb * (Hq / H) * dh > MAX_ACC * THREADS ||
+      ppb < 1 || rs < 1 || rs > Ws + 1 || ro < 1 || ro > Wo + 1)
     return (int)cudaErrorInvalidValue;
   const int nb = (P + ppb - 1) / ppb;
   cudaStream_t st = (cudaStream_t)stream;
@@ -397,13 +440,15 @@ extern "C" int fused_page_attention_launch(
     a.l_out = (float*)l_p;
     a.P = P; a.Pp = Pp; a.T = T; a.Hq = Hq; a.H = H; a.dh = dh; a.ps = ps;
     a.S = S; a.Ws = Ws; a.Wo = Wo; a.n_steps = n_steps; a.bits = bits;
-    a.ppb = ppb; a.rs = rs; a.ro = ro;
+    a.ppb = ppb; a.rs = rs; a.ro = ro; a.hpb = hpb;
     a.scale = scale;
     a.softcap = softcap;
-    const int smem = fused_page_attention_smem_bytes(Hq, H, dh, ps, S, rs, ro);
+    const int smem = fused_page_attention_smem_bytes(hpb * (Hq / H), H, dh,
+                                                     ps, S, rs, ro);
     cudaError_t e = apack::allow_max_smem<fused_page_attention_kernel>();
     if (e != cudaSuccess) return (int)e;
-    fused_page_attention_kernel<<<dim3(J, nb), THREADS, smem, st>>>(a);
+    fused_page_attention_kernel<<<dim3(J, nb, H / hpb), THREADS, smem, st>>>(
+        a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

@@ -18,7 +18,11 @@ pass; ``combine_partials`` is that merge in plain PyTorch, for the tests.
 Head tensor-parallelism is not part of this slice: a PACKED page decodes
 all of its heads, which are exactly the dense planes' heads, so the
 reference's ``h0`` slice is the identity and ``jobmeta`` carries
-``(qpos, window)`` only.
+``(qpos, window)`` only.  The TPU kernel keeps ``acc [hkv, g, dh]`` for
+any head count; a block of the CUDA kernel holds at most
+``MAX_BLOCK_VALUES`` query-head values, so a wider page splits its KV heads
+over blocks (``heads_per_block``), each decoding only the streams that hold
+its heads' values.
 """
 from __future__ import annotations
 
@@ -39,10 +43,13 @@ PLANE_KEYS = ("tok_k", "tok_sk", "tok_v", "tok_sv", "cold_k", "cold_v",
 
 # pages each block of the kernel folds before the combine pass
 PAGES_PER_BLOCK = 1
+# query-head values a block accumulates: MAX_ACC (16) registers a thread x
+# 256 threads (``csrc/fused_page_attention.cu``)
+MAX_BLOCK_VALUES = 16 * 256
 # dynamic shared memory a block may use on sm_90
 _MAX_SMEM = 232448
 
-_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 16
+_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 17
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
@@ -176,6 +183,23 @@ def combine_partials(acc, m, l):
     return acc_all, m_all, l_all
 
 
+def heads_per_block(hq: int, h: int, dh: int) -> int:
+    """KV heads a block of the kernel folds: all ``h`` when the page's
+    ``hq * dh`` query-head values fit one block's accumulators
+    (``MAX_BLOCK_VALUES``), else the largest divisor of ``h`` whose query
+    heads fit; the kernel's grid then gets ``h // heads_per_block`` head
+    blocks a (job, page).  Raises when one KV head's query group alone
+    does not fit."""
+    g = hq // h
+    fit = [d for d in range(1, h + 1) if h % d == 0
+           and d * g * dh <= MAX_BLOCK_VALUES]
+    if not fit:
+        raise ValueError(f"fused_page_attention: one KV head's {g} query "
+                         f"heads x dh {dh} exceed the {MAX_BLOCK_VALUES} "
+                         "values a block accumulates")
+    return max(fit)
+
+
 def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
                          table_idx: torch.Tensor, meta: torch.Tensor,
                          jobmeta: torch.Tensor, planes: dict, *,
@@ -192,7 +216,8 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
 
     Returns ``(acc f32 [J, Hq, dh], m f32 [J, Hq], l f32 [J, Hq])``.  A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or raises.  Past ``MAX_BLOCK_VALUES`` query-head values a page, the
+    kernel splits the KV heads over blocks (``heads_per_block``)."""
     if q.device.type == "cpu":
         return fused_page_attention_plain(q, page_idx, table_idx, meta,
                                           jobmeta, planes, n_steps=n_steps,
@@ -213,14 +238,14 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
         raise ValueError(
             f"fused_page_attention: Hq={hq}, H={h}, S={s}, n_steps={n_steps}"
             f", page [{ps}, {h}, {dh}] do not fit together")
-    if hq * dh > 16 * 256 or t_rows < 2:
-        raise ValueError("fused_page_attention: Hq*dh above 4096 or fewer "
-                         "than two table rows")
+    if t_rows < 2:
+        raise ValueError("fused_page_attention: fewer than two table rows")
+    hpb = heads_per_block(hq, h, dh)
     rs, ro = apack_decode.staged_rows(n_steps, bits, ws, wo)
     lib = _build.load("fused_page_attention")
     fn = lib.fused_page_attention_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
-    smem = fn(hq, h, dh, ps, s, rs, ro)
+    smem = fn(hpb * (hq // h), h, dh, ps, s, rs, ro)
     if smem > _MAX_SMEM:
         raise ValueError(f"fused_page_attention: {smem} bytes of shared "
                          f"memory a block, above the {_MAX_SMEM} it has")
@@ -254,7 +279,7 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
     fn = lib.fused_page_attention_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     rc = fn(*ptrs, jn, n_pages, pp, t_rows, hq, h, dh, ps, s, ws, wo,
-            n_steps, bits, PAGES_PER_BLOCK, rs, ro, dh ** -0.5,
+            n_steps, bits, PAGES_PER_BLOCK, rs, ro, hpb, dh ** -0.5,
             float(softcap), _build.stream_of(q))
     _build.check(rc, "fused_page_attention")
     _build.LAUNCHES["fused_page_attention"] += 1

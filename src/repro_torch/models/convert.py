@@ -6,8 +6,11 @@ module imports no JAX) and returns the port's layout: the unscanned
 ``params["prefix"]`` layers come first, then the scanned
 ``params["blocks"]`` stacks, one per cycle position with a leading
 ``n_cycles`` axis, become one param dict per layer, in layer order
-``n_prefix + j * len(cycle) + c``.  Both packages then compute with the
-same numbers.
+``n_prefix + j * len(cycle) + c``.  Each layer's tree is carried as it
+is, whatever its kind: attention or recurrent ``inner``, a dense ``ffn``
+or an MoE one (the f32 ``router``, the expert stacks ``wi``/``wg``/``wo``
+[E, ...], a ``shared`` expert); so is the untied head ``unembed``.  Both
+packages then compute with the same numbers.
 """
 from __future__ import annotations
 
@@ -39,6 +42,9 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
     blocks = [_to_torch(p, dev) for p in tree.get("prefix", [])]
     blocks += [_to_torch(_index(tree["blocks"][c], j), dev)
                for j in range(cfg.n_cycles) for c in range(n_cycle)]
-    return {"embed": _to_torch(tree["embed"], dev),
-            "final_norm": _to_torch(tree["final_norm"], dev),
-            "blocks": blocks}
+    out = {"embed": _to_torch(tree["embed"], dev),
+           "final_norm": _to_torch(tree["final_norm"], dev),
+           "blocks": blocks}
+    if "unembed" in tree:
+        out["unembed"] = _to_torch(tree["unembed"], dev)
+    return out

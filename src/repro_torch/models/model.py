@@ -1,21 +1,25 @@
 """Model assembly and the paged APack KV cache of the port.
 
 Port of the serving parts of ``repro/models/model.py``: ``_init_block``/
-``init_params`` :52/:77, ``block_full`` :130, ``block_step`` :184 and
-``block_step_paged`` :202, ``forward`` :273 (prefix layers, ``pad_mask``/
-``true_len``/``last_only``), ``_head`` :310, ``_init_block_cache``/
-``init_cache`` :352/:366, ``decode_step`` :380, ``decode_step_paged``
-:408 (with the state store), ``init_state_store``/``states_from_step``
-:457-486, ``device_append`` :488, ``_pack_quantize``/``pack_weights``
-:544/:562, ``extend_caches`` :820, ``prefill`` :844, ``_layer_kinds``
-:859, ``DevicePoolPlanes`` :867 (with ``ensure_table_capacity`` :925)
-and ``PagedKVCache`` :944 (with ``evict_rolled`` :1287,
-``append_step_tokens`` :1335, ``ingest_prefill`` :1398, the drift sketch,
-generation-versioned table rows, refresh and re-pack :1477-1862,
-``snapshot_state``/``restore_state`` :1865/:1898, the host spill tier
-:1913-2036, the transfer guard :2039, the state store :2304-2337,
-``step_meta`` :2362 and ``materialize`` :2465) for stacks of global and
-rolling attention layers and RG-LRU recurrent layers, prefix or cycled.
+``init_params`` :52/:77 (untied head, an MoE config's dense prefix
+layers), ``exact_param_count`` :112, ``_ffn`` :123, ``block_full`` :130
+(sequential and parallel blocks), ``_join_block`` :170, ``block_step``
+:184 and ``block_step_paged`` :202, ``embed_inputs`` :224 (the stub vision
+and audio frontends), ``forward`` :273 (prefix layers, ``pad_mask``/
+``true_len``/``last_only``), ``_head`` :310 (tied or untied),
+``_init_block_cache``/``init_cache`` :352/:366, ``decode_step`` :380,
+``decode_step_paged`` :408 (with the state store), ``init_state_store``/
+``states_from_step`` :457-486, ``device_append`` :488,
+``_pack_quantize``/``pack_weights`` :544/:562, ``extend_caches`` :820,
+``prefill`` :844, ``_layer_kinds`` :859, ``DevicePoolPlanes`` :867 (with
+``ensure_table_capacity`` :925) and ``PagedKVCache`` :944 (with
+``evict_rolled`` :1287, ``append_step_tokens`` :1335, ``ingest_prefill``
+:1398, the drift sketch, generation-versioned table rows, refresh and
+re-pack :1477-1862, ``snapshot_state``/``restore_state`` :1865/:1898, the
+host spill tier :1913-2036, the transfer guard :2039, the state store
+:2304-2337, ``step_meta`` :2362 and ``materialize`` :2465) for stacks of
+global and rolling attention layers and RG-LRU recurrent layers, prefix or
+cycled, with dense (swiglu, geglu, gelu, relu2) or top-k MoE FFNs.
 
 Layers are a Python list of per-layer param dicts, prefix layers first,
 where JAX scans one stacked tree per cycle position; a dense decode cache
@@ -27,7 +31,9 @@ small and happens at page events: the calibration histograms of a sealed
 page (until its layer's tables exist), and the coded bit count and
 lossless check of each packed page, and the drift sketch of pages sealed
 after calibration; a re-pack's verdicts and bit counts; a spilled
-request's pages.  Not ported here: mLSTM/sLSTM layers and meshes.
+request's pages.  An encoder (hubert-xlarge) forwards only; its decode
+entry points refuse it (``check_decoder``).  Not ported here: mLSTM/sLSTM
+layers and meshes.
 """
 from __future__ import annotations
 
@@ -58,20 +64,25 @@ STATE_KINDS = ("recurrent",)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse, loudly, the layer kinds and features the port does not
-    serve yet."""
+    """Refuse, loudly, the layer kinds the port does not serve yet."""
     kinds = set(cfg.prefix_pattern) | set(cfg.cycle)
     other = sorted(kinds - set(ATTN_KINDS) - set(STATE_KINDS))
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {other} are not ported yet (ROADMAP "
             "open item 1.9, remaining architectures)")
-    if cfg.num_experts or cfg.frontend or cfg.parallel_block \
-            or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE, frontends, parallel blocks and untied heads "
-            "are not ported yet (ROADMAP open item 1.9)")
     cfg.n_cycles          # the scanned layers must divide into cycles
+
+
+def check_decoder(cfg: ModelConfig) -> None:
+    """Refuse an encoder where a decode path is asked for (the engine, the
+    paged cache, the dense decode cache): an encoder forwards only."""
+    check_supported(cfg)
+    if cfg.is_encoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder (family 'encoder', causal=False): "
+            "it has no decode path, so it forwards only (model.forward) "
+            "and cannot be served")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
@@ -87,27 +98,30 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random params with the JAX init's distributions (``_init_block``
-    :52, ``init_params`` :77, ``modules.py:149-163, 449-458, 553``): normal
-    weights scaled by fan-in^-0.5, zero norm scales, in
-    ``cfg.param_dtype``; recurrent blocks as ``modules.init_recurrent``.
-    One dict per network layer, prefix layers first.  The numbers differ
-    from ``jax.random``'s; tests that compare the two packages convert one
-    tree with ``convert.params_from_numpy``."""
+    :52, ``init_params`` :77, ``modules.py:149-163, 449-458, 483-497,
+    553``): normal weights scaled by fan-in^-0.5, zero norm scales, in
+    ``cfg.param_dtype`` (the MoE router in f32); recurrent blocks as
+    ``modules.init_recurrent``; ``unembed`` [d, V] when the head is untied.
+    One dict per network layer, prefix layers first; a prefix layer of an
+    MoE config has the dense FFN.  The numbers differ from
+    ``jax.random``'s; tests that compare the two packages convert one tree
+    with ``convert.params_from_numpy``.  ``device="meta"`` builds the
+    shapes only (``exact_param_count``)."""
     check_supported(cfg)
     dev = resolve(device)
     dt = getattr(torch, cfg.param_dtype)
-    d, h, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.head_dim, cfg.d_ff)
+    d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=dt):
         x = torch.randn(*shape, generator=generator, device=dev)
-        return (x * scale).to(dt)
+        return (x * scale).to(dtype)
 
     def zeros(n):
         return torch.zeros(n, dtype=dt, device=dev)
 
     blocks = []
-    for kind in layer_kinds(cfg):
+    for layer, kind in enumerate(layer_kinds(cfg)):
         if kind in ATTN_KINDS:
             inner = {"wq": normal((d, h, dh), d ** -0.5),
                      "wk": normal((d, hkv, dh), d ** -0.5),
@@ -118,32 +132,54 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 inner["k_norm"] = zeros(dh)
         else:
             inner = m.init_recurrent(cfg, generator, dev, dt)
-        blocks.append({"norm1": zeros(d), "inner": inner, "norm2": zeros(d),
-                       "ffn": {"w_up": normal((d, f), d ** -0.5),
-                               "w_gate": normal((d, f), d ** -0.5),
-                               "w_down": normal((f, d), f ** -0.5)}})
-    return {"embed": normal((cfg.vocab_size, d), d ** -0.5),
-            "final_norm": zeros(d), "blocks": blocks}
+        blk = {"norm1": zeros(d), "inner": inner, "norm2": zeros(d)}
+        # an MoE config's prefix layers take the dense FFN (``dense_cfg``)
+        if cfg.num_experts and layer >= len(cfg.prefix_pattern):
+            blk["ffn"] = m.init_moe(cfg, normal, lambda shape, scale: normal(
+                shape, scale, F32))
+        elif cfg.d_ff > 0:
+            blk["ffn"] = m.init_mlp(cfg, normal)
+        blocks.append(blk)
+    params = {"embed": normal((cfg.vocab_size, d), d ** -0.5),
+              "final_norm": zeros(d), "blocks": blocks}
+    if not cfg.tie_embeddings:
+        params["unembed"] = normal((d, cfg.vocab_size), d ** -0.5)
+    return params
+
+
+def exact_param_count(cfg: ModelConfig) -> int:
+    """Parameter count of the tree ``init_params`` builds
+    (``exact_param_count`` :112), from its shapes on the ``meta`` device:
+    nothing is allocated."""
+    params = init_params(cfg, torch.Generator(), "meta")
+
+    def count(x):
+        if isinstance(x, dict):
+            return sum(count(v) for v in x.values())
+        if isinstance(x, list):
+            return sum(count(v) for v in x)
+        return x.numel()
+    return count(params)
 
 
 def serving_params(params: dict) -> dict:
     """A copy for serving with every dense matrix in bf16, made once.  The
     JAX package casts each f32 weight to bf16 at its use
     (``modules.py:145``) and the embedding rows after the lookup; holding
-    the bf16 copy gives the same values.  Norm scales and the recurrent
-    gates' f32 params (``modules.RECURRENT_F32``) stay as they are, and so
-    do packed weights (``pack_weights``).  Idempotent: a tensor already in
-    bf16 is not copied."""
+    the bf16 copy gives the same values.  Norm scales, the recurrent
+    gates' f32 params (``modules.RECURRENT_F32``) and the MoE router (used
+    in f32) stay as they are, and so do packed weights (``pack_weights``).
+    Idempotent: a tensor already in bf16 is not copied."""
     def conv(k, v):
         if isinstance(v, dict):
             return {kk: conv(kk, vv) for kk, vv in v.items()}
+        if isinstance(v, list):
+            return [conv(k, vv) for vv in v]
         if isinstance(v, m.PackedWeight) or "norm" in k \
-                or k in m.RECURRENT_F32:
+                or k in m.RECURRENT_F32 or k == "router":
             return v
         return v.to(BF16)
-    return {"embed": params["embed"].to(BF16),
-            "final_norm": params["final_norm"],
-            "blocks": [conv("", b) for b in params["blocks"]]}
+    return {k: conv(k, v) for k, v in params.items()}
 
 
 # --------------------------------------------------------- packed weights
@@ -169,11 +205,13 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
     store for serving (``pack_weights`` :562), by layer kind.
 
     Packed sites: wq/wk/wv (contract d) and wo (contract h, dh) of global
-    and rolling attention layers, and w_up/w_gate/w_down of every layer,
-    recurrent and prefix layers included, each when one layer's tensor
-    holds at least ``min_size`` elements; ``tile_k = min(512, K)`` unless
-    given.  The recurrent block's own matrices, the tied head and the
-    embedding stay dense.  Each layer gets its own weight-mode table.
+    and rolling attention layers, w_up/w_gate/w_down of every dense FFN,
+    recurrent and prefix layers included (an MoE config's prefix layers
+    too), and the untied head ``unembed`` (contract d), each when one
+    layer's tensor holds at least ``min_size`` elements; ``tile_k =
+    min(512, K)`` unless given.  The recurrent block's own matrices, a
+    routed FFN (router and expert stacks), the tied head and the embedding
+    stay dense.  Each layer gets its own weight-mode table.
     ``params`` must be the original (f32) tree, not ``serving_params``'
     bf16 copy: the quantization reads the original values and
     ``native_bytes`` counts their element size.
@@ -210,30 +248,48 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
         # a prefix layer is its own tensor; a cycle position's stack counts
         # once, at its first layer
         first = layer < n_prefix + n_cycle
-        inner, ffn = dict(blk["inner"]), dict(blk["ffn"])
+        out = dict(blk)
         if kind in ATTN_KINDS:
+            inner = out["inner"] = dict(blk["inner"])
             for name, nc in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 2)):
                 if inner[name].numel() >= min_size:
                     inner[name] = pack(inner[name], nc, first)
-        for name in ("w_up", "w_gate", "w_down"):
-            if ffn[name].numel() >= min_size:
-                ffn[name] = pack(ffn[name], 1, first)
-        blocks.append({**blk, "inner": inner, "ffn": ffn})
-    return {**params, "blocks": blocks}, stats
+        if "ffn" in blk and "router" not in blk["ffn"]:
+            ffn = out["ffn"] = dict(blk["ffn"])
+            for name in ("w_up", "w_gate", "w_down"):
+                if name in ffn and ffn[name].numel() >= min_size:
+                    ffn[name] = pack(ffn[name], 1, first)
+        blocks.append(out)
+    packed = {**params, "blocks": blocks}
+    if "unembed" in params and params["unembed"].numel() >= min_size:
+        packed["unembed"] = pack(params["unembed"], 1, True)
+    return packed, stats
 
 
 # ------------------------------------------------------------------ block
-def _ffn_tail(cfg: ModelConfig, p: dict, h, inner):
-    """Residual + FFN.  Returns the block's output twice: rounded to h's
-    bf16, and as the unrounded f32 sum of its last add.  The residual
-    keeps the bf16 sums; a norm that reads one reads the unrounded f32
-    sum, as the JAX package's compiled block does (XLA drops the bf16
-    round trip between the add and the norm's f32 cast): here the FFN's
-    norm, and the next layer's ``norm1`` where the compiled reference
-    fuses the two layers (``reads_unrounded``)."""
+def _ffn(cfg: ModelConfig, p: dict, x):
+    """The block's FFN (``_ffn`` :123): the routed MoE where the layer has
+    a router, else the dense MLP."""
+    if "router" in p["ffn"]:
+        return m.moe(p["ffn"], x, cfg)
+    return m.mlp(p["ffn"], x, cfg)
+
+
+def _ffn_tail(cfg: ModelConfig, p: dict, h, inner, hn):
+    """Residual + FFN (``block_full`` :155-166, ``_join_block`` :170).
+    Returns the block's output twice: rounded to h's bf16, and as the
+    unrounded f32 sum of its last add.  The residual keeps the bf16 sums;
+    a norm that reads one reads the unrounded f32 sum, as the JAX
+    package's compiled block does (XLA drops the bf16 round trip between
+    the add and the norm's f32 cast): here the FFN's norm, and the next
+    layer's ``norm1`` where the compiled reference fuses the two layers
+    (``reads_unrounded``).  A parallel block's FFN reads ``hn``, the
+    block's own ``norm1`` output, and adds beside the attention:
+    ``h + inner + ffn(hn)``."""
     hf = h.to(F32) + inner.to(F32)
-    hn = m.rms_norm(hf, p["norm2"], cfg.norm_eps).to(h.dtype)
-    out = hf.to(h.dtype).to(F32) + m.mlp(p["ffn"], hn, cfg).to(F32)
+    x = hn if cfg.parallel_block else m.rms_norm(
+        hf, p["norm2"], cfg.norm_eps).to(h.dtype)
+    out = hf.to(h.dtype).to(F32) + _ffn(cfg, p, x).to(F32)
     return out.to(h.dtype), out
 
 
@@ -270,24 +326,61 @@ def block_full(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
     else:
         inner, cache = m.recurrent_full(p["inner"], hn, cfg,
                                         pad_mask=pad_mask, true_len=true_len)
-    return (*_ffn_tail(cfg, p, h, inner), cache)
+    return (*_ffn_tail(cfg, p, h, inner, hn), cache)
 
 
 def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Tied-embedding LM head; logits in f32."""
+    """LM head (``_head`` :310), logits in f32: the untied ``unembed``
+    [d, V] through ``proj`` (kernel 5 when packed), else the tied
+    embedding, both products in h's bf16."""
+    if "unembed" in params:
+        return m.proj(h, params["unembed"]).to(F32)
     return m.matmul(h, params["embed"].t()).to(F32)
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            last_only: bool = False, true_len: int | None = None):
-    """Prefill forward (``forward`` :273).  Returns ``(logits, caches)``
-    with one cache dict per network layer.  ``true_len``: tokens are
-    end-padded to a bucket and only the first ``true_len`` are real; the
-    rolling rings and recurrent states are taken at the true end, pad
-    steps are inert in the recurrent scans (``pad_mask``), and
-    ``last_only`` takes the logits at ``true_len - 1`` (causal attention
-    already keeps pad keys out of every real query)."""
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
+    """Token embeddings in bf16, times ``sqrt(d_model)`` (cast to bf16
+    first, the product in bf16) for a vision config: the gemma scale of
+    ``embed_inputs`` :236, ``decode_step`` :384 and ``decode_step_paged``
+    :431."""
     h = params["embed"][tokens].to(BF16)
+    if cfg.frontend == "vision":
+        h = h * torch.full((), cfg.d_model ** 0.5, dtype=BF16,
+                           device=h.device)
+    return h
+
+
+def embed_inputs(cfg: ModelConfig, params: dict, tokens=None, *,
+                 patch_embeds=None, frame_embeds=None) -> torch.Tensor:
+    """tokens (and the stub frontends' embeddings) -> [B, S, D] bf16
+    hidden states (``embed_inputs`` :224): an audio config takes
+    ``frame_embeds`` [B, S, D] alone, cast to bf16; a vision config puts
+    ``patch_embeds`` [B, P, D] (cast to bf16), when given, before its
+    scaled token embeddings."""
+    if cfg.frontend == "audio":
+        if frame_embeds is None:
+            raise ValueError(f"{cfg.name}: an audio config takes "
+                             "frame_embeds, not tokens")
+        return frame_embeds.to(BF16)
+    h = _embed_tokens(cfg, params, tokens)
+    if cfg.frontend == "vision" and patch_embeds is not None:
+        h = torch.cat([patch_embeds.to(BF16), h], dim=1)
+    return h
+
+
+def forward(cfg: ModelConfig, params: dict, tokens=None, *,
+            patch_embeds=None, frame_embeds=None, last_only: bool = False,
+            true_len: int | None = None):
+    """Prefill forward (``forward`` :273).  Returns ``(logits, caches)``
+    with one cache dict per network layer.  ``patch_embeds`` /
+    ``frame_embeds``: the stub frontends' inputs (``embed_inputs``).
+    ``true_len``: tokens are end-padded to a bucket and only the first
+    ``true_len`` are real; the rolling rings and recurrent states are taken
+    at the true end, pad steps are inert in the recurrent scans
+    (``pad_mask``), and ``last_only`` takes the logits at ``true_len - 1``
+    (causal attention already keeps pad keys out of every real query)."""
+    h = embed_inputs(cfg, params, tokens, patch_embeds=patch_embeds,
+                     frame_embeds=frame_embeds)
     pad_mask = None
     if true_len is not None:
         pad_mask = torch.arange(h.shape[1], device=h.device) >= true_len
@@ -331,7 +424,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=BF16,
     :366, ``_init_block_cache`` :352): ``seq_len`` positions for a global
     layer, the ring for a rolling one, the fixed state for a recurrent
     one."""
-    check_supported(cfg)
+    check_decoder(cfg)
     dev = resolve(device)
     return [_init_block_cache(cfg, kind, batch, seq_len, dtype, dev)
             for kind in layer_kinds(cfg)]
@@ -362,7 +455,7 @@ def block_step(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
                                         local=kind == "local")
     else:
         inner, cache = m.recurrent_step(p["inner"], hn, cache, cfg)
-    return (*_ffn_tail(cfg, p, h, inner), cache)
+    return (*_ffn_tail(cfg, p, h, inner, hn), cache)
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: list,
@@ -371,7 +464,7 @@ def decode_step(cfg: ModelConfig, params: dict, caches: list,
     tokens [B, 1], pos [B] -> (logits [B, 1, V], caches), each attention
     layer's cache written in place at slot ``pos`` (``pos % ring`` for a
     rolling one)."""
-    h = params["embed"][tokens].to(BF16)
+    h = _embed_tokens(cfg, params, tokens)
     new, hx = [], None
     for layer, (kind, p, c) in enumerate(zip(layer_kinds(cfg),
                                              params["blocks"], caches)):
@@ -395,7 +488,7 @@ def block_step_paged(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
     hn = _norm1(cfg, p, h, hx)
     inner, new_kv = m.paged_attention_step(p["inner"], hn, planes, meta, pos,
                                            cfg)
-    return (*_ffn_tail(cfg, p, h, inner), new_kv)
+    return (*_ffn_tail(cfg, p, h, inner, hn), new_kv)
 
 
 def decode_step_paged(cfg: ModelConfig, params: dict, planes: dict,
@@ -412,7 +505,7 @@ def decode_step_paged(cfg: ModelConfig, params: dict, planes: dict,
     quantized new-token K/V ([A, B, ...]) for ``device_append``, and
     new_states is the state store after the step (``states_from_step``
     :457)."""
-    h = params["embed"][tokens].to(BF16)
+    h = _embed_tokens(cfg, params, tokens)
     news, new_states, hx = [], [], None
     i = 0
     for layer, (kind, p, st) in enumerate(zip(layer_kinds(cfg),
@@ -591,7 +684,7 @@ class PagedKVCache:
                  verify_on_repack: bool = False,
                  transfer_retries: int = 2,
                  drift_sketch: bool = True, device=None):
-        check_supported(cfg)
+        check_decoder(cfg)
         self.cfg = cfg
         self.device = resolve(device)
         self.page_size = page_size

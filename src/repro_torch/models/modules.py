@@ -1,16 +1,17 @@
 """Model building blocks of the port: plain functions on tensors, params as
 dicts of tensors, plus the KV page pool.
 
-Port of the parts of ``repro/models/modules.py`` that serving qwen3-1.7b
-and recurrentgemma-9b from the paged APack KV cache runs: ``rms_norm``
-:25, ``rope`` :31, ``_kv_quantize``/``_kv_dequantize`` :44/:54,
-``PackedWeight`` :69, ``packed_proj`` :100 (single device), ``proj`` :139,
-``_mask`` :166, ``attention_full`` :175 and ``attention_step`` :267
-(global and rolling layers), ``paged_attention_step`` :326 (single
-device), ``init_attention_cache`` :436, ``mlp`` :461 (swiglu, geglu), the
-RG-LRU recurrent block ``init_recurrent`` :553, ``_rglru_coeffs`` :571,
-``recurrent_full`` :582, ``recurrent_step`` :628 and
-``init_recurrent_cache`` :641, the page lifecycle
+Port of the parts of ``repro/models/modules.py`` that serving runs:
+``rms_norm`` :25, ``rope`` :31, ``_kv_quantize``/``_kv_dequantize``
+:44/:54, ``PackedWeight`` :69, ``packed_proj`` :100 (single device),
+``proj`` :139, ``_mask`` :166 (causal or bidirectional), ``attention_full``
+:175 and ``attention_step`` :267 (global and rolling layers),
+``paged_attention_step`` :326 (single device), ``init_attention_cache``
+:436, ``init_mlp`` :449 and ``mlp`` :461 (swiglu, geglu, gelu, relu2),
+``MOE_GROUP`` :480, ``init_moe`` :483 and ``moe`` :500 (without the
+training-only aux losses), the RG-LRU recurrent block ``init_recurrent``
+:553, ``_rglru_coeffs`` :571, ``recurrent_full`` :582, ``recurrent_step``
+:628 and ``init_recurrent_cache`` :641, the page lifecycle
 ``PAGE_*``/``PAGE_TRANSITIONS`` :916-950, the integrity and spill tier
 types ``PageIntegrityError`` :953, ``TransferDropped`` :969,
 ``SpillRecord`` :978, ``payload_crc`` :996 and ``HostSpillTier`` :1006,
@@ -19,7 +20,8 @@ and ``KVPagePool`` :1077 with ``evict`` :1208, ``spill``/``adopt``
 
 dtype placement follows the JAX package exactly, since it decides the KV
 bytes: activations and projections in bf16 (each weight cast to bf16 before
-its product), norms, rope, attention scores and softmax in f32.
+its product), norms, rope, attention scores, softmax and the MoE router in
+f32.
 """
 from __future__ import annotations
 
@@ -209,7 +211,8 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         c = qc.shape[1]
         scores = torch.einsum("bckgd,bskd->bkgcs", qc.to(F32), kf) * scale
         qpos = start + torch.arange(c, device=x.device)
-        mask = pos[None, :] <= qpos[:, None]
+        mask = (pos[None, :] <= qpos[:, None] if cfg.causal
+                else torch.ones(c, s, dtype=torch.bool, device=x.device))
         if window > 0:
             mask &= pos[None, :] > qpos[:, None] - window
         scores = torch.where(mask, scores, NEG_INF)
@@ -358,21 +361,143 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
 
 
+def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` as the JAX package evaluates it in bf16 (x *
+    logistic(x), the logistic as 1 / (1 + exp(-x))), every op rounded to
+    bf16; a fused f32 silu rounds once and differs in the last bf16 bit."""
+    return gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+
+
 def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The gated FFN (``mlp`` :461): swiglu or geglu."""
-    if cfg.mlp_variant not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"mlp_variant={cfg.mlp_variant!r} is not ported yet (ROADMAP "
-            "open item 1.9, remaining architectures)")
+    """The FFN (``mlp`` :461): gated swiglu or geglu, or ungated ``gelu``
+    (gelu of the up projection) or ``relu2`` (squared ReLU, op by op in
+    the activations' bf16), then the down projection."""
     up = proj(x, p["w_up"])
-    gate = proj(x, p["w_gate"])
-    if cfg.mlp_variant == "geglu":
-        return proj(gelu(gate) * up, p["w_down"])
-    # silu as the JAX package evaluates it in bf16 (x * logistic(x), the
-    # logistic as 1 / (1 + exp(-x))), every op rounded to bf16; a fused
-    # f32 silu rounds once and differs in the last bf16 bit
-    hid = gate * (1.0 / (1.0 + torch.exp(-gate))) * up
+    if cfg.mlp_variant == "swiglu":
+        hid = _silu_mul(proj(x, p["w_gate"]), up)
+    elif cfg.mlp_variant == "geglu":
+        hid = gelu(proj(x, p["w_gate"])) * up
+    elif cfg.mlp_variant == "gelu":
+        hid = gelu(up)
+    elif cfg.mlp_variant == "relu2":
+        hid = torch.square(torch.relu(up))
+    else:
+        raise ValueError(cfg.mlp_variant)
     return proj(hid, p["w_down"])
+
+
+def init_mlp(cfg: ModelConfig, normal, d_ff: int | None = None) -> dict:
+    """FFN params (``init_mlp`` :449): ``w_up`` [d, f], for the gated
+    variants ``w_gate`` [d, f], and ``w_down`` [f, d], drawn in that order
+    by ``normal(shape, scale)``."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"w_up": normal((d, f), d ** -0.5)}
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        p["w_gate"] = normal((d, f), d ** -0.5)
+    p["w_down"] = normal((f, d), f ** -0.5)
+    return p
+
+
+# --------------------------------------------------------------------- moe
+MOE_GROUP = 1024     # tokens per dispatch group (``MOE_GROUP`` :480)
+
+
+def init_moe(cfg: ModelConfig, normal, router_normal) -> dict:
+    """Routed experts (``init_moe`` :483): the f32 ``router`` [d, E]
+    (``router_normal``, always f32), stacked expert weights ``wi``/``wg``
+    [E, d, f] and ``wo`` [E, f, d], and a swiglu ``shared`` expert of width
+    ``moe_d_ff * n_shared_experts`` when the config has one."""
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p = {"router": router_normal((d, e), d ** -0.5),
+         "wi": normal((e, d, f), d ** -0.5),
+         "wg": normal((e, d, f), d ** -0.5),
+         "wo": normal((e, f, d), f ** -0.5)}
+    if cfg.n_shared_experts:
+        sub = dataclasses.replace(cfg, mlp_variant="swiglu")
+        p["shared"] = init_mlp(sub, normal,
+                               d_ff=f * cfg.n_shared_experts)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> tuple[int, int]:
+    """(group size, expert capacity) of ``tokens`` routed tokens
+    (``moe`` :506-514): the group is the largest divisor of the token count
+    not above ``MOE_GROUP``; the capacity ``ceil(g k capacity_factor /
+    E)``, clamped to [4, g]."""
+    g = min(MOE_GROUP, tokens)
+    while tokens % g:
+        g -= 1
+    cap = int(np.ceil(g * cfg.num_experts_per_tok * cfg.capacity_factor
+                      / cfg.num_experts))
+    return g, max(4, min(cap, g))
+
+
+def moe_route(logits: torch.Tensor, k: int, cap: int):
+    """Top-k token-choice routing with capacity dropping over groups
+    (``moe.one_group`` :517-530), in f32: softmax of the router logits
+    [N, G, E], the top ``k`` experts per token (ties to the lower index, as
+    ``lax.top_k``), their weights renormalized, and the capacity position
+    of each choice from the cumulative one-hot count, choice ``i`` after
+    every token's choices ``< i``.  A choice past ``cap`` is dropped.
+    Returns ``combine`` f32 [N, G, E, cap] (the kept weight at the token's
+    (expert, position) slot, 0 elsewhere) and ``sel`` [N, G, k]."""
+    n, g, e = logits.shape
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = ex / ex.sum(-1, keepdim=True)
+    w, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, sel = w[..., :k], sel[..., :k]
+    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    slots = torch.arange(cap, device=logits.device, dtype=F32)
+    counts = logits.new_zeros(n, 1, e)
+    combine = logits.new_zeros(n, g, e, cap)
+    for i in range(k):
+        oh = torch.nn.functional.one_hot(sel[..., i], e).to(F32)
+        pos = counts + torch.cumsum(oh, dim=1) - oh             # [N, G, E]
+        keep = oh * (pos < cap)
+        combine = combine + (w[..., i:i + 1] * keep)[..., None] \
+            * (pos[..., None] == slots).to(F32)
+        counts = counts + keep.sum(dim=1, keepdim=True)
+    return combine, sel
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` in a's dtype with f32 accumulation (``matmul``'s
+    rule), one product per leading index: each expert's own GEMM."""
+    b = b.to(a.dtype)
+    if a.device.type == "cpu":
+        return torch.stack([matmul(a[i], b[i]) for i in range(a.shape[0])])
+    return torch.bmm(a, b)
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token-choice top-k MoE with capacity dropping (``moe`` :500).  x
+    [B, S, D] regroups into dispatch groups (``moe_capacity``), routed by
+    ``moe_route``; the one-hot dispatch and combine run in the activations'
+    dtype, the experts as batched products ``ecd,edf->ecf`` (swiglu), and
+    the shared expert, if any, is added after.  Every position routes,
+    pad positions of a bucketed prefill and idle decode slots included, as
+    in the reference.  The auxiliary losses are training's (ROADMAP 1.11)
+    and not computed."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    g, cap = moe_capacity(cfg, b * s)
+    xg = x.reshape(-1, g, d)                                   # [N, G, D]
+    n = xg.shape[0]
+    logits = torch.matmul(xg.to(F32), p["router"].to(F32))    # [N, G, E]
+    combine, _ = moe_route(logits, k, cap)
+    dispatch = (combine > 0).to(x.dtype)                       # [N, G, E, C]
+    # [N, E*C, G] @ [N, G, D]: each (expert, slot) takes one token's row
+    xin = _bmm(dispatch.reshape(n, g, e * cap).transpose(1, 2), xg)
+    xin = xin.reshape(n, e, cap, d).transpose(0, 1).reshape(e, n * cap, d)
+    h = _silu_mul(_bmm(xin, p["wg"]), _bmm(xin, p["wi"]))
+    out = _bmm(h, p["wo"])                                     # [E, N*C, D]
+    out = out.reshape(e, n, cap, d).transpose(0, 1).reshape(n, e * cap, d)
+    y = _bmm(combine.to(x.dtype).reshape(n, g, e * cap), out)
+    y = y.reshape(b, s, d)
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], x, dataclasses.replace(
+            cfg, mlp_variant="swiglu"))
+    return y
 
 
 # ------------------------------------------------------------------ RG-LRU

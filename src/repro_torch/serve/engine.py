@@ -23,8 +23,10 @@ table refresh hook), the async event loop ``_step_async`` :1011,
 :1333; and the checkpoint-style weight round trip, ``CompressedParams``
 :146, ``compress_params`` :160 and ``decompress_params`` :196.  The stacks
 are any mix of global and rolling attention layers and RG-LRU recurrent
-layers, prefix or cycled.  Not ported: meshes, refused with their ROADMAP
-item.
+layers, prefix or cycled, with dense or top-k MoE FFNs, sequential or
+parallel blocks, tied or untied heads (every decoder of the registry but
+xlstm-125m).  An encoder has no decode path and is refused.  Not ported:
+meshes, refused with their ROADMAP item.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
@@ -214,7 +216,8 @@ def _stacked_leaves(cfg: ModelConfig, params: dict):
     n_prefix, n_cycle = len(cfg.prefix_pattern), len(cfg.cycle)
     layers = params["blocks"]
     keys = ["blocks", "embed", "final_norm"] + (["prefix"] if n_prefix
-                                                 else [])
+                                                 else []) \
+        + (["unembed"] if "unembed" in params else [])
     for key in sorted(keys):
         if key == "blocks":
             for c in range(n_cycle):
@@ -386,7 +389,7 @@ class ServeEngine:
         if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r};"
                              f" expected one of {KV_CACHE_DTYPES}")
-        M.check_supported(cfg)
+        M.check_decoder(cfg)
         self.device = resolve(device)
         self.cfg = cfg
         for t in (params["embed"], params["final_norm"]):

@@ -277,22 +277,13 @@ def _attention_pool(rng, ps, h, dh, s, pool, dev):
     return {k: v.to(dev) for k, v in planes.items()}, e
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 8, 128, 16, 128), (4, 2, 16, 4, 4)])
-@pytest.mark.parametrize("slots,softcap", [(1, 0.0), (7, 0.0), (16, 30.0)])
-def test_cuda_fused_page_attention_kernel(shape, slots, softcap):
-    """The split-page kernel and its combine pass against the plain
-    version at f32 rtol 1e-5 / atol 1e-6 (each page's dot products sum in
-    another order): page tables of 1, 7 and 16 slots mixing HOT, COLD,
-    PACKED (stored streams included) and FREE pages, a job with a rolling
-    window and a job whose slots are all FREE; at qwen3-1.7b's page
-    [16, 8, 128] (GQA 2) and at SMOKE's [4, 2, 16]."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from repro_torch.kernels import fused_page_attention as fpa
+def _mixed_jobs(rng, shape, slots, dev):
+    """Inputs of the fused attention kernel at page ``shape`` (ps, H, dh,
+    Hq, stream length) over a pool of 12 pages: 4 jobs of ``slots``
+    slots mixing HOT, COLD, PACKED and FREE pages, a PACKED page in each,
+    a job with a rolling window and a job whose slots are all FREE.
+    Returns (q, [page_idx, table_idx, meta, jobmeta], planes, n_steps)."""
     ps, h, dh, hq, s = shape
-    rng = np.random.default_rng(slots + ps)
-    dev = torch.device("cuda")
     planes, e = _attention_pool(rng, ps, h, dh, s, 12, dev)
     jobs = 4
     pid = rng.integers(0, 12, (jobs, slots))
@@ -310,11 +301,88 @@ def test_cuda_fused_page_attention_kernel(shape, slots, softcap):
                       np.stack([qpos, window], -1))]
     q = torch.from_numpy(rng.normal(0, 1, (jobs, hq, dh))
                          .astype(np.float32)).to(dev)
+    return q, args, planes, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 8, 128, 16, 128), (4, 2, 16, 4, 4)])
+@pytest.mark.parametrize("slots,softcap", [(1, 0.0), (7, 0.0), (16, 30.0)])
+def test_cuda_fused_page_attention_kernel(shape, slots, softcap):
+    """The split-page kernel and its combine pass against the plain
+    version at f32 rtol 1e-5 / atol 1e-6 (each page's dot products sum in
+    another order): page tables of 1, 7 and 16 slots mixing HOT, COLD,
+    PACKED (stored streams included) and FREE pages, a job with a rolling
+    window and a job whose slots are all FREE; at qwen3-1.7b's page
+    [16, 8, 128] (GQA 2) and at SMOKE's [4, 2, 16]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import fused_page_attention as fpa
+    rng = np.random.default_rng(slots + shape[0])
+    q, args, planes, e = _mixed_jobs(rng, shape, slots, torch.device("cuda"))
     kw = dict(n_steps=e, softcap=softcap)
     got = fpa.fused_page_attention(q, *args, planes, **kw)
     want = fpa.fused_page_attention_plain(q, *args, planes, **kw)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert (got[2][-1] == 0).all() and (got[2][:-1] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 8, 128, 48, 128),
+                                   (16, 8, 112, 64, 112),
+                                   (16, 8, 128, 96, 128)])
+@pytest.mark.parametrize("slots,softcap", [(1, 0.0), (9, 0.0), (9, 30.0)])
+def test_cuda_fused_page_attention_head_blocks(shape, slots, softcap):
+    """Pages past 4096 query-head values, where the kernel splits the KV
+    heads over blocks (``heads_per_block``): dbrx-132b's page [16, 8, 128]
+    with Hq 48 (6144 values, 2 head blocks, each stream one head's run),
+    kimi-k2's [16, 8, 112] with Hq 64 (7168, 2 head blocks, 128-value
+    streams straddling heads) and command-r-plus's Hq 96 (12288, 4 head
+    blocks), against the plain version at f32 rtol 1e-5 / atol 1e-6, as
+    ``test_cuda_fused_page_attention_kernel``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import fused_page_attention as fpa
+    _, h, dh, hq, _ = shape
+    assert fpa.heads_per_block(hq, h, dh) < h
+    rng = np.random.default_rng(slots + hq)
+    q, args, planes, e = _mixed_jobs(rng, shape, slots, torch.device("cuda"))
+    kw = dict(n_steps=e, softcap=softcap)
+    got = fpa.fused_page_attention(q, *args, planes, **kw)
+    want = fpa.fused_page_attention_plain(q, *args, planes, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    assert (got[2][-1] == 0).all() and (got[2][:-1] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,softcap", [(1, 0.0), (7, 0.0), (16, 30.0)])
+def test_cuda_fused_page_attention_full_head_block(slots, softcap):
+    """minitron-8b's page [16, 8, 128] with 32 query heads (GQA 4: 4096
+    query-head values, the most one head block holds, every accumulator
+    of a thread in use), on the page tables of
+    ``test_cuda_fused_page_attention_kernel``, against the plain version:
+    m and l at f32 rtol 1e-5 / atol 1e-6, acc with its relative part taken
+    against sum(w |v|) (``fused_page_attention_f64``), the magnitude of
+    its f32 sums, since acc cancels toward zero in places, where the
+    plain f32 version itself can sit outside the plain tolerance of the
+    exact result (as ``chip_smoke.py``'s checks hold it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import fused_page_attention as fpa
+    shape = (16, 8, 128, 32, 128)
+    assert fpa.heads_per_block(32, 8, 128) == 8
+    rng = np.random.default_rng(slots + 16)
+    q, args, planes, e = _mixed_jobs(rng, shape, slots, torch.device("cuda"))
+    kw = dict(n_steps=e, softcap=softcap)
+    got = fpa.fused_page_attention(q, *args, planes, **kw)
+    want = fpa.fused_page_attention_plain(q, *args, planes, **kw)
+    mag = fpa.fused_page_attention_f64(q, *args, planes, **kw)[3].float()
+    torch.cuda.synchronize()
+    assert ((got[0] - want[0]).abs() <= 1e-5 * mag + 1e-6).all()
+    for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
     assert (got[2][-1] == 0).all() and (got[2][:-1] > 0).all()
 
