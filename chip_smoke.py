@@ -113,8 +113,9 @@ Phases (any failure exits non-zero):
    ``kv_pressure`` and a 16-step slot deadline; tokens equal to phase 3's,
    pages spilled and every one read back, none quarantined, none failed,
    the pool free at the end; the spill ratio and seconds printed;
-9. serve recurrentgemma-9b at published widths and depth (38 layers: 2
-   recurrent prefix layers + 12 x (recurrent, recurrent, local), window
+9. serve recurrentgemma-9b at published widths, cut to ``RG_LAYERS``
+   (14 of its 38 layers: 2 recurrent prefix layers + 4 of its 12
+   (recurrent, recurrent, local) cycles; window
    2048, seed-0 random f32 weights served from their bf16 copy; the
    qwen3 engines freed first; page 16, 4 slots, ``max_len`` 2176; 8
    requests of 2001-2112-token prompts, half below the window and half
@@ -135,9 +136,10 @@ Phases (any failure exits non-zero):
    sync gates; both schedulers' median and longest step printed;
    (g) minitron-8b at published widths and depth (32 layers, d_model
    4096, GQA 32/8, squared-ReLU d_ff 16384, untied head, vocab 256000;
-   7.7 G params, 30.9 GB f32 drawn from seed 0, served from a 15.5 GB
-   bf16 copy): the fused serve of phase 3's requests with a profiler
-   window, then from packed weights (the head through kernel 5): layer 0's
+   7.7 G params, 30.9 GB f32 drawn from seed 0): the fused serve of phase
+   3's requests from a bf16 copy cut to ``MINITRON_FUSED_LAYERS`` (16)
+   layers, with a profiler window, then from packed weights at 32 layers
+   (the head through kernel 5): layer 0's
    sites and the head against f32 and f64 products, ``weight_stats()``,
    packing seconds, and phase 4's teacher-forced re-score through the
    first ``CUT_LAYERS`` layers and the head (its RMS drift gate, and the
@@ -151,6 +153,31 @@ Phases (any failure exits non-zero):
    one forward of [2, 400] frames, finite logits, the first frame's
    logits moved by a change to the last frame (bidirectional), the engine
    refusing an encoder;
+   (i) xlstm-125m at published widths and depth (12 layers, d_model 768,
+   mLSTM and sLSTM alternating, seed-0 f32 weights), phase 3's requests:
+   the engine with ``kv_cache_dtype="apack-int8"`` (no attention layer:
+   0 pool pages, ``kv_ratio`` None, the states in the device state store)
+   with its median and longest step, a dense bf16 cache (``decode_step``)
+   whose tokens must be equal, and the apack-int8 engine with slot 0
+   preempted after ten steps and resumed through the byte-plane snapshot
+   (kernels 2 and 1 in the serve's counts), its states back bit for bit
+   and its tokens equal; an empty state's -1e30 stabilizers through a
+   snapshot on the card, bit for bit;
+   (j) qwen3-1.7b training at published widths and depth (28 layers, f32
+   params drawn on the card from seed 0, ``AdamWConfig(state_dtype=
+   "int8")``, ``SyntheticLM`` batches of 8 x 256): the step's median ms,
+   tokens/s, peak memory and a profiler window over two steady steps;
+   then at ``CUT_LAYERS`` layers 6 steps through ``Supervisor`` with
+   ``compress_ckpt=True`` and ``save_every=3``, a ``RuntimeError``
+   injected once into step 6 after the step-3 save, under deterministic
+   algorithms: the restored state equal to the saved one bit for bit (a
+   per-leaf hash of the bytes on the card: params, ``Q8`` payloads and
+   scales, the step; and the data cursor), the replayed steps' losses
+   equal to the first pass's, every loss and grad norm finite; the
+   checkpoint's stored/raw ratio, its save and restore seconds by part
+   (host and kernel) and kernels 2 and 1's launches a save and a restore;
+   (k) xlstm-125m training at published widths and depth, 3 steps of 8 x
+   256: finite losses and grads, the step's ms;
 10. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
     caches, and the fused one on round-tripped weights, whose
     ``compress_params`` containers must match too; and fused, oracle and
@@ -158,8 +185,11 @@ Phases (any failure exits non-zero):
     SMOKE with window 8, whose KV stats must match too, and packed weights
     on both; fused engines on minitron-8b, command-r-plus-104b,
     paligemma-3b, dbrx-132b and kimi-k2-1t-a32b SMOKE, packed ones on
-    minitron-8b and kimi-k2, whose ``kv_ratio`` must match too) on the
-    card against the same engines on the CPU, and the
+    minitron-8b and kimi-k2, whose ``kv_ratio`` must match too, and the
+    xlstm-125m SMOKE engine, whose state stats must match) on the card
+    against the same engines on the CPU, 3 training steps of qwen3 and
+    xlstm SMOKE card against CPU (losses within ``TRAIN_SMOKE_RTOL``),
+    and the
     oracle's tokens against the fused engine's on the card; (d) SMOKE
     refresh, pressure and fault engines (a flipped bit of a spilled record
     fails only its owner) card against CPU: tokens, ``kv_ratio``, refresh
@@ -179,7 +209,9 @@ Phases (any failure exits non-zero):
     a step of (a), kernel 5 with its launches a step of (c), kernels 1,
     2, 3 and 5 with their launches a step of the async serves (e), kernel
     3 with its launches a step of (g)'s and (h)'s fused serves and kernel
-    5 of their packed ones), then the result line.
+    5 of their packed ones, kernels 2 and 1 with their launches a save
+    and a restore of (j)'s checkpoint and in (i)'s preempt), then the
+    result line.
 
 It exits non-zero without a result when CUDA is unavailable or when it is
 not run from a checkout of the repository.
@@ -213,6 +245,13 @@ DBRX_LAYERS = 2
 # 8, its serve; the round trip itself stays at 28 layers) serves, cut from
 # 28 so that the script stays within its time on the slower chip hosts
 CUT_LAYERS = 4
+XLSTM = "xlstm-125m"              # mLSTM/sLSTM layers: no KV pages
+# recurrentgemma-9b's depth here: 2 recurrent prefix layers + 4 of its 12
+# (recurrent, recurrent, local) cycles, and the depth of minitron-8b's
+# fused serve in (g), cut so that the script stays within its time with
+# the training phases
+RG_LAYERS = 14
+MINITRON_FUSED_LAYERS = 16
 F64_ERR_RATIO = 4.0               # kernel vs f64 <= this x cuBLAS f32 vs f64
 RMS_DRIFT_RATIO = 1.5             # packed drift <= this x f32 oracle's drift
 # (bits, streams) of the codec at the weight round trip's shape: a stacked
@@ -644,6 +683,66 @@ def check_fastpath_shapes(device, records):
               + json.dumps(records[f"fastpath{bits}"]))
         del vals, got, back, ct
         torch.cuda.empty_cache()
+
+
+def check_ckpt_plane(device, records, vocab=151936):
+    """Kernels 2 and 1 at the shape (j)'s checkpoint gives them most: the
+    exponent byte plane (byte 3) of qwen3-1.7b's f32 embedding [151936,
+    2048] as drawn from seed 0, 607,744 streams of 512 under the one
+    activation-mode table the checkpoint fits to its first 2^20 bytes
+    (``byteplane.fit_table``); the kernels' planes against the plain
+    encoder's on the first and last 1,024 streams, the decode kernel's
+    values against every value and the plain decoder's on those streams;
+    both timed as ``check_fastpath_shapes`` times them.  Then the decode
+    kernel on a mantissa plane (byte 0), stored verbatim (0 sym rows), as
+    the restore decodes it."""
+    import torch
+    from repro_torch.core import byteplane
+    from repro_torch.kernels import apack_decode, apack_encode, ops, ref
+    e, n = 512, vocab * 2048 // 512
+    g = torch.Generator(device=device).manual_seed(0)
+    w = torch.randn(vocab * 2048, generator=g, device=device) * 2048 ** -0.5
+    cols = w.view(torch.uint8).reshape(-1, 4)
+    vals = cols[:, 3].to(torch.int32).reshape(n, e)
+    table = byteplane.fit_table(cols[:2 ** 20, 3].cpu().numpy())
+    tabs = ref.table_tensors(table, device)
+    kw = dict(n_steps=e, bits=8)
+    got = apack_encode.encode(vals, *tabs, **kw)
+    idx = end_streams(n, device=device)
+    want, enc_plain = timed_call(lambda: apack_encode.encode_plain(
+        vals[idx], *tabs, **kw))
+    if not all(torch.equal(a[..., idx], b) for a, b in zip(got, want)):
+        raise AssertionError("encode at the checkpoint plane differs from "
+                             "the plain encoder")
+    dec = apack_decode.decode(got[0], got[1], got[4], *tabs, **kw)
+    plain, dec_plain = timed_call(lambda: apack_decode.decode_plain(
+        got[0][:, idx], got[1][:, idx], got[4][idx], *tabs, **kw))
+    if not torch.equal(dec, vals) or not torch.equal(dec[idx], plain):
+        raise AssertionError("decode at the checkpoint plane: not "
+                             "bit-exact")
+    sampled = [len(idx), e]
+    out = {"shape": [n, e], "coded_over_raw": (
+        int((got[2] + got[3]).sum()) / (8 * n * e)),
+        "encode": encode_timing(vals, tabs, 8, got, enc_plain, iters=3,
+                                plain_shape=sampled),
+        "decode": decode_timing(got, tabs, 8, dec, dec_plain, iters=3,
+                                plain_shape=sampled)}
+    del got, dec, plain, want
+    # a mantissa plane, stored: what the restore's decode gets from it
+    ct = byteplane.compress_float(w[:n * e // 4].reshape(-1),
+                                  device=device).planes[0]
+    ca = ops.CompressedArrays.from_compressed_tensor(ct, device)
+    back = ops.apack_decode(ca)
+    mant = cols[:n * e // 4, 0]
+    if not bool(ct.stored.all()) or not torch.equal(back.reshape(-1), mant):
+        raise AssertionError("the stored mantissa plane is not decoded "
+                             "bit for bit")
+    out["decode_stored_ms"] = graph_ms(lambda: ops.apack_decode(ca), 3)
+    out["decode_stored_shape"] = [n // 4, e]
+    records["checkpoint plane"] = out
+    print("codec at (j)'s checkpoint plane: " + json.dumps(out))
+    del w, cols, vals, back, ca
+    torch.cuda.empty_cache()
 
 
 def mixed_pool(device, jobs=4, p_slots=16, pool_pages=96, page=PAGE):
@@ -1567,7 +1666,7 @@ def drive(eng, reqs, hook=None, tag="drive") -> dict:
     ``step()``, the process's CPU time over it, all threads, and the
     allocator's retries over the serve, each a cudaFree of the cache and
     a cudaMalloc again) and (paged KV) this serve's KV read ratio, tables
-    included."""
+    included (None where no attention layer read a page)."""
     import numpy as np
     import torch
     import repro_torch
@@ -1621,7 +1720,7 @@ def drive(eng, reqs, hook=None, tag="drive") -> dict:
     if eng.paged:
         d = {k: eng.kv.traffic[k] - t_kv[k] for k in t_kv}
         out["kv_ratio"] = ((d["kv_read_bytes"] + d["kv_table_bytes"])
-                           / d["kv_raw_bytes"])
+                           / d["kv_raw_bytes"] if d["kv_raw_bytes"] else None)
     return out
 
 
@@ -2167,40 +2266,12 @@ def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80):
                            max_new_tokens=24))
     for _ in range(3):                      # admit + warm
         eng.step()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(10):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for evt in prof.key_averages():
-        # kernel events only (CPU ops carry their kernels' time too)
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
-            continue
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, evt.key, evt.count))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    attn = sum(r[2] for r in rows
+    out = profile_window(eng.step, 10, tag, top=12, also=PORT_KERNELS)
+    attn = sum(r[2] for r in out.pop("rows")
                if "fused_page_attention_kernel" in r[1]) / 10
-    print(f"profile {tag}: 10 steady steps, wall {wall * 1e3:.1f} ms, "
-          f"device busy {busy * 1e3:.1f} ms, idle share "
-          f"{1 - busy / wall:.3f}, fused attention launches a step {attn}")
-    prof_out = {"wall_ms_per_step": wall * 100, "busy_ms_per_step": busy * 100,
-                "idle_share": 1 - busy / wall}
-    # the top twelve, and every kernel of the port below them
-    for dev_us, key, count in (rows[:12] + [r for r in rows[12:] if any(
-            f"::{k}" in r[1] for k in PORT_KERNELS)]):
-        print(f"profile {tag}:   {dev_us / 1e3:9.2f} ms  {count:6d}x  "
-              f"{key[:90]}")
+    print(f"profile {tag}: fused attention launches a step {attn}")
     eng.run_until_drained()
-    return prof_out
+    return out
 
 
 # ---------------------------------------------------- async (slice 10)
@@ -2478,12 +2549,14 @@ SMOKE_CASES = (
     ((arch, w, "fused"), {"arch": arch, **kw})
     for arch, packed in (("minitron-8b", True), ("command-r-plus-104b", False),
                          ("paligemma-3b", False), ("dbrx-132b", False),
-                         ("kimi-k2-1t-a32b", True))
+                         ("kimi-k2-1t-a32b", True), (XLSTM, False))
     for w, kw in (("dense", {}),) + ((("apack-int8", {"weights":
                                                       "apack-int8"}),)
                                      if packed else ()))
 # the stacks with rolling layers, whose SMOKE engines must evict pages
 ROLLING_SMOKE = ("hetero-serve-smoke", "recurrentgemma-9b")
+# the SMOKE stacks trained 3 steps on the card and on the CPU
+TRAIN_SMOKE_ARCHS = ("qwen3-1.7b", XLSTM)
 
 
 def smoke_engine_run(dev, weights=None, kv="apack-int8", fused=True,
@@ -2607,6 +2680,8 @@ def cpu_twins(path: str) -> int:
         out[("smoke", key)] = smoke_engine_run(torch.device("cpu"), **case)
     for arch in ASYNC_SMOKE_ARCHS:
         out[("async", arch)] = async_smoke_run(arch, torch.device("cpu"))
+    for arch in TRAIN_SMOKE_ARCHS:
+        out[("train", arch)] = train_smoke_run(arch, torch.device("cpu"))
     for name in ROBUSTNESS_RUNS:
         out[("robust", name)] = robustness_run(name, torch.device("cpu"))
     out["seconds"] = time.perf_counter() - t0
@@ -2879,9 +2954,10 @@ def rg_preempt_hook(res: dict):
 
 
 def recurrentgemma_phase(device):
-    """recurrentgemma-9b at published widths and depth (38 layers: 2
-    recurrent prefix layers + 12 x (recurrent, recurrent, local), window
-    2048), seed-0 random f32 weights, served from their bf16 serving copy:
+    """recurrentgemma-9b at published widths (window 2048), cut to
+    ``RG_LAYERS`` (14) of its 38 layers: 2 recurrent prefix layers + 4 x
+    (recurrent, recurrent, local), seed-0 random f32 weights, served from
+    their bf16 serving copy:
     the fused paged APack KV path, the materialize oracle (gated at one
     step with PACKED pages) and the fused path with slot 0 preempted and
     resumed (tokens equal to the fused serve's, states restored bit for
@@ -2896,7 +2972,8 @@ def recurrentgemma_phase(device):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     t_phase = time.perf_counter()
-    cfg = get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              num_layers=RG_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0),
@@ -2911,7 +2988,7 @@ def recurrentgemma_phase(device):
         / 1e9,
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}))
     kw = dict(arch="recurrentgemma-9b", params=params, max_len=2176,
-              requests=rg_requests)
+              requests=rg_requests, layers=RG_LAYERS)
     sync_parts: dict = {}
     fused = serve_full_width(device, setup=host_parts(sync_parts), **kw)
     fused_tokens = [r.tokens for r in fused["reqs"]]
@@ -3002,7 +3079,7 @@ def recurrentgemma_phase(device):
     torch.cuda.reset_peak_memory_stats()
     packed = serve_full_width(
         device, arch="recurrentgemma-9b", max_len=2176, requests=rg_requests,
-        weights="apack-int8", keep_sites=sites,
+        layers=RG_LAYERS, weights="apack-int8", keep_sites=sites,
         params=M.init_params(cfg, torch.Generator(device=device)
                              .manual_seed(0), device))
     eng, s = packed["eng"], packed["summary"]
@@ -3081,7 +3158,8 @@ def new_arch_summary(fused, packed, prof) -> dict:
     """The numbers (g) and (h) print of their fused and packed serves."""
     s, p = fused["summary"], packed["summary"]
     ws = p["weight_stats"]
-    return {"layers": s["layers"],
+    same_depth = s["layers"] == p["layers"]
+    return {"layers": {"fused": s["layers"], "packed": p["layers"]},
             "kv_ratio": {"fused": s["kv_ratio"], "packed": p["kv_ratio"]},
             "weight_ratio": ws["weight_ratio"],
             "native_ratio": ws["native_ratio"],
@@ -3097,7 +3175,8 @@ def new_arch_summary(fused, packed, prof) -> dict:
             "max_memory_gb": {"fused": s["max_memory_gb"],
                               "packed": p["max_memory_gb"]},
             "token_agreement_packed_vs_fused": token_agreement(
-                [r.tokens for r in packed["reqs"]], fused["tokens"]),
+                [r.tokens for r in packed["reqs"]], fused["tokens"])
+            if same_depth else None,
             "launches_per_step": {
                 "fused_page_attention":
                     s["launches_per_step"]["fused_page_attention"],
@@ -3105,11 +3184,13 @@ def new_arch_summary(fused, packed, prof) -> dict:
                     p["launches_per_step"]["decompress_matmul"]}}
 
 
-def new_arch_phase(device, arch, tag, layers=None, sites=()):
+def new_arch_phase(device, arch, tag, layers=None, sites=(),
+                   fused_layers=None):
     """(g) and (h): ``arch`` at published widths (``layers`` layers, its
     own depth when None), seed-0 random weights: the fused paged APack KV
-    serve of phase 3's requests from the bf16 serving copy, with a
-    profiler window; then a serve from packed weights (the draw again in
+    serve of phase 3's requests from the bf16 serving copy (at
+    ``fused_layers`` layers when given), with a profiler window; then a
+    serve from packed weights (the draw again in
     ``param_dtype``, packed with its untied head: the head's product
     through kernel 5), checked as phase 4's: layer 0's packed sites (which
     must be ``sites``, (group, name) pairs) and the head against f32 and
@@ -3122,9 +3203,9 @@ def new_arch_phase(device, arch, tag, layers=None, sites=()):
     t_phase = time.perf_counter()
     gc.collect()                # the previous phase's engines, before the
     torch.cuda.empty_cache()    # draw: its peak memory is this phase's
-    cfg, params = arch_params(device, arch, layers)
-    kw = dict(arch=arch, layers=cfg.num_layers)
-    fused = serve_full_width(device, params=params, **kw)
+    cfg, params = arch_params(device, arch, fused_layers or layers)
+    fused = serve_full_width(device, params=params, arch=arch,
+                             layers=cfg.num_layers)
     del params
     prof = profile_steady_steps(fused["eng"], fused["cfg"], fused["rng"],
                                 f"{arch} fused")
@@ -3132,7 +3213,10 @@ def new_arch_phase(device, arch, tag, layers=None, sites=()):
     fused = {"summary": fused["summary"],
              "tokens": [r.tokens for r in fused["reqs"]]}
     torch.cuda.empty_cache()
-    box = [arch_params(device, arch, layers, serving=False)[1]]
+    cfg, packed_params = arch_params(device, arch, layers, serving=False)
+    box = [packed_params]
+    del packed_params
+    kw = dict(arch=arch, layers=cfg.num_layers)
     cut = min(CUT_LAYERS, cfg.num_layers)
     packed = serve_full_width(device, weights="apack-int8",
                               keep_sites=cut_sites(cut), params=box.pop(),
@@ -3203,6 +3287,425 @@ def hubert_phase(device) -> dict:
     del params, logits, logits2
     torch.cuda.empty_cache()
     return out
+
+
+# ----------------------------------------------- xLSTM and training (slice 12)
+TRAIN_BATCH, TRAIN_SEQ = 8, 256     # tokens of a full-width training step
+# card vs CPU losses of the SMOKE training steps: the reference's bound for
+# the same loss through another summation order (grad accumulation)
+TRAIN_SMOKE_RTOL = 1e-3
+
+
+def bits_equal(a, b) -> bool:
+    """Two f32 tensors equal bit for bit (-0.0 is not 0.0)."""
+    import torch
+    return a.dtype == b.dtype == torch.float32 and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def xlstm_phase(device) -> dict:
+    """(i) xlstm-125m at published widths and depth (12 layers, d_model
+    768, mLSTM and sLSTM alternating, seed-0 random f32 weights), phase
+    3's 8 requests through 4 slots: the engine with
+    ``kv_cache_dtype="apack-int8"`` (no attention layer: no pool page, the
+    states in the device state store, ``kv_ratio`` None), then a dense
+    bf16 cache (``decode_step``), whose greedy tokens must be equal, then
+    the apack-int8 engine with slot 0 preempted after ten steps and
+    resumed, its states through the byte-plane snapshot (kernels 2 and 1,
+    which the serve's counts must show), restored bit for bit, the tokens
+    equal.  Then an empty state (the -1e30 stabilizers) through a
+    snapshot on the card, bit for bit.  Returns the first serve's summary
+    and the preempt serve's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    t_phase = time.perf_counter()
+    base = get_config(XLSTM)
+    params = M.init_params(base, torch.Generator(device=device)
+                           .manual_seed(0), device)
+    out: dict = {"layers": base.num_layers, "d_model": base.d_model}
+    tokens = {}
+    for name, kv in (("fused", "apack-int8"), ("dense cache", "bfloat16")):
+        cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+        eng = ServeEngine(cfg, params, max_batch=4, max_len=160,
+                          kv_page_size=16, device=device)
+        reqs = serve_requests(cfg, np.random.default_rng(0))
+        d = drive(eng, reqs, tag=f"{XLSTM} {name}")
+        tokens[name] = d["tokens"]
+        if name == "fused":
+            ks = eng.kv_stats()
+            if ks["kv_pool_pages"] != 0 or ks["kv_ratio"] is not None:
+                raise AssertionError(f"{XLSTM}: {ks['kv_pool_pages']} pool "
+                                     f"pages, kv_ratio {ks['kv_ratio']}")
+            out.update({k: d[k] for k in (
+                "median_step_ms", "max_step_ms", "longest_step",
+                "first_step_s", "max_memory_gb")},
+                kv_pool_pages=0, kv_ratio=None,
+                tokens_per_s=sum(map(len, d["tokens"])) / d["wall_s"])
+        del eng
+    if tokens["fused"] != tokens["dense cache"]:
+        raise AssertionError(f"{XLSTM}: the state-store engine's tokens "
+                             "differ from the dense-cache decode_step's")
+    cfg = dataclasses.replace(base, kv_cache_dtype="apack-int8")
+    eng = ServeEngine(cfg, params, max_batch=4, max_len=160,
+                      kv_page_size=16, device=device)
+    reqs = serve_requests(cfg, np.random.default_rng(0))
+    for r in reqs:
+        eng.submit(r)
+    repro_torch.reset_launch_counts()
+    res: dict = {}
+    i = 0
+    while eng.step() or eng.queue:
+        i += 1
+        if i == 10:                        # preempt slot 0, requeued first
+            res["rid"], res["live"] = (eng.active[0].rid,
+                                       eng.kv.read_state_slot(0))
+            t0 = time.perf_counter()
+            planes = eng.preempt(0, requeue="head")["planes"]
+            torch.cuda.synchronize()
+            res["snapshot"] = {"s": time.perf_counter() - t0,
+                               "raw_bytes": planes.original_bits // 8,
+                               "ratio": planes.total_bits
+                               / planes.original_bits}
+        elif i == 11:                      # resumed by that step
+            st = eng.kv.states[res["rid"]]
+            res["restored_bit_exact"] = all(
+                bits_equal(st[layer][f], v)
+                for layer, dd in res.pop("live").items()
+                for f, v in dd.items())
+    torch.cuda.synchronize()
+    launches = repro_torch.launch_counts()
+    if not res.get("restored_bit_exact") or eng.stats["resumed"] != 1:
+        raise AssertionError(f"{XLSTM}: preempted states not restored bit "
+                             f"for bit ({res.get('restored_bit_exact')})")
+    if [r.tokens for r in reqs] != tokens["fused"]:
+        raise AssertionError(f"{XLSTM}: the preempted serve's tokens differ")
+    if launches["apack_encode"] < 1 or launches["apack_decode"] < 1:
+        raise AssertionError(f"{XLSTM}: the snapshot ran no kernel "
+                             f"({launches})")
+    # an empty state, its stabilizers at -1e30, through the card's codec
+    kv = eng.kv
+    kv.add_request(-1)
+    kv.add_request(-2)
+    kv.states[-1] = {layer: {f: v.clone() for f, v in kv._state_template(
+        kv.layer_kinds[layer]).items()} for layer in kv.state_layers}
+    kv.restore_state(-2, kv.snapshot_state(-1))
+    empty_ok = all(bits_equal(kv.states[-2][layer][f], v)
+                   for layer, dd in kv.states[-1].items()
+                   for f, v in dd.items())
+    if not empty_ok:
+        raise AssertionError(f"{XLSTM}: an empty state's snapshot is not "
+                             "restored bit for bit")
+    out.update(dense_cache_tokens_equal=True, preempt_tokens_equal=True,
+               restored_bit_exact=True, empty_state_bit_exact=True,
+               snapshot=res["snapshot"],
+               preempt_launches={k: launches[k] for k in (
+                   "apack_encode", "apack_decode")})
+    print(f"{XLSTM} (i): " + json.dumps(out))
+    del eng, kv, params
+    torch.cuda.empty_cache()
+    print(f"{XLSTM} phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def leaf_digest(t) -> tuple:
+    """A hash of a tensor's bytes computed on its device: (bytes, the sum
+    of its int32 words, their position-weighted sum mod 2^64), so that a
+    state can be held against another without a second host copy."""
+    import torch
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros((-b.numel()) % 4)])
+    w = b.view(torch.int32)
+    s1 = s2 = 0
+    for i in range(0, w.numel(), 1 << 25):
+        c = w[i:i + (1 << 25)].to(torch.int64)
+        pos = torch.arange(i, i + c.numel(), device=c.device)
+        s1 += int(c.sum())
+        s2 += int((c * (pos * 2654435761 + 1)).sum())
+    return b.numel(), s1, s2 % (1 << 64)
+
+
+def profile_window(fn, n: int, tag: str, top: int = 8, also=()) -> dict:
+    """torch.profiler over ``n`` calls of ``fn`` (steps): device time by
+    kernel name, printed for the ``top`` largest and every kernel below
+    them whose name holds ``::k`` for a ``k`` of ``also``, and the
+    device's idle share of the window.  Returns the window's wall and busy
+    ms a step, its idle share, the top four and every row (device us,
+    name, count)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for evt in prof.key_averages():
+        # kernel events only (CPU ops carry their kernels' time too)
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, evt.key, evt.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"profile {tag}: {n} steady steps, wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy * 1e3:.1f} ms, idle share "
+          f"{1 - busy / wall:.3f}")
+    for dev_us, key, count in rows[:top] + [r for r in rows[top:] if any(
+            f"::{k}" in r[1] for k in also)]:
+        print(f"profile {tag}:   {dev_us / 1e3:9.2f} ms  {count:6d}x  "
+              f"{key[:90]}")
+    return {"wall_ms_per_step": wall * 1e3 / n,
+            "busy_ms_per_step": busy * 1e3 / n, "idle_share": 1 - busy / wall,
+            "top": [(k[:60], round(us / 1e3 / n, 3)) for us, k, _ in
+                    rows[:4]], "rows": rows}
+
+
+def train_steps(device, arch, steps, tag, layers=None, profile=0) -> dict:
+    """``steps`` training steps of ``arch`` at published widths (``layers``
+    layers, its own depth when None), seed-0 f32 params drawn on the card,
+    8-bit AdamW moments, ``SyntheticLM`` batches of 8 x 256, each step
+    timed to the card's end; the loss, grad norm and params must stay
+    finite.  ``profile``: a profiler window over that many more steps.
+    Returns the median step, tokens/s and peak memory."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(0), device)
+    ocfg = AdamWConfig(state_dtype="int8")
+    box = {"params": params, "opt": init_state(ocfg, params)}
+    del params
+    data = SyntheticLM(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                  vocab_size=cfg.vocab_size))
+    step = make_train_step(cfg, ocfg)
+    metrics = []
+
+    def one():
+        b = {"tokens": torch.from_numpy(data.next_batch()["tokens"])
+             .to(device)}
+        box["params"], box["opt"], m = step(box["params"], box["opt"], b)
+        metrics.append(m)
+
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prof = profile_window(one, profile, tag) if profile else None
+    if prof:
+        del prof["rows"]
+    loss = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    finite = all(np.isfinite(loss + gnorm)) and all(
+        bool(torch.isfinite(x).all()) for x in tree.leaves(box["params"]))
+    if not finite:
+        raise AssertionError(f"{tag}: non-finite loss, grad norm or params "
+                             f"(loss {loss}, grad norm {gnorm})")
+    med = float(np.median(times[1:])) if steps > 1 else times[0]
+    out = {"layers": cfg.num_layers, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "first_step_s": times[0], "median_step_ms": med * 1e3,
+           "step_ms": [t * 1e3 for t in times],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": loss, "grad_norm": gnorm, "profile": prof}
+    print(f"{tag}: " + json.dumps(out))
+    del box, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_restart(device, layers: int) -> dict:
+    """(j)'s restart: qwen3-1.7b at published widths, ``layers`` layers, 6
+    steps through ``Supervisor`` (``compress_ckpt=True``, ``save_every=3``,
+    the async saver, 8-bit moments, batches of 8 x 256), with a
+    ``RuntimeError`` injected once into the sixth step, after the step-3
+    save: the supervisor restores step 3 from the compressed checkpoint
+    (the decode kernel) and replays steps 4-6.  Deterministic algorithms
+    (and ``CUBLAS_WORKSPACE_CONFIG``) in this phase only: the embedding's
+    backward otherwise accumulates with atomics.  Gates: the restored
+    state equals the saved one bit for bit (``leaf_digest`` of every leaf:
+    params, ``Q8`` payloads and scales, the step counter) and so does the
+    data cursor; the replayed steps 4 and 5 give the first pass's losses
+    bit for bit; every loss and grad norm finite.  Returns the save and
+    restore seconds by part, the kernels' launches per save and per
+    restore and the stored/raw ratio of the last checkpoint."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.runtime import Supervisor, SupervisorConfig
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=layers)
+    ckdir = os.path.join(HERE, "build", "ckpt_train")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ocfg = AdamWConfig(state_dtype="int8")
+    data = SyntheticLM(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                  vocab_size=cfg.vocab_size))
+    step = make_train_step(cfg, ocfg)
+    rec: dict = {"loss": {}, "grad_norm": {}}
+
+    def digests(state):
+        return [leaf_digest(x) for x in tree.leaves(state)]
+
+    def make_state():
+        p = M.init_params(cfg, torch.Generator(device=device)
+                          .manual_seed(0), device)
+        return {"params": p, "opt": init_state(ocfg, p)}, {}
+
+    def step_fn(state, idx):
+        if idx == 5 and "failed" not in rec:
+            rec["failed"] = True
+            raise RuntimeError("injected failure in step 6")
+        if "failed" in rec and idx == 3 and "restored" not in rec:
+            rec["restored"] = digests(state)
+            rec["cursor_restored"] = data.state_dict()
+        b = {"tokens": torch.from_numpy(data.next_batch()["tokens"])
+             .to(device)}
+        p, o, m = step(state["params"], state["opt"], b)
+        new = {"params": p, "opt": o}
+        if idx == 2:
+            rec["saved"] = digests(new)
+            rec["cursor_saved"] = data.state_dict()
+        m = {k: float(v) for k, v in m.items()}
+        rec["loss"].setdefault(idx, []).append(m["loss"])
+        rec["grad_norm"].setdefault(idx, []).append(m["grad_norm"])
+        return new, m
+
+    timings = {"save": {}, "restore": {}}
+    prev = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.cuda.empty_cache()
+    try:
+        repro_torch.reset_launch_counts()
+        t0 = time.perf_counter()
+        sup = Supervisor(SupervisorConfig(ckpt_dir=ckdir, save_every=3,
+                                          max_steps=6, keep=1,
+                                          compress_ckpt=True),
+                         make_state=make_state, step_fn=step_fn,
+                         data_state=data.state_dict,
+                         restore_data=data.load_state_dict, device=device,
+                         ckpt_timings=timings)
+        state, hist = sup.run()
+        wall = time.perf_counter() - t0
+        launches = repro_torch.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    with open(os.path.join(ckdir, "step_00000006", "manifest.json")) as f:
+        man = json.load(f)
+    stored = sum(leaf["stored_bits"] for leaf in man["leaves"])
+    raw = sum(int(np.prod(leaf["shape"])) * (
+        2 if leaf["dtype"] == "bfloat16" else np.dtype(leaf["dtype"])
+        .itemsize) * 8 for leaf in man["leaves"])
+    shutil.rmtree(ckdir, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    n_saves, n_restores = 2, sup.restarts
+    sv, rs = timings["save"], timings["restore"]
+    out = {"layers": layers, "restarts": sup.restarts,
+           "steps_logged": [h["step"] for h in hist], "wall_s": wall,
+           "restored_bit_exact": rec.get("restored") == rec.get("saved"),
+           "leaves": len(rec.get("saved") or []),
+           "cursor": [rec.get("cursor_saved"), rec.get("cursor_restored")],
+           "replayed_losses_equal": all(
+               len(set(rec["loss"][i])) == 1 and len(rec["loss"][i]) == 2
+               for i in (3, 4)),
+           "loss": {i: v for i, v in rec["loss"].items()},
+           "ckpt_stored_over_raw": stored / raw, "ckpt_raw_bytes": raw // 8,
+           "compressed_leaves": sum(leaf["codec"] == "apack_byteplane"
+                                    for leaf in man["leaves"]),
+           "save_s": {k: v / n_saves for k, v in sv.items()},
+           "save_host_s": (sv.get("snapshot", 0) + sv.get("total", 0)
+                           - sv.get("encode", 0)) / n_saves,
+           "save_kernel_s": sv.get("encode", 0) / n_saves,
+           "restore_s": rs, "restore_host_s": rs.get("total", 0)
+           - rs.get("decode", 0), "restore_kernel_s": rs.get("decode", 0),
+           "launches_per_save": launches["apack_encode"] / n_saves,
+           "launches_per_restore": launches["apack_decode"]
+           / max(n_restores, 1)}
+    print("train restart (j): " + json.dumps(out))
+    finite = all(np.isfinite(v) for d in (rec["loss"], rec["grad_norm"])
+                 for vs in d.values() for v in vs)
+    if sup.restarts != 1 or out["steps_logged"] != [1, 2, 3, 4, 5, 4, 5, 6]:
+        raise AssertionError(f"train restart: restarts {sup.restarts}, "
+                             f"steps {out['steps_logged']}")
+    if not out["restored_bit_exact"] or out["cursor"] != [{"step": 3}] * 2:
+        raise AssertionError("train restart: the restored state or data "
+                             "cursor differs from the saved one")
+    if not out["replayed_losses_equal"] or not finite:
+        raise AssertionError(f"train restart: replayed losses differ or are "
+                             f"not finite: {rec['loss']}")
+    if launches["apack_encode"] < 1 or launches["apack_decode"] < 1:
+        raise AssertionError(f"train restart: the checkpoint ran no kernel "
+                             f"({launches})")
+    return out
+
+
+def train_smoke_run(arch: str, dev) -> dict:
+    """Three training steps of ``arch`` SMOKE on ``dev`` (phase 10: card
+    against the CPU): seed-0 params drawn on the CPU, 8-bit moments at the
+    default schedule (its warmup keeps the first steps small, so the two
+    devices' trajectories stay within their bf16 roundings), ``SyntheticLM``
+    batches of 4 x 64.  Returns the losses and grad norms."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = get_smoke_config(arch)
+    params = _on(init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+                 dev)
+    ocfg = AdamWConfig(state_dtype="int8")
+    state = init_state(ocfg, params)
+    data = SyntheticLM(DataConfig(batch_size=4, seq_len=64,
+                                  vocab_size=cfg.vocab_size))
+    step = make_train_step(cfg, ocfg)
+    out = {"loss": [], "grad_norm": []}
+    for _ in range(3):
+        b = {"tokens": torch.from_numpy(data.next_batch()["tokens"]).to(dev)}
+        params, state, m = step(params, state, b)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    return out
+
+
+def train_smoke_vs_cpu(device, twins: dict, arch: str) -> None:
+    c, d = twins[("train", arch)], train_smoke_run(arch, device)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(d["loss"], c["loss"]))
+    print(f"smoke training [{arch}] card vs cpu: losses {d['loss']} vs "
+          f"{c['loss']} (largest relative difference {rel:.3g}, bound "
+          f"{TRAIN_SMOKE_RTOL}), grad norms {d['grad_norm']} vs "
+          f"{c['grad_norm']}")
+    if not rel <= TRAIN_SMOKE_RTOL:
+        raise AssertionError(f"SMOKE training [{arch}] on the card "
+                             "disagrees with the CPU")
 
 
 # ----------------------------------------------------------------- phase 5
@@ -3432,6 +3935,8 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     # minitron-8b's head and squared-ReLU FFN
     check_attention_heads(device, new_records)
     check_minitron_matmul(device, new_records)
+    # kernels 2 and 1 at (j)'s checkpoint plane
+    check_ckpt_plane(device, new_records)
     lap("2 kernel checks")
     # phase 3: dense weights, the fused KV path's three kernels
     sync_parts: dict = {}
@@ -3562,13 +4067,24 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     # published widths, 2 layers, and hubert-xlarge's forward
     attn = tuple(("inner", n) for n in ("wq", "wk", "wv", "wo"))
     mini = new_arch_phase(device, "minitron-8b", "g", sites=attn + (
-        ("ffn", "w_up"), ("ffn", "w_down")))
+        ("ffn", "w_up"), ("ffn", "w_down")),
+        fused_layers=MINITRON_FUSED_LAYERS)
     lap("(g) minitron-8b")
     dbrx = new_arch_phase(device, "dbrx-132b", "h", layers=DBRX_LAYERS,
                           sites=attn)
     lap("(h) dbrx-132b")
     hubert_phase(device)
     lap("hubert-xlarge")
+    # (i) xlstm-125m served, (j) qwen3-1.7b trained and restarted from its
+    # compressed checkpoint, (k) xlstm-125m trained
+    xl = xlstm_phase(device)
+    lap("(i) xlstm-125m")
+    train_steps(device, "qwen3-1.7b", 4, "train (j) [qwen3-1.7b, 28 layers]",
+                profile=2)
+    restart = train_restart(device, CUT_LAYERS)
+    lap("(j) qwen3-1.7b training")
+    train_steps(device, XLSTM, 3, f"train (k) [{XLSTM}, 12 layers]")
+    lap("(k) xlstm-125m training")
     twins = wait_cpu_twins(twins_run["proc"], twins_path)
     lap("10 wait for the CPU twins")
     tokens = {key: smoke_vs_cpu(device, twins, key)
@@ -3578,7 +4094,9 @@ def card_phases(t_script: float, twins_run: dict) -> int:
         raise AssertionError("SMOKE oracle engine on the card disagrees with "
                              "the fused engine on the card")
     async_smoke_vs_cpu(device, twins, "qwen3-1.7b")
-    lap("10 SMOKE qwen3")
+    for arch in TRAIN_SMOKE_ARCHS:
+        train_smoke_vs_cpu(device, twins, arch)
+    lap("10 SMOKE qwen3, training")
     for key, _ in SMOKE_CASES:
         if key[0] != "qwen3-1.7b":
             smoke_vs_cpu(device, twins, key)
@@ -3611,6 +4129,13 @@ def card_phases(t_script: float, twins_run: dict) -> int:
              "decompress_matmul": {"recurrentgemma_launches_per_step":
                                    rg_k5,
                                    "async_launches_per_step": async_k5}}
+    # kernels 1 and 2 in (j)'s compressed checkpoint and (i)'s snapshot
+    extra["apack_encode"].update(
+        checkpoint_launches_per_save=restart["launches_per_save"],
+        xlstm_preempt_launches=xl["preempt_launches"]["apack_encode"])
+    extra["apack_decode"].update(
+        checkpoint_launches_per_restore=restart["launches_per_restore"],
+        xlstm_preempt_launches=xl["preempt_launches"]["apack_decode"])
     # launches a step of the async serve (e)
     for name in ("apack_decode", "apack_encode", "fused_page_attention"):
         extra.setdefault(name, {})["async_launches_per_step"] = \
@@ -3634,8 +4159,8 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     print("kernels at recurrentgemma-9b's page [16, 1, 256]: " + json.dumps(
         {"records": rg_records, "serve_launches": rg_launches}))
     print("kernels at the re-pack batch, recurrentgemma-9b's packed sites, "
-          "minitron-8b's, dbrx's and kimi's pages and minitron-8b's packed "
-          "sites: "
+          "minitron-8b's, dbrx's and kimi's pages, minitron-8b's packed "
+          "sites and (j)'s checkpoint plane: "
           + json.dumps(new_records))
     print(f"phase seconds: {json.dumps(laps)}")
     print(f"script: {time.perf_counter() - t_script:.1f} s")

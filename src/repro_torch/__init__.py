@@ -1,11 +1,13 @@
 """PyTorch + CUDA port of the APack reproduction (``repro``), for an NVIDIA
 H100.
 
-It serves qwen3-1.7b and recurrentgemma-9b (rolling-window attention and
-RG-LRU recurrent layers) from the paged APack-compressed KV cache, with
+It serves every architecture of the registry (attention, RG-LRU,
+mLSTM and sLSTM layers) from the paged APack-compressed KV cache, with
 table refresh, a host spill tier and pressure handling, and, with
 ``weights="apack-int8"``, from APack-packed weights
-(``serve.ServeEngine``, ``launch/serve.py``) with
+(``serve.ServeEngine``, ``launch/serve.py``); it trains them with 8-bit
+AdamW and APack-compressed checkpoints (``train``, ``ckpt``,
+``runtime.Supervisor``, ``launch/train.py``), with
 five hand-written CUDA kernels for sm_90a: APack decode, APack encode,
 the fused paged gather-decode attention, the fused decompress-matmul and
 the gather decode (``kernels/``).  The JAX package ``repro`` is the reference it is held

@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``get_config(name)`` /
 ``get_smoke_config(name)`` / ``all_arch_ids()``.  Port of
 ``repro/configs/__init__.py``; it holds every architecture of the JAX
-package but xlstm-125m, which is refused naming its ROADMAP item, plus
-the synthetic ``hetero-serve-smoke`` stack (``get_hetero_smoke_config``,
-:48)."""
+package, plus the synthetic ``hetero-serve-smoke`` stack
+(``get_hetero_smoke_config``, :48)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,16 +21,10 @@ ALIASES = {
     "xlstm-125m": "xlstm_125m",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
-# architectures whose layer kinds the port does not serve yet
-UNPORTED = {"xlstm_125m": "mLSTM/sLSTM layers"}
 
 
 def _module(name: str):
     mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod in UNPORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: {UNPORTED[mod]} "
-            "(ROADMAP open item 1.9, remaining architectures)")
     if mod not in ALIASES.values():
         raise ValueError(f"unknown architecture {name!r}; expected one of "
                          f"{all_arch_ids()} or hetero-serve-smoke")
@@ -51,8 +44,7 @@ def get_smoke_config(name: str):
 
 
 def all_arch_ids() -> list[str]:
-    """Every architecture id of the JAX registry (``all_arch_ids`` :42),
-    xlstm-125m included, which ``get_config`` refuses."""
+    """Every architecture id of the JAX registry (``all_arch_ids`` :42)."""
     return list(ALIASES)
 
 

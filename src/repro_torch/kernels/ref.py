@@ -315,8 +315,23 @@ def encode_ac(values: torch.Tensor, v_min, ol, cum, n_steps: int,
 
 def pack_raw(values: torch.Tensor, n_steps: int, bits: int = 8):
     """Verbatim bit-pack (stored mode): [..., S, E] -> int64 u32
-    [..., Wo, S] (``ref.py:362``)."""
+    [..., Wo, S] (``ref.py:362``): value ``i`` of a stream at bit ``i *
+    bits`` of its bit string, words filled from their low bits.  Where
+    ``bits`` divides 32 and whole words hold the stream, the words are
+    built in one pass (each the sum of its values' shifted bits, which
+    cannot overlap for values below ``2^bits``, as the codec's are);
+    otherwise the bit sink packs one value a step."""
     lead = tuple(values.shape[:-2])
+    per = 32 // bits
+    if 32 % bits == 0 and n_steps % per == 0:
+        s = values.shape[-2]
+        v = values[..., :n_steps].to(I64) & M32
+        shifts = torch.arange(per, device=values.device, dtype=I64) * bits
+        words = (v.reshape(*lead, s, n_steps // per, per) << shifts).sum(-1)
+        plane = torch.zeros(*lead, ofs_capacity_words(n_steps, bits), s,
+                            dtype=I64, device=values.device)
+        plane[..., :n_steps // per, :] = words.transpose(-1, -2)
+        return plane
     sink = _BitSink(lead, ofs_capacity_words(n_steps, bits),
                     values.shape[-2], values.device)
     vals = values.to(I64) & M32

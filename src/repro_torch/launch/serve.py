@@ -6,12 +6,13 @@ Port of ``repro/launch/serve.py``.  On the card (the default):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --smoke --requests 16 --prompt-len 32 --max-new 16 --kv apack-int8
 
-``--arch`` takes every decoder of ``configs.all_arch_ids()`` but
-xlstm-125m: qwen3-1.7b, minitron-4b and minitron-8b (squared-ReLU MLP,
-untied head), command-r-plus-104b (parallel blocks), paligemma-3b (served
-on text, the gemma-scaled embeddings), dbrx-132b and kimi-k2-1t-a32b
-(top-k MoE), recurrentgemma-9b (rolling attention and RG-LRU recurrent
-layers) or hetero-serve-smoke (a global + rolling + recurrent cycle after
+``--arch`` takes every decoder of ``configs.all_arch_ids()``:
+qwen3-1.7b, minitron-4b and minitron-8b (squared-ReLU MLP, untied head),
+command-r-plus-104b (parallel blocks), paligemma-3b (served on text, the
+gemma-scaled embeddings), dbrx-132b and kimi-k2-1t-a32b (top-k MoE),
+recurrentgemma-9b (rolling attention and RG-LRU recurrent layers),
+xlstm-125m (mLSTM and sLSTM layers, no pages: its states ride the state
+store) or hetero-serve-smoke (a global + rolling + recurrent cycle after
 a recurrent prefix layer).  hubert-xlarge, an encoder, has no decode path
 and is refused.  ``--window-size`` sets the rolling layers' window, so a
 small one shows page eviction.

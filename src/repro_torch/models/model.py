@@ -18,8 +18,9 @@ and audio frontends), ``forward`` :273 (prefix layers, ``pad_mask``/
 re-pack :1477-1862, ``snapshot_state``/``restore_state`` :1865/:1898, the
 host spill tier :1913-2036, the transfer guard :2039, the state store
 :2304-2337, ``step_meta`` :2362 and ``materialize`` :2465) for stacks of
-global and rolling attention layers and RG-LRU recurrent layers, prefix or
-cycled, with dense (swiglu, geglu, gelu, relu2) or top-k MoE FFNs.
+global and rolling attention layers and RG-LRU recurrent, mLSTM and sLSTM
+layers, prefix or cycled, with dense (swiglu, geglu, gelu, relu2) or top-k
+MoE FFNs or none.
 
 Layers are a Python list of per-layer param dicts, prefix layers first,
 where JAX scans one stacked tree per cycle position; a dense decode cache
@@ -32,8 +33,10 @@ page (until its layer's tables exist), and the coded bit count and
 lossless check of each packed page, and the drift sketch of pages sealed
 after calibration; a re-pack's verdicts and bit counts; a spilled
 request's pages.  An encoder (hubert-xlarge) forwards only; its decode
-entry points refuse it (``check_decoder``).  Not ported here: mLSTM/sLSTM
-layers and meshes.
+entry points refuse it (``check_decoder``).  The training forward
+(``forward_train``, ``forward`` :273 without caches, with the MoE aux
+losses and ``remat`` per cycle) runs the same layers (``_layers``), and
+``loss_fn`` :322 scores it.  Not ported here: meshes.
 """
 from __future__ import annotations
 
@@ -60,17 +63,18 @@ BF16 = torch.bfloat16
 
 
 ATTN_KINDS = ("global", "local")
-STATE_KINDS = ("recurrent",)
+# layers whose decode state is a fixed-size tensor set, not pages: RG-LRU
+# recurrent, mLSTM and sLSTM (``STATE_KINDS`` :856)
+STATE_KINDS = ("recurrent", "mlstm", "slstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse, loudly, the layer kinds the port does not serve yet."""
+    """Refuse, loudly, a layer kind that no architecture has."""
     kinds = set(cfg.prefix_pattern) | set(cfg.cycle)
     other = sorted(kinds - set(ATTN_KINDS) - set(STATE_KINDS))
     if other:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {other} are not ported yet (ROADMAP "
-            "open item 1.9, remaining architectures)")
+        raise ValueError(f"{cfg.name}: unknown layer kinds {other}; the "
+                         f"kinds are {ATTN_KINDS + STATE_KINDS}")
     cfg.n_cycles          # the scanned layers must divide into cycles
 
 
@@ -117,8 +121,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         x = torch.randn(*shape, generator=generator, device=dev)
         return (x * scale).to(dtype)
 
-    def zeros(n):
-        return torch.zeros(n, dtype=dt, device=dev)
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     blocks = []
     for layer, kind in enumerate(layer_kinds(cfg)):
@@ -130,16 +134,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             if cfg.qk_norm:
                 inner["q_norm"] = zeros(dh)
                 inner["k_norm"] = zeros(dh)
-        else:
+        elif kind == "recurrent":
             inner = m.init_recurrent(cfg, generator, dev, dt)
-        blk = {"norm1": zeros(d), "inner": inner, "norm2": zeros(d)}
+        elif kind == "mlstm":
+            inner = m.init_mlstm(cfg, normal, zeros)
+        else:
+            inner = m.init_slstm(cfg, normal, zeros)
+        blk = {"norm1": zeros(d), "inner": inner}
+        blocks.append(blk)
+        if kind in ("mlstm", "slstm"):      # no norm2 and no FFN (:70)
+            continue
+        blk["norm2"] = zeros(d)
         # an MoE config's prefix layers take the dense FFN (``dense_cfg``)
         if cfg.num_experts and layer >= len(cfg.prefix_pattern):
             blk["ffn"] = m.init_moe(cfg, normal, lambda shape, scale: normal(
                 shape, scale, F32))
         elif cfg.d_ff > 0:
             blk["ffn"] = m.init_mlp(cfg, normal)
-        blocks.append(blk)
     params = {"embed": normal((cfg.vocab_size, d), d ** -0.5),
               "final_norm": zeros(d), "blocks": blocks}
     if not cfg.tie_embeddings:
@@ -268,18 +279,20 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
 
 # ------------------------------------------------------------------ block
 def _ffn(cfg: ModelConfig, p: dict, x):
-    """The block's FFN (``_ffn`` :123): the routed MoE where the layer has
-    a router, else the dense MLP."""
+    """The block's FFN (``_ffn`` :123) and its aux losses: the routed MoE
+    where the layer has a router, else the dense MLP (no aux)."""
     if "router" in p["ffn"]:
         return m.moe(p["ffn"], x, cfg)
-    return m.mlp(p["ffn"], x, cfg)
+    return m.mlp(p["ffn"], x, cfg), {}
 
 
 def _ffn_tail(cfg: ModelConfig, p: dict, h, inner, hn):
     """Residual + FFN (``block_full`` :155-166, ``_join_block`` :170).
-    Returns the block's output twice: rounded to h's bf16, and as the
-    unrounded f32 sum of its last add.  The residual keeps the bf16 sums;
-    a norm that reads one reads the unrounded f32 sum, as the JAX
+    Returns the block's output twice, rounded to h's bf16 and as the
+    unrounded f32 sum of its last add, and the FFN's aux losses.  A block
+    without an FFN (mLSTM, sLSTM) returns ``h + inner``.  The residual
+    keeps the bf16 sums; a norm that reads one reads the unrounded f32
+    sum, as the JAX
     package's compiled block does (XLA drops the bf16 round trip between
     the add and the norm's f32 cast): here the FFN's norm, and the next
     layer's ``norm1`` where the compiled reference fuses the two layers
@@ -287,10 +300,13 @@ def _ffn_tail(cfg: ModelConfig, p: dict, h, inner, hn):
     block's own ``norm1`` output, and adds beside the attention:
     ``h + inner + ffn(hn)``."""
     hf = h.to(F32) + inner.to(F32)
+    if "ffn" not in p:
+        return hf.to(h.dtype), hf, {}
     x = hn if cfg.parallel_block else m.rms_norm(
         hf, p["norm2"], cfg.norm_eps).to(h.dtype)
-    out = hf.to(h.dtype).to(F32) + _ffn(cfg, p, x).to(F32)
-    return out.to(h.dtype), out
+    f, aux = _ffn(cfg, p, x)
+    out = hf.to(h.dtype).to(F32) + f.to(F32)
+    return out.to(h.dtype), out, aux
 
 
 def reads_unrounded(cfg: ModelConfig, layer: int) -> bool:
@@ -313,20 +329,25 @@ def _norm1(cfg: ModelConfig, p: dict, h, hx):
 
 def block_full(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
                hx=None, pad_mask=None, true_len: int | None = None):
-    """Full-sequence (prefill) block of any served kind (``block_full``
-    :130): (h, unrounded h, cache); ``hx``, when given, is the unrounded
-    input its norm reads.  ``pad_mask``/``true_len``: the bucketed
-    prefill, where rolling rings and recurrent states stop at the true
-    end."""
+    """Full-sequence (prefill and training) block of any kind
+    (``block_full`` :130): (h, unrounded h, cache, aux); ``hx``, when
+    given, is the unrounded input its norm reads.  ``pad_mask``/
+    ``true_len``: the bucketed prefill, where rolling rings and the
+    recurrent, mLSTM and sLSTM states stop at the true end."""
     hn = _norm1(cfg, p, h, hx)
     if kind in ATTN_KINDS:
         inner, cache = m.attention_full(p["inner"], hn, cfg,
                                         local=kind == "local",
                                         true_len=true_len)
-    else:
+    elif kind == "recurrent":
         inner, cache = m.recurrent_full(p["inner"], hn, cfg,
                                         pad_mask=pad_mask, true_len=true_len)
-    return (*_ffn_tail(cfg, p, h, inner, hn), cache)
+    elif kind == "mlstm":
+        inner, cache = m.mlstm_full(p["inner"], hn, cfg, pad_mask=pad_mask)
+    else:
+        inner, cache = m.slstm_full(p["inner"], hn, cfg, pad_mask=pad_mask)
+    h, hf, aux = _ffn_tail(cfg, p, h, inner, hn)
+    return h, hf, cache, aux
 
 
 def _head(params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -368,6 +389,46 @@ def embed_inputs(cfg: ModelConfig, params: dict, tokens=None, *,
     return h
 
 
+def _layers(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
+            collect_cache: bool = True, pad_mask=None,
+            true_len: int | None = None):
+    """The layer stack over [B, S, D] hiddens, shared by the serving and
+    the training forward: the prefix layers, then the cycles (the JAX
+    package's ``_scan_blocks`` :244).  Returns ``(h, caches, aux)``: one
+    cache per layer when ``collect_cache`` (prefill; training collects
+    none), and the MoE aux losses summed layer by layer in the
+    reference's carry order.  Under autograd each cycle is recomputed in
+    the backward pass (``modules.remat``: ``jax.checkpoint`` with
+    ``nothing_saveable``).
+
+    The reference wraps each cycle's input in ``_residual_barrier``, an
+    XLA scheduling barrier with an identity gradient; it needs no
+    counterpart here.  What it implies for the values -- the first layer
+    of a cycle reads the rounded bf16 carry -- is ``reads_unrounded``."""
+    kinds = layer_kinds(cfg)
+    n_prefix, n_cycle = len(cfg.prefix_pattern), len(cfg.cycle)
+
+    def run(lo, hi, h, lb, rz):
+        caches, hx = [], None
+        for layer in range(lo, hi):
+            h, hx, cache, aux = block_full(
+                cfg, kinds[layer], params["blocks"][layer], h,
+                hx=hx if reads_unrounded(cfg, layer) else None,
+                pad_mask=pad_mask, true_len=true_len)
+            if collect_cache:
+                caches.append(cache)
+            lb = lb + aux.get("load_balance", 0.0)
+            rz = rz + aux.get("router_z", 0.0)
+        return h, caches, lb, rz
+
+    h, caches, _, _ = run(0, n_prefix, h, 0.0, 0.0)
+    lb = rz = 0.0
+    for lo in range(n_prefix, len(kinds), n_cycle):
+        h, more, lb, rz = m.remat(run, lo, lo + n_cycle, h, lb, rz)
+        caches += more
+    return h, caches, {"load_balance": lb, "router_z": rz}
+
+
 def forward(cfg: ModelConfig, params: dict, tokens=None, *,
             patch_embeds=None, frame_embeds=None, last_only: bool = False,
             true_len: int | None = None):
@@ -384,18 +445,62 @@ def forward(cfg: ModelConfig, params: dict, tokens=None, *,
     pad_mask = None
     if true_len is not None:
         pad_mask = torch.arange(h.shape[1], device=h.device) >= true_len
-    caches, hx = [], None
-    for layer, (kind, p) in enumerate(zip(layer_kinds(cfg),
-                                          params["blocks"])):
-        h, hx, cache = block_full(
-            cfg, kind, p, h, hx=hx if reads_unrounded(cfg, layer) else None,
-            pad_mask=pad_mask, true_len=true_len)
-        caches.append(cache)
+    h, caches, _ = _layers(cfg, params, h, pad_mask=pad_mask,
+                           true_len=true_len)
     if last_only:
         t = h.shape[1] if true_len is None else int(true_len)
         h = h[:, t - 1:t]
     h = m.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, h), caches
+
+
+def forward_train(cfg: ModelConfig, params: dict, tokens=None, *,
+                  patch_embeds=None, frame_embeds=None):
+    """Training forward (``forward`` :273 with ``collect_cache=False``):
+    the serving forward's layers and bf16 rounding points, no caches kept,
+    each cycle recomputed in the backward pass (``remat``).
+    Differentiable with ``torch.autograd``.  Returns ``(logits [B, S, V]
+    f32, aux)``, aux the MoE losses summed over the layers (0.0 without
+    MoE) for ``loss_fn``."""
+    h = embed_inputs(cfg, params, tokens, patch_embeds=patch_embeds,
+                     frame_embeds=frame_embeds)
+    h, _, aux = _layers(cfg, params, h, collect_cache=False)
+    h = m.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _head(params, h), aux
+
+
+def loss_fn(cfg: ModelConfig, logits: torch.Tensor, batch: dict,
+            aux: dict | None = None) -> torch.Tensor:
+    """Masked cross entropy in f32 (``loss_fn`` :322): next-token for a
+    causal LM (``batch["tokens"]``, an optional ``loss_mask``; a vision
+    config's image prefix predicts nothing), per-frame ``labels`` for an
+    encoder; plus the z-loss ``1e-4 mean(lse^2)`` and, with ``aux``, the
+    MoE losses at 0.01 (load balance) and 0.001 (router z).  The target
+    logit is a gather where the reference contracts a one-hot: for a
+    finite row both give the same value."""
+    if cfg.is_encoder:
+        targets = batch["labels"]
+        mask = torch.ones(targets.shape, dtype=F32, device=logits.device)
+    else:
+        tok = batch["tokens"]
+        targets = tok[:, 1:]
+        lm = batch.get("loss_mask")
+        mask = (torch.ones(tok.shape, dtype=F32, device=logits.device)
+                if lm is None else lm.to(F32))[:, 1:]
+        n_img = logits.shape[1] - tok.shape[1]
+        if n_img > 0:                 # the image prefix predicts nothing
+            logits = logits[:, n_img:]
+        logits = logits[:, :-1]
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, targets[..., None].long())[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    nll = ((lse - ll) * mask).sum() / denom
+    z_loss = 1e-4 * torch.square(lse * mask).sum() / denom
+    total = nll + z_loss
+    if aux:
+        total = total + 0.01 * aux.get("load_balance", 0.0) \
+            + 0.001 * aux.get("router_z", 0.0)
+    return total
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -410,12 +515,21 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
 
 # ------------------------------------------------------------ dense cache
+def init_state(cfg: ModelConfig, kind: str, batch: int, device) -> dict:
+    """The empty decode state of a state layer (``_init_block_cache``
+    :352): RG-LRU ``{"h", "conv"}``, mLSTM ``{"c", "n", "m"}`` or sLSTM
+    ``{"c", "n", "m", "h"}``, the xLSTM stabilizers at -1e30."""
+    init = {"recurrent": m.init_recurrent_cache,
+            "mlstm": m.init_mlstm_cache, "slstm": m.init_slstm_cache}[kind]
+    return init(cfg, batch, device)
+
+
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                       dtype, device) -> dict:
     if kind in ATTN_KINDS:
         return m.init_attention_cache(cfg, batch, seq_len, device, dtype,
                                       local=kind == "local")
-    return m.init_recurrent_cache(cfg, batch, device)
+    return init_state(cfg, kind, batch, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=BF16,
@@ -448,14 +562,16 @@ def block_step(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
                cache: dict, pos: torch.Tensor, hx=None):
     """Single-token decode block against a dense cache (``block_step``
     :184): (h, unrounded h, cache), attention caches written in place, a
-    recurrent layer's state replaced."""
+    state layer's state replaced."""
     hn = _norm1(cfg, p, h, hx)
     if kind in ATTN_KINDS:
         inner, cache = m.attention_step(p["inner"], hn, cache, pos, cfg,
                                         local=kind == "local")
     else:
-        inner, cache = m.recurrent_step(p["inner"], hn, cache, cfg)
-    return (*_ffn_tail(cfg, p, h, inner, hn), cache)
+        step = {"recurrent": m.recurrent_step, "mlstm": m.mlstm_step,
+                "slstm": m.slstm_step}[kind]
+        inner, cache = step(p["inner"], hn, cache, cfg)
+    return (*_ffn_tail(cfg, p, h, inner, hn)[:2], cache)
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: list,
@@ -488,7 +604,7 @@ def block_step_paged(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
     hn = _norm1(cfg, p, h, hx)
     inner, new_kv = m.paged_attention_step(p["inner"], hn, planes, meta, pos,
                                            cfg)
-    return (*_ffn_tail(cfg, p, h, inner, hn), new_kv)
+    return (*_ffn_tail(cfg, p, h, inner, hn)[:2], new_kv)
 
 
 def decode_step_paged(cfg: ModelConfig, params: dict, planes: dict,
@@ -533,8 +649,7 @@ def init_state_store(cfg: ModelConfig, batch: int, device=None) -> list:
     :457): a zero state per recurrent layer, None at attention layers
     (their KV lives in the page pool)."""
     dev = resolve(device)
-    return [None if kind in ATTN_KINDS
-            else m.init_recurrent_cache(cfg, batch, dev)
+    return [None if kind in ATTN_KINDS else init_state(cfg, kind, batch, dev)
             for kind in layer_kinds(cfg)]
 
 
@@ -752,7 +867,7 @@ class PagedKVCache:
         self._repack_queue: deque[tuple[int, int]] = deque()
         self.page_tables: dict[int, list[list[int]]] = {}
         self.page_base: dict[int, list[int]] = {}     # evicted-page count
-        # rid -> {state layer -> {"h", "conv"}} (device tensors, no batch)
+        # rid -> {state layer -> its state dict} (device tensors, no batch)
         self.states: dict[int, dict[int, dict]] = {}
         self.seq_len: dict[int, int] = {}
         self.traffic = {"kv_raw_bytes": 0, "kv_read_bytes": 0,
@@ -2026,7 +2141,7 @@ class PagedKVCache:
         layer ``k``/``v`` int8 [B, span, H, dh] and ``k_scale``/
         ``v_scale`` f32 [B, span, H], span ``max_len`` on a global layer and
         ``_ring(max_len)`` on a rolling one; for a recurrent layer its
-        state ``{"h", "conv"}`` stacked over the slots (zeros, the init
+        state (``init_state``'s fields) stacked over the slots (the init
         state, for an idle slot).  Also accrues the step's read traffic, as
         the fused path's ``step_meta`` does.
 
@@ -2093,15 +2208,21 @@ class PagedKVCache:
                 out.append(self._state_leaves(layer, slot_rids))
         return out
 
+    def _state_template(self, kind: str) -> dict:
+        """The init state of a state layer of ``kind``, batch axis
+        stripped (``_state_template`` :1323): what an idle slot holds."""
+        one = init_state(self.cfg, kind, 1, self.device)
+        return {f: x[0] for f, x in one.items()}
+
     def _state_leaves(self, layer: int, slot_rids: list) -> dict:
-        """A recurrent layer's states stacked over the slots, the init
-        (zero) state where a slot is idle or has none."""
-        zero = m.init_recurrent_cache(self.cfg, 1, self.device)
-        rows = {f: [] for f in zero}
+        """A state layer's states stacked over the slots, the init state
+        where a slot is idle or has none."""
+        init = self._state_template(self.layer_kinds[layer])
+        rows = {f: [] for f in init}
         for rid in slot_rids:
             st = self.states[rid].get(layer) if rid is not None else None
-            for f, z in zero.items():
-                rows[f].append(st[f] if st is not None else z[0])
+            for f, z in init.items():
+                rows[f].append(st[f] if st is not None else z)
         return {f: torch.stack(v) for f, v in rows.items()}
 
     def _place(self, kq, ks, pages: np.ndarray, jobs: list, decode) -> None:

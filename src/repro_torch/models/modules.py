@@ -8,10 +8,15 @@ Port of the parts of ``repro/models/modules.py`` that serving runs:
 :175 and ``attention_step`` :267 (global and rolling layers),
 ``paged_attention_step`` :326 (single device), ``init_attention_cache``
 :436, ``init_mlp`` :449 and ``mlp`` :461 (swiglu, geglu, gelu, relu2),
-``MOE_GROUP`` :480, ``init_moe`` :483 and ``moe`` :500 (without the
-training-only aux losses), the RG-LRU recurrent block ``init_recurrent``
+``MOE_GROUP`` :480, ``init_moe`` :483 and ``moe`` :500 (with its
+training aux losses), the RG-LRU recurrent block ``init_recurrent``
 :553, ``_rglru_coeffs`` :571, ``recurrent_full`` :582, ``recurrent_step``
-:628 and ``init_recurrent_cache`` :641, the page lifecycle
+:628 and ``init_recurrent_cache`` :641, the mLSTM block ``init_mlstm``
+:647, ``_mlstm_chunk`` :671, ``mlstm_full`` :718, ``mlstm_step`` :761 and
+``init_mlstm_cache`` :788, the sLSTM block ``init_slstm`` :797,
+``_slstm_cell`` :815, ``slstm_full`` :848, ``slstm_step`` :878 and
+``init_slstm_cache`` :889 (their scans a chunk at a time, recomputed in
+the backward pass: ``remat``), the page lifecycle
 ``PAGE_*``/``PAGE_TRANSITIONS`` :916-950, the integrity and spill tier
 types ``PageIntegrityError`` :953, ``TransferDropped`` :969,
 ``SpillRecord`` :978, ``payload_crc`` :996 and ``HostSpillTier`` :1006,
@@ -432,6 +437,13 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> tuple[int, int]:
     return g, max(4, min(cap, g))
 
 
+def router_probs(logits: torch.Tensor) -> torch.Tensor:
+    """The router's softmax as ``jax.nn.softmax`` computes it in f32:
+    ``exp(x - max) / sum``."""
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return ex / ex.sum(-1, keepdim=True)
+
+
 def moe_route(logits: torch.Tensor, k: int, cap: int):
     """Top-k token-choice routing with capacity dropping over groups
     (``moe.one_group`` :517-530), in f32: softmax of the router logits
@@ -442,9 +454,8 @@ def moe_route(logits: torch.Tensor, k: int, cap: int):
     Returns ``combine`` f32 [N, G, E, cap] (the kept weight at the token's
     (expert, position) slot, 0 elsewhere) and ``sel`` [N, G, k]."""
     n, g, e = logits.shape
-    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
-    probs = ex / ex.sum(-1, keepdim=True)
-    w, sel = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, sel = torch.sort(router_probs(logits), dim=-1, descending=True,
+                        stable=True)
     w, sel = w[..., :k], sel[..., :k]
     w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     slots = torch.arange(cap, device=logits.device, dtype=F32)
@@ -469,22 +480,24 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bmm(a, b)
 
 
-def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """Token-choice top-k MoE with capacity dropping (``moe`` :500).  x
     [B, S, D] regroups into dispatch groups (``moe_capacity``), routed by
     ``moe_route``; the one-hot dispatch and combine run in the activations'
     dtype, the experts as batched products ``ecd,edf->ecf`` (swiglu), and
     the shared expert, if any, is added after.  Every position routes,
     pad positions of a bucketed prefill and idle decode slots included, as
-    in the reference.  The auxiliary losses are training's (ROADMAP 1.11)
-    and not computed."""
+    in the reference.  Returns ``(y, aux)``: the training losses of
+    :543-549, each a group mean then a mean over the groups, in f32 -- the
+    Switch load balance ``E sum(frac_tokens frac_probs)`` over the first
+    choices and the router z-loss ``mean(logsumexp(logits)^2)``."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     g, cap = moe_capacity(cfg, b * s)
     xg = x.reshape(-1, g, d)                                   # [N, G, D]
     n = xg.shape[0]
     logits = torch.matmul(xg.to(F32), p["router"].to(F32))    # [N, G, E]
-    combine, _ = moe_route(logits, k, cap)
+    combine, sel = moe_route(logits, k, cap)
     dispatch = (combine > 0).to(x.dtype)                       # [N, G, E, C]
     # [N, E*C, G] @ [N, G, D]: each (expert, slot) takes one token's row
     xin = _bmm(dispatch.reshape(n, g, e * cap).transpose(1, 2), xg)
@@ -497,13 +510,16 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], x, dataclasses.replace(
             cfg, mlp_variant="swiglu"))
-    return y
+    first = torch.nn.functional.one_hot(sel[..., 0], e).to(F32)
+    lb = e * (first.mean(1) * router_probs(logits).mean(1)).sum(-1)
+    z = torch.square(torch.logsumexp(logits, dim=-1)).mean(1)
+    return y, {"load_balance": lb.mean(), "router_z": z.mean()}
 
 
 # ------------------------------------------------------------------ RG-LRU
-# params of a recurrent block the reference uses in f32 (the rest are cast
-# to the activations' bf16 at their use)
-RECURRENT_F32 = ("a_param", "w_input_gate", "w_a_gate")
+# params of the recurrent, mLSTM and sLSTM blocks the reference uses in
+# f32 (the rest are cast to the activations' bf16 at their use)
+RECURRENT_F32 = ("a_param", "w_input_gate", "w_a_gate", "w_if", "r", "b")
 
 
 def init_recurrent(cfg: ModelConfig, generator: torch.Generator, device,
@@ -631,6 +647,277 @@ def init_recurrent_cache(cfg: ModelConfig, batch: int, device) -> dict:
     w = cfg.lru_width or cfg.d_model
     return {"h": torch.zeros(batch, w, dtype=F32, device=device),
             "conv": torch.zeros(batch, 3, w, dtype=F32, device=device)}
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    autograd records it (``jax.checkpoint``): ``torch.utils.checkpoint``
+    without reentry, so closures over params take their gradients; a plain
+    call when no tensor argument needs a gradient (serving)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def chunk_of(s: int) -> int:
+    """Largest chunk <= ``CHUNK`` dividing s (``_chunk_of`` :58)."""
+    c = min(CHUNK, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``, ``-softplus(-x) = min(x, 0) -
+    log1p(exp(-|x|))``: exactly 0.0 at ``x = 1e30`` (a pad step's forget
+    gate), and the same formula on both devices."""
+    return torch.clamp_max(x, 0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
+# ------------------------------------------------------------------ mLSTM
+def mlstm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(F, H, dh): the up-projection width ``mlstm_proj_factor * d``, its
+    heads and their width."""
+    f = int(cfg.mlstm_proj_factor * cfg.d_model)
+    return f, cfg.num_heads, f // cfg.num_heads
+
+
+def init_mlstm(cfg: ModelConfig, normal, zeros) -> dict:
+    """mLSTM block params with the JAX init's shapes and scales
+    (``init_mlstm`` :647): the up, gate and down projections, per-head
+    q/k/v maps [F, H, dh], the f32 input/forget gate map ``w_if`` [F, H,
+    2] and the output norm, drawn in that order by ``normal(shape, scale[,
+    dtype])``; ``zeros(shape[, dtype])`` makes the norm scale."""
+    d = cfg.d_model
+    f, h, dh = mlstm_dims(cfg)
+    s = d ** -0.5
+    return {"w_up": normal((d, f), s), "w_gate": normal((d, f), s),
+            "w_down": normal((f, d), f ** -0.5),
+            "wq": normal((f, h, dh), f ** -0.5),
+            "wk": normal((f, h, dh), f ** -0.5),
+            "wv": normal((f, h, dh), f ** -0.5),
+            "w_if": normal((f, h, 2), f ** -0.5, F32),
+            "out_norm": zeros(f)}
+
+
+def _mlstm_chunk(q, k, v, i_gate, f_gate, c0, n0, m0):
+    """One chunk of the mLSTM chunkwise-parallel form (``_mlstm_chunk``
+    :671), in f32.  q, k, v [B, C, H, dh]; i, f [B, C, H] log-space
+    gates; the state c0 [B, H, dh, dh], n0 [B, H, dh] and stabilizer m0
+    [B, H] (true C = c exp(m)).  Returns (out [B, C, H, dh], c1, n1,
+    m1)."""
+    c, dh = q.shape[1], q.shape[3]
+    logf = log_sigmoid(f_gate)
+    lf_cum = torch.cumsum(logf, dim=1)                     # inclusive b_t
+    # step s's weight at step t (s <= t): exp(b_t - b_s + i_s)
+    logd = lf_cum[:, :, None, :] - lf_cum[:, None, :, :] \
+        + i_gate[:, None, :, :]                            # [B, T, S, H]
+    tmask = torch.ones(c, c, dtype=torch.bool, device=q.device).tril()
+    logd = torch.where(tmask[None, :, :, None], logd, NEG_INF)
+    # the carried state enters step t with weight exp(b_t + m0)
+    logstate = lf_cum + m0[:, None, :]                     # [B, C, H]
+    m = torch.maximum(logd.amax(2), logstate)
+    dmat = torch.exp(logd - m[:, :, None, :])
+    sstate = torch.exp(logstate - m)
+    qf = q.to(F32) * (dh ** -0.5)
+    kf, vf = k.to(F32), v.to(F32)
+    scores = torch.einsum("bthd,bshd->btsh", qf, kf) * dmat
+    num = torch.einsum("btsh,bshd->bthd", scores, vf) \
+        + torch.einsum("bthd,bhde->bthe", qf, c0) * sstate[..., None]
+    den_inter = torch.einsum("bthd,bhd->bth", qf, n0) * sstate
+    den = torch.maximum(torch.abs(scores.sum(2) + den_inter),
+                        torch.exp(-m))
+    out = num / den[..., None]
+    # the chunk's final state
+    lf_tot = lf_cum[:, -1]                                 # [B, H]
+    w_log = i_gate + (lf_tot[:, None] - lf_cum)            # [B, C, H]
+    m1 = torch.maximum(lf_tot + m0, w_log.amax(1))
+    w_state = torch.exp(lf_tot + m0 - m1)
+    w_in = torch.exp(w_log - m1[:, None, :])
+    c1 = c0 * w_state[..., None, None] + torch.einsum(
+        "bshd,bshe->bhde", kf * w_in[..., None], vf)
+    n1 = n0 * w_state[..., None] + torch.einsum("bshd,bsh->bhd", kf, w_in)
+    return out, c1, n1, m1
+
+
+def mlstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               pad_mask: torch.Tensor | None = None):
+    """mLSTM block over a full sequence (``mlstm_full`` :718): the
+    chunkwise scan over ``chunk_of(S)``-step chunks from the empty state
+    (``init_mlstm_cache``: the stabilizer at -1e30, as the decode path
+    starts, or the ``exp(-m)`` bound would part), each chunk recomputed in
+    the backward pass (``remat``).  ``pad_mask`` ([S] bool, True past the
+    true end): pad steps take ``i = -1e30`` (no input) and ``f = +1e30``
+    (``log_sigmoid`` exactly 0, no decay), so the state at the true end
+    passes through the pad steps unchanged.  Returns ``(y [B, S, D],
+    {"c", "n", "m"})``."""
+    b, s, _ = x.shape
+    f, h, dh = mlstm_dims(cfg)
+    up = matmul(x, p["w_up"])                              # [B, S, F]
+    gate = matmul(x, p["w_gate"])
+    q, k, v = (proj(up, p[n]) for n in ("wq", "wk", "wv"))  # [B, S, H, dh]
+    gates = proj(up.to(F32), p["w_if"])                    # [B, S, H, 2]
+    i_gate, f_gate = gates[..., 0], gates[..., 1] + 3.0    # forget bias
+    if pad_mask is not None:
+        padh = pad_mask[None, :, None]
+        i_gate = torch.where(padh, NEG_INF, i_gate)
+        f_gate = torch.where(padh, -NEG_INF, f_gate)
+    state = tuple(init_mlstm_cache(cfg, b, x.device).values())
+    chunk = chunk_of(s)
+    outs = []
+    for t in range(0, s, chunk):
+        sl = slice(t, t + chunk)
+        out, *state = remat(_mlstm_chunk, q[:, sl], k[:, sl], v[:, sl],
+                            i_gate[:, sl], f_gate[:, sl], *state)
+        outs.append(out)
+    out = torch.cat(outs, dim=1).reshape(b, s, f)
+    out = rms_norm(out.to(x.dtype), p["out_norm"], cfg.norm_eps)
+    y = matmul(_silu_mul(gate, out), p["w_down"])      # out * silu(gate)
+    return y, dict(zip(("c", "n", "m"), state))
+
+
+def mlstm_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """Single-token mLSTM step (``mlstm_step`` :761): x [B, 1, D], cache
+    ``{"c", "n", "m"}`` -> (y [B, 1, D], the new cache)."""
+    b = x.shape[0]
+    f, h, dh = mlstm_dims(cfg)
+    up = matmul(x[:, 0], p["w_up"])                        # [B, F]
+    gate = matmul(x[:, 0], p["w_gate"])
+    q, k, v = (proj(up, p[n]).to(F32) for n in ("wq", "wk", "wv"))
+    gts = proj(up.to(F32), p["w_if"])                      # [B, H, 2]
+    i_g, f_g = gts[..., 0], gts[..., 1] + 3.0
+    logf = log_sigmoid(f_g)
+    c0, n0, m0 = cache["c"], cache["n"], cache["m"]
+    m1 = torch.maximum(logf + m0, i_g)
+    wf = torch.exp(logf + m0 - m1)
+    wi = torch.exp(i_g - m1)
+    c1 = c0 * wf[..., None, None] \
+        + k[..., :, None] * v[..., None, :] * wi[..., None, None]
+    n1 = n0 * wf[..., None] + k * wi[..., None]
+    qs = q * (dh ** -0.5)
+    num = torch.einsum("bhd,bhde->bhe", qs, c1)
+    den = torch.maximum(torch.abs((qs * n1).sum(-1)), torch.exp(-m1))
+    out = (num / den[..., None]).reshape(b, f)
+    out = rms_norm(out.to(x.dtype), p["out_norm"], cfg.norm_eps)
+    y = matmul(_silu_mul(gate, out), p["w_down"])[:, None]
+    return y, {"c": c1, "n": n1, "m": m1}
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    """The empty mLSTM state (``init_mlstm_cache`` :788): zero c and n,
+    the stabilizer m at -1e30."""
+    _, h, dh = mlstm_dims(cfg)
+    return {"c": torch.zeros(batch, h, dh, dh, dtype=F32, device=device),
+            "n": torch.zeros(batch, h, dh, dtype=F32, device=device),
+            "m": torch.full((batch, h), NEG_INF, dtype=F32, device=device)}
+
+
+# ------------------------------------------------------------------ sLSTM
+def init_slstm(cfg: ModelConfig, normal, zeros) -> dict:
+    """sLSTM block params with the JAX init's shapes and scales
+    (``init_slstm`` :797): the input map ``w_in`` [d, 4, d], the f32
+    block-diagonal recurrence ``r`` [4, H, dh, dh] (one [dh, dh] a head and
+    gate), the f32 bias ``b`` [4, d], the output norm, and the gelu-gated
+    FFN ``w_up`` [d, 2, F] / ``w_down`` [F, d]."""
+    d, h = cfg.d_model, cfg.num_heads
+    dh = d // h
+    f = int(cfg.slstm_proj_factor * d)
+    s = d ** -0.5
+    return {"w_in": normal((d, 4, d), s),
+            "r": normal((4, h, dh, dh), dh ** -0.5, F32),
+            "b": zeros((4, d), F32),
+            "out_norm": zeros(d),
+            "w_up": normal((d, 2, f), s),
+            "w_down": normal((f, d), f ** -0.5)}
+
+
+def _slstm_cell(zx, state, p, h_heads, pad=None):
+    """One sLSTM time step (``_slstm_cell`` :815), in f32.  zx [B, 4, D]
+    are the input pre-activations (z, i, f, o); ``state`` (c, n, m, h).
+    ``pad`` (0-d bool tensor): a pad step of a bucketed prefill is a no-op
+    -- input gate -1e30, no decay, the output held at ``h``."""
+    c, n, m, hprev = state
+    b, _, d = zx.shape
+    hh = hprev.reshape(b, h_heads, -1)
+    rec = torch.einsum("ghde,bhd->bghe", p["r"], hh).reshape(b, 4, d)
+    pre = zx.to(F32) + rec + p["b"][None]
+    zt = torch.tanh(pre[:, 0])
+    it = pre[:, 1]
+    ot = torch.sigmoid(pre[:, 3])
+    logf = log_sigmoid(pre[:, 2])
+    if pad is not None:
+        it = torch.where(pad, NEG_INF, it)
+        logf = torch.where(pad, 0.0, logf)
+    m1 = torch.maximum(logf + m, it)
+    wi = torch.exp(it - m1)
+    wf = torch.exp(logf + m - m1)
+    c1 = wf * c + wi * zt
+    n1 = wf * n + wi
+    h1 = ot * (c1 / torch.clamp_min(n1, 1e-6))
+    if pad is not None:
+        h1 = torch.where(pad, hprev, h1)
+    return c1, n1, m1, h1
+
+
+def _slstm_chunk(p, h_heads, zx, pads, *state):
+    """``zx.shape[1]`` sLSTM steps from ``state``: (c, n, m, h, the
+    outputs [B, C, D])."""
+    hs = []
+    for t in range(zx.shape[1]):
+        state = _slstm_cell(zx[:, t], state, p, h_heads,
+                            None if pads is None else pads[t])
+        hs.append(state[3])
+    return (*state, torch.stack(hs, dim=1))
+
+
+def slstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               pad_mask: torch.Tensor | None = None):
+    """sLSTM block over a full sequence (``slstm_full`` :848): the cell a
+    step at a time (the reference's ``lax.scan``; here a loop, one launch
+    of each op a step), in ``chunk_of(S)``-step chunks, each recomputed in
+    the backward pass (``remat``); then the output norm and the gelu-gated
+    FFN.  ``pad_mask``: pad steps are no-ops, so the state is the true
+    end's.  Returns ``(y [B, S, D], {"c", "n", "m", "h"})``."""
+    b, s, d = x.shape
+    zx = proj(x, p["w_in"])                                # [B, S, 4, D]
+    state = tuple(init_slstm_cache(cfg, b, x.device).values())
+    chunk = chunk_of(s)
+    hs = []
+    for t in range(0, s, chunk):
+        pads = None if pad_mask is None else pad_mask[t:t + chunk]
+        *state, out = remat(_slstm_chunk, p, cfg.num_heads,
+                            zx[:, t:t + chunk], pads, *state)
+        hs.append(out)
+    hseq = rms_norm(torch.cat(hs, dim=1).to(x.dtype), p["out_norm"],
+                    cfg.norm_eps)
+    up = proj(hseq, p["w_up"])                             # [B, S, 2, F]
+    y = matmul(gelu(up[:, :, 0]) * up[:, :, 1], p["w_down"])
+    return y, dict(zip(("c", "n", "m", "h"), state))
+
+
+def slstm_step(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """Single-token sLSTM step (``slstm_step`` :878)."""
+    zx = proj(x[:, 0], p["w_in"])                          # [B, 4, D]
+    state = _slstm_cell(zx, (cache["c"], cache["n"], cache["m"],
+                             cache["h"]), p, cfg.num_heads)
+    hs = rms_norm(state[3].to(x.dtype), p["out_norm"], cfg.norm_eps)
+    up = proj(hs, p["w_up"])                               # [B, 2, F]
+    y = matmul(gelu(up[:, 0]) * up[:, 1], p["w_down"])[:, None]
+    return y, dict(zip(("c", "n", "m", "h"), state))
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    """The empty sLSTM state (``init_slstm_cache`` :889): zero c, n and h,
+    the stabilizer m at -1e30."""
+    d = cfg.d_model
+
+    def z():
+        return torch.zeros(batch, d, dtype=F32, device=device)
+    return {"c": z(), "n": z(),
+            "m": torch.full((batch, d), NEG_INF, dtype=F32, device=device),
+            "h": z()}
 
 
 # ------------------------------------------------------------ KV page pool

@@ -1,4 +1,7 @@
-"""Runtime supervision of the port."""
-from .supervisor import StragglerWatchdog, WatchdogEvent
+"""Runtime supervision of the port: the training supervisor and the
+straggler watchdog (port of ``repro/runtime``)."""
+from .supervisor import (StragglerWatchdog, Supervisor, SupervisorConfig,
+                         WatchdogEvent)
 
-__all__ = ["StragglerWatchdog", "WatchdogEvent"]
+__all__ = ["StragglerWatchdog", "Supervisor", "SupervisorConfig",
+           "WatchdogEvent"]

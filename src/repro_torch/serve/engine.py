@@ -22,10 +22,10 @@ table refresh hook), the async event loop ``_step_async`` :1011,
 ``run_until_drained`` :1283, ``weight_stats`` :1308 and ``kv_stats``
 :1333; and the checkpoint-style weight round trip, ``CompressedParams``
 :146, ``compress_params`` :160 and ``decompress_params`` :196.  The stacks
-are any mix of global and rolling attention layers and RG-LRU recurrent
-layers, prefix or cycled, with dense or top-k MoE FFNs, sequential or
-parallel blocks, tied or untied heads (every decoder of the registry but
-xlstm-125m).  An encoder has no decode path and is refused.  Not ported:
+are any mix of global and rolling attention layers and RG-LRU recurrent,
+mLSTM and sLSTM layers, prefix or cycled, with dense or top-k MoE FFNs or
+none, sequential or parallel blocks, tied or untied heads (every decoder
+of the registry).  An encoder has no decode path and is refused.  Not ported:
 meshes, refused with their ROADMAP item.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences

@@ -42,7 +42,7 @@ from repro_torch.models.convert import params_from_numpy
 ATOL = 0.05
 NEW_ARCHS = ("minitron-4b", "minitron-8b", "command-r-plus-104b",
              "paligemma-3b", "hubert-xlarge", "dbrx-132b", "kimi-k2-1t-a32b")
-SERVED = [a for a in jconfigs.all_arch_ids() if a != "xlstm-125m"]
+SERVED = jconfigs.all_arch_ids()
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,11 +131,14 @@ def test_decode_matches_forward(name):
 def test_exact_param_count_matches_jax(name):
     """``exact_param_count`` of every full config the port serves equals
     the JAX package's (kimi-k2's 1.03 T included), built on the ``meta``
-    device: no tensor is allocated."""
+    device: no tensor is allocated.  The analytic ``param_count()`` lands
+    within 1% of it, but for xlstm-125m, whose internals it approximates
+    (the reference's ``exact_param_count`` docstring)."""
     got = PM.exact_param_count(pconfigs.get_config(name))
     assert got == JM.exact_param_count(jconfigs.get_config(name))
-    assert abs(got - pconfigs.get_config(name).param_count()) \
-        <= 0.01 * got
+    if name != "xlstm-125m":
+        assert abs(got - pconfigs.get_config(name).param_count()) \
+            <= 0.01 * got
 
 
 @pytest.mark.parametrize("name", SERVED)
@@ -146,7 +149,8 @@ def test_full_config_param_count(name):
         "qwen3-1.7b": 1.7e9, "minitron-4b": 4.2e9, "minitron-8b": 7.7e9,
         "command-r-plus-104b": 104e9, "hubert-xlarge": 0.96e9,
         "paligemma-3b": 2.5e9, "dbrx-132b": 132e9,
-        "kimi-k2-1t-a32b": 1.03e12, "recurrentgemma-9b": 8.5e9}[name]
+        "kimi-k2-1t-a32b": 1.03e12, "recurrentgemma-9b": 8.5e9,
+        "xlstm-125m": 0.125e9}[name]
     cfg = pconfigs.get_config(name)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jconfigs.get_config(name))
@@ -197,12 +201,17 @@ def test_moe_bitwise_with_drops(name, shape):
     rng = np.random.default_rng(7)
     x = jnp.asarray(rng.normal(0, 1, (*shape, cj.d_model)),
                     jnp.float32).astype(jnp.bfloat16)
-    want, _ = jax.jit(lambda p, a: jm.moe(p, a, cj))(jp, x)
+    want, want_aux = jax.jit(lambda p, a: jm.moe(p, a, cj))(jp, x)
     xp = torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
-    got = pm.moe(pp, xp, cp)
+    got, aux = pm.moe(pp, xp, cp)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.float(), torch.from_numpy(
         np.array(want.astype(jnp.float32))))
+    # the training losses: the same routing, so equal up to the last bits
+    # of the f32 means and logsumexp
+    for k in ("load_balance", "router_z"):
+        np.testing.assert_allclose(aux[k].item(), float(want_aux[k]),
+                                   rtol=1e-6)
     # the routing dropped choices, and every kept one sits in [0, cap)
     g, cap = pm.moe_capacity(cp, shape[0] * shape[1])
     logits = torch.matmul(xp.float().reshape(-1, g, cp.d_model),
@@ -230,15 +239,15 @@ def test_heads_per_block():
 
 
 def test_refusals_name_their_item():
-    """xlstm-125m and the mLSTM/sLSTM kinds stay refused naming ROADMAP
-    1.9; an encoder is refused by every decode entry point with a clear
-    error, and forwards."""
-    with pytest.raises(NotImplementedError, match="1.9"):
-        pconfigs.get_config("xlstm-125m")
-    with pytest.raises(NotImplementedError, match="1.9"):
+    """xlstm-125m builds (its mLSTM and sLSTM kinds are ported), an
+    unknown layer kind is refused naming the kinds there are; an encoder
+    is refused by every decode entry point with a clear error, and
+    forwards."""
+    PM.check_supported(pconfigs.get_config("xlstm-125m"))
+    with pytest.raises(ValueError, match="unknown layer kinds"):
         PM.check_supported(dataclasses.replace(
             pconfigs.get_smoke_config("qwen3-1.7b"),
-            block_pattern=("mlstm", "slstm")))
+            block_pattern=("global", "conv")))
     assert pconfigs.all_arch_ids() == jconfigs.all_arch_ids()
     cfg = pconfigs.get_smoke_config("hubert-xlarge")
     for build in (lambda: PM.PagedKVCache(cfg, 8, device="cpu"),

@@ -394,7 +394,8 @@ def test_packed_weights_on_hetero_stacks_are_refused(arch):
     """Packed weights on a heterogeneous stack are served now (ROADMAP 1.13,
     held against the JAX package in ``test_torch_packed_hetero.py``): the
     engine packs the attention sites of global and rolling layers and every
-    layer's FFN.  The layer kinds of ROADMAP 1.9 stay refused."""
+    layer's FFN.  An sLSTM stack builds without FFNs (ROADMAP 1.9's
+    xLSTM kinds are ported); an unknown layer kind is refused."""
     eng = ServeEngine(arch["cp"], arch["tp"], device="cpu",
                       weights="apack-int8", weight_min_size=1024, **KW)
     kinds = PM.layer_kinds(arch["cp"])
@@ -402,9 +403,14 @@ def test_packed_weights_on_hetero_stacks_are_refused(arch):
         assert isinstance(blk["ffn"]["w_up"], pm.PackedWeight)
         assert isinstance(blk["inner"].get("wq"), pm.PackedWeight) \
             == (kind in PM.ATTN_KINDS)
-    with pytest.raises(NotImplementedError, match="1.9"):
+    xcfg = dataclasses.replace(arch["cp"], block_pattern=("slstm",) * 3)
+    xl = PM.init_params(xcfg, torch.Generator(), "cpu")
+    assert all("ffn" not in blk for kind, blk in zip(PM.layer_kinds(xcfg),
+                                                     xl["blocks"])
+               if kind == "slstm")
+    with pytest.raises(ValueError, match="unknown layer kinds"):
         PM.init_params(dataclasses.replace(arch["cp"],
-                                           block_pattern=("slstm",) * 3),
+                                           block_pattern=("conv",) * 3),
                        torch.Generator(), "cpu")
     assert pm.PAGE_TRANSITIONS["evict"] == ((pm.PAGE_COLD, pm.PAGE_FREE),
                                             (pm.PAGE_PACKED, pm.PAGE_FREE))

@@ -103,8 +103,14 @@ def test_pool_planes_and_traffic_match_reference():
 
 
 def test_unported_layer_kinds_are_refused():
+    """Every layer kind of the registry is ported since the xLSTM kinds
+    (an mLSTM layer is a state layer of the paged cache, no pages); an
+    unknown kind is refused."""
     cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
                               block_pattern=("global", "mlstm"),
                               num_layers=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.PagedKVCache(cfg, 8, device="cpu")
+    kv = PM.PagedKVCache(cfg, 8, device="cpu")
+    assert kv.attn_layers == [0] and kv.state_layers == [1]
+    with pytest.raises(ValueError, match="unknown layer kinds"):
+        PM.PagedKVCache(dataclasses.replace(cfg, block_pattern=(
+            "global", "conv")), 8, device="cpu")
