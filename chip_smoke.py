@@ -47,7 +47,13 @@ Phases (any failure exits non-zero):
    [16, 8, 112] with 64, J = 4, P = 16, each timed with its bound and
    SDPA yardstick; kernel 5 at minitron-8b's
    untied head [4096, 256000] and squared-ReLU w_up/w_down [4096, 16384]
-   / [16384, 4096] (M = 4, w_up also M = 77);
+   / [16384, 4096] (M = 4, w_up also M = 77); kernel 3 on a mesh's two
+   model shards (slice 13) at qwen3-1.7b's and dbrx-132b's pages, each
+   launch over 4 of the 8 KV heads (jobmeta ``h0``, PACKED pages decoded
+   whole) against its plain version, the two gathered bit-equal to the
+   full-head launch; kernel 5 on a K half of qwen3's w_up (4 x 1024 x
+   6144) against its plain version, the halves' sum against f64 and the
+   full launch; each timed with its bound and yardstick;
 3. serve qwen3-1.7b from dense weights through the fused paged APack KV
    path at full width and depth (28 layers, seeded random weights; 8
    requests, prompts of 64-96 tokens, 48 new tokens each), launch counts
@@ -59,7 +65,14 @@ Phases (any failure exits non-zero):
    under ``torch.cuda.set_sync_debug_mode("error")``, and every steady
    step one device-to-host call besides its seal batches'; both
    schedulers' median and longest step and profiler idle shares printed,
-   and the sync serve's median once more after it; then start the CPU
+   and the sync serve's median once more after it; (l) then on a 2x2
+   serving mesh (``make_debug_mesh(2, 2)``, every shard on the card,
+   ``max_batch=8``: 4 rows a data shard, as phase 3 decodes): tokens equal
+   to phase 3's, pages in their slot's data-shard range at steps 3 and
+   30, every shard's free list whole after the drain, one ``.cpu()`` a
+   step without seal pulls, kernel 3 launched 28 x 2 x 2 times a step;
+   both serves' ``kv_ratio``, median and longest step and profiler
+   windows printed; then start the CPU
    sides of phase 10 and (d) in a background process (``--cpu-twins``: at
    a quarter of the host's cores, no card visible to it, results to
    ``build/smoke_cpu_twins.pt``);
@@ -74,7 +87,11 @@ Phases (any failure exits non-zero):
    layers' weights only);
    profile steady steps of both engines; then serve them on the async
    scheduler from the same packed planes (not packed again), with (e)'s
-   gates;
+   gates; (m) then the first ``CUT_LAYERS`` layers from packed weights on
+   a 1x2 mesh, every site K-split over the two model shards: phase 4's
+   teacher-forced RMS drift gate, the largest logit difference against
+   the single-device packed store and kernel 5's launches a step
+   printed;
 5. serve the same requests through the materialize oracle
    (``kv_fused=False``) at ``CUT_LAYERS`` (4) layers, whose launch counts
    give the gather decode's;
@@ -176,7 +193,7 @@ Phases (any failure exits non-zero):
    equal to the first pass's, every loss and grad norm finite; the
    checkpoint's stored/raw ratio, its save and restore seconds by part
    (host and kernel) and kernels 2 and 1's launches a save and a restore;
-   (k) xlstm-125m training at published widths and depth, 3 steps of 8 x
+   (k) xlstm-125m training at published widths and depth, 2 steps of 8 x
    256: finite losses and grads, the step's ms;
 10. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
     caches, and the fused one on round-tripped weights, whose
@@ -207,7 +224,8 @@ Phases (any failure exits non-zero):
     and at minitron-8b's packed sites, the script's seconds,
     the ``kernels`` JSON line (kernels 1 and 2 with their re-pack launches
     a step of (a), kernel 5 with its launches a step of (c), kernels 1,
-    2, 3 and 5 with their launches a step of the async serves (e), kernel
+    2, 3 and 5 with their launches a step of the async serves (e), kernels
+    1, 2 and 3 a step of the mesh serve (l), kernel 5 a step of (m), kernel
     3 with its launches a step of (g)'s and (h)'s fused serves and kernel
     5 of their packed ones, kernels 2 and 1 with their launches a save
     and a restore of (j)'s checkpoint and in (i)'s preempt), then the
@@ -1138,15 +1156,18 @@ def check_rg_matmul(device, records):
 
 
 def attention_yardstick_ms(q, pid, tid, meta, jobmeta, planes, page,
-                           n_steps):
+                           n_steps, h_full=None):
     """SDPA over the pages of a fused attention call dequantized into a
     dense f32 cache, masked alike (causal, window): device time per call
-    over a CUDA graph of 20."""
+    over a CUDA graph of 20.  ``h_full``: a model shard's call, whose
+    PACKED pages hold that many heads (jobmeta's third column its first)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.fused_page_attention import _page_tiles
+    from repro_torch.kernels.fused_page_attention import (_head_offsets,
+                                                          _page_tiles)
     ps, h, dh, hq = page["ps"], page["h"], page["dh"], page["hq"]
-    kt, vt = _page_tiles(planes, pid, tid, meta[..., 0], n_steps, 8)
+    kt, vt = _page_tiles(planes, pid, tid, meta[..., 0], n_steps, 8,
+                         _head_offsets(jobmeta), h_full)
     j, p = pid.shape
     kd = kt.reshape(j, p * ps, h, dh).transpose(1, 2).repeat_interleave(
         hq // h, dim=1).contiguous()
@@ -1228,6 +1249,172 @@ def check_attention_heads(device, records):
         print(f"{key} ({name}): " + json.dumps(records[key]))
         del q, planes
         torch.cuda.empty_cache()
+
+
+def head_shard(planes, j, n):
+    """Model shard ``j`` of ``n``'s planes of a pool (``sharding.
+    plane_pspecs``): its KV-head block of the dense planes and page scales
+    (contiguous copies), the PACKED planes and tables whole."""
+    out = dict(planes)
+    for key, ax in (("tok_k", 2), ("tok_v", 2), ("cold_k", 2),
+                    ("cold_v", 2), ("tok_sk", 2), ("tok_sv", 2),
+                    ("pscale_k", 1), ("pscale_v", 1)):
+        hl = planes[key].shape[ax] // n
+        out[key] = planes[key].narrow(ax, j * hl, hl).contiguous()
+    return out
+
+
+def check_attention_head_shards(device, records):
+    """Kernel 3 on a mesh's model shards (slice 13): at qwen3-1.7b's page
+    [16, 8, 128] (Hq 16) and dbrx-132b's (Hq 48: a shard's 24 query heads
+    fit one head block), on the mixed HOT/COLD/PACKED/FREE pool at J = 4,
+    P = 16, two launches, each over one shard's 4 KV heads (jobmeta
+    ``(qpos, window, h0)``, dense planes of those heads, PACKED planes of
+    all 8, ``h_full`` 8).  Each launch against its plain version (``m``,
+    ``l`` at f32 rtol 1e-5 / atol 1e-6, ``acc`` within 1e-5 of sum(w |v|)
+    + 1e-6, as ``check_attention_heads``), and the two side by side
+    bit-equal to the full-head launch.  Timed: one launch and the two
+    (device time per call over a CUDA graph of 20), the bound and SDPA over
+    a shard's heads."""
+    import torch
+    from repro_torch.kernels import fused_page_attention as fpa
+    for name, page in (("qwen3-1.7b", PAGE), ("dbrx-132b", DBRX_PAGE)):
+        q, pid, tid, meta, jobmeta, planes, packed_bytes = mixed_pool(
+            device, page=page)
+        h, hq = page["h"], page["hq"]
+        kw = dict(n_steps=128)
+        full = fpa.fused_page_attention(q, pid, tid, meta, jobmeta, planes,
+                                        **kw)
+        shards, outs, err, plain_ms = [], [], 0.0, None
+        for j in range(2):
+            jm = torch.cat([jobmeta, torch.full_like(jobmeta[:, :1],
+                                                     j * h // 2)], dim=1)
+            qj = q[:, j * hq // 2:(j + 1) * hq // 2].contiguous()
+            pl = head_shard(planes, j, 2)
+            args = (qj, pid, tid, meta, jm, pl)
+            got = fpa.fused_page_attention(*args, h_full=h, **kw)
+            want, t = timed_call(lambda: fpa.fused_page_attention_plain(
+                *args, h_full=h, **kw))
+            mag = fpa.fused_page_attention_f64(*args, h_full=h,
+                                               **kw)[3].float()
+            if not bool(((got[0] - want[0]).abs()
+                         <= 1e-5 * mag + 1e-6).all()):
+                raise AssertionError(f"fused attention head shard {j} "
+                                     f"({name}): acc off")
+            for g_, w_, what in zip(got[1:], want[1:], ("m", "l")):
+                if not torch.allclose(g_, w_, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(
+                        f"fused attention head shard {j} ({name}): {what} "
+                        f"off by {(g_ - w_).abs().max().item()}")
+            err = max(err, *((g_ - w_).abs().max().item()
+                             for g_, w_ in zip(got, want)))
+            plain_ms = plain_ms or t
+            shards.append(args)
+            outs.append(got)
+        for i, what in enumerate(("acc", "m", "l")):
+            if not torch.equal(torch.cat([o[i] for o in outs], dim=1),
+                               full[i]):
+                raise AssertionError(f"fused attention ({name}): the head "
+                                     f"shards' gathered {what} is not the "
+                                     "full-head launch's bit for bit")
+        ms = graph_ms(lambda: fpa.fused_page_attention(
+            *shards[0], h_full=h, **kw), 20)
+        both = graph_ms(lambda: [fpa.fused_page_attention(
+            *a, h_full=h, **kw) for a in shards], 20)
+        shard_page = dict(page, h=h // 2, hq=hq // 2)
+        bound, by = attention_bound(*shards[0][:5], shards[0][5],
+                                    packed_bytes, *outs[0], page=shard_page)
+        ps, dh = page["ps"], page["dh"]
+        key = f"fused_page_attention head shard [{ps}, {h}, {dh}] Hq {hq}"
+        records[key] = dict(
+            ms=ms, two_shards_ms=both, plain_ms=plain_ms, max_abs_err=err,
+            bound_ms=bound, bound_by=by,
+            library_ms=attention_yardstick_ms(*shards[0], shard_page, 128,
+                                              h_full=h),
+            shape=[*pid.shape, ps, h // 2, dh], hq=hq // 2, h_full=h,
+            gathered_bit_equal=True)
+        print(f"{key} ({name}, 2 model shards): " + json.dumps(records[key]))
+        del q, planes, shards
+        torch.cuda.empty_cache()
+
+
+def check_matmul_k_split(device, records):
+    """Kernel 5 on a mesh's model shard (slice 13): qwen3-1.7b's w_up
+    [2048, 6144] quantized as ``pack_weights`` does, cut in its two K
+    halves (``split_k``: 2 of its 4 K tiles each); each half at M = 4
+    against its plain version within the K-term f32 bound and with its
+    error against f64 at most ``F64_ERR_RATIO`` times cuBLAS f32's; the
+    halves summed (``psum``) against the f64 product under the same ratio
+    and against the full launch within the bound of a 2048-term f32 sum.
+    Timed: a half (device time per call over a CUDA graph of 20), its
+    bound and ``torch.matmul`` on the half's dequantized weight."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels import apack_encode, decompress_matmul as dm
+    from repro_torch.models import sharding as shd
+    g = torch.Generator(device=device).manual_seed(2)
+    k, n = 2048, 6144
+    w = torch.randn(k, n, generator=g, device=device) * k ** -0.5
+    q, qp = quant.quantize_symmetric(w, axis=-1)
+    del w
+    scale = qp.scale.reshape(-1)
+    cw = dm.compress_quantized(q, scale, dm.DEFAULT_TILE_K)
+    halves = dm.split_k(cw, 2)
+    wf = q.to(torch.float32) * scale[None, :]
+    x = torch.randn(4, k, generator=g, device=device)
+    _, _, sb, ob, _ = apack_encode.encode(
+        dm.tile_streams(q, cw.tile_k), cw.v_min, cw.ol, cw.cum,
+        n_steps=cw.tile_k, bits=8)
+    per = sb.shape[0] // 2
+    row, ys = None, []
+    for j, half in enumerate(halves):
+        xj = x[:, j * 1024:(j + 1) * 1024]
+        wj = wf[j * 1024:(j + 1) * 1024]
+        y = dm.compressed_matmul(xj, half)
+        y_plain, plain_ms = timed_call(
+            lambda: dm.compressed_matmul_plain(xj, half))
+        bound = 1024 * 2.0 ** -24 * (xj.abs().double() @ wj.abs().double())
+        err = (y.double() - y_plain.double()).abs()
+        ratio = f64_err_ratio(y, xj, wj)
+        if not (bool((err <= bound).all()) and ratio <= F64_ERR_RATIO):
+            raise AssertionError(f"decompress_matmul K half {j}: off by "
+                                 f"{err.max().item():.3g}, {ratio:.3g}x "
+                                 "cuBLAS f32's error against f64")
+        ys.append(y)
+        if j:
+            continue
+        xc = xj.contiguous()
+        coded = 4 * int(coded_words(sb[:per], ob[:per], cw.sym_plane.shape[0],
+                                    cw.ofs_plane.shape[0]).sum())
+        nb = coded + nbytes(half.stored, half.v_min, half.ol, half.cum,
+                            half.scale, xc, y)
+        t_b, t_f = nb / HBM_BYTES_PER_S, 2 * 4 * 1024 * n / F32_FLOPS
+        row = dict(shape=[4, 1024, n], ms=graph_ms(
+            lambda: dm.compressed_matmul(xc, half), 20),
+            plain_ms=plain_ms,
+            library_ms=graph_ms(lambda: torch.matmul(xc, wj), 20),
+            bound_ms=max(t_b, t_f) * 1e3,
+            bound_by="bytes" if t_b >= t_f else "operations",
+            max_abs_err=err.max().item(), f64_err_ratio=ratio)
+    summed = shd.psum(ys, device)
+    full = dm.compressed_matmul(x, cw)
+    ratio = f64_err_ratio(summed, x, wf)
+    full_ratio = f64_err_ratio(full, x, wf)
+    bound = k * 2.0 ** -24 * (x.abs().double() @ wf.abs().double())
+    diff = (summed.double() - full.double()).abs()
+    if not (ratio <= F64_ERR_RATIO and bool((diff <= bound).all())):
+        raise AssertionError(f"decompress_matmul K halves: the psum is "
+                             f"{ratio:.3g}x cuBLAS f32's error against f64 "
+                             f"(limit {F64_ERR_RATIO}), off the full launch "
+                             f"by {diff.max().item():.3g}")
+    row.update(psum_f64_err_ratio=ratio, full_f64_err_ratio=full_ratio,
+               psum_vs_full_max_abs=diff.max().item(),
+               psum_vs_full_bound_min=bound.min().item())
+    records["decompress_matmul K half [4, 1024, 6144]"] = row
+    print("decompress_matmul K half (qwen3-1.7b w_up, 2 model shards): "
+          + json.dumps(row))
+    del q, wf, cw, halves
+    torch.cuda.empty_cache()
 
 
 def check_minitron_matmul(device, records):
@@ -1489,7 +1676,7 @@ def oracle_stores(packed_params, host_weights):
                              for b in packed_params["blocks"]]}
               for k in ("oracle32", "oracle64", "dense")}
     for i, grp, name, pw in with_head(packed_params):
-        w = host_weights[i, grp, name].to(pw.cw.scale.device).float()
+        w = host_weights[i, grp, name].to(pw.device).float()
         q, qp = quant.quantize_symmetric(w, axis=-1)
         del w
         wd = quant.dequantize_symmetric(q, qp)
@@ -1508,7 +1695,7 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                      fused=True, calib_pages=4, hook=None, params=None,
                      label=None, arch="qwen3-1.7b", max_len=160,
                      requests=None, engine_kw=None, setup=None,
-                     keep_sites=None):
+                     keep_sites=None, max_batch=4):
     """Serve the 8 requests (``serve_requests``, or ``requests(cfg, rng)``)
     at ``arch``'s published widths and ``layers`` layers (its own depth
     when None), from dense or packed weights (the seed-0 draw, or
@@ -1526,8 +1713,8 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
     them, when given), from which the checks after the serve build
     their oracle stores; nothing but the engine is on the card while it
     serves, so ``max_memory_gb`` is the engine's.  ``engine_kw`` adds
-    engine options (refresh, pressure); ``setup(eng)`` runs once the engine
-    is built."""
+    engine options (refresh, pressure, a mesh); ``setup(eng)`` runs once
+    the engine is built; ``max_batch`` slots (4)."""
     import dataclasses
     import numpy as np
     import torch
@@ -1542,13 +1729,16 @@ def serve_full_width(device, *, layers=None, weights=None, kv="apack-int8",
                               kv_cache_dtype=kv)
     layers = cfg.num_layers
     sched = (engine_kw or {}).get("scheduler", "sync")
+    mesh = (engine_kw or {}).get("mesh")
     tag = (f"serve[{arch}, {mode} KV, {label} weights, {layers} layers"
-           + (f", {sched} scheduler]" if sched != "sync" else "]"))
+           + (f", {sched} scheduler" if sched != "sync" else "")
+           + (f", mesh {mesh.shape['data']}x{mesh.shape['model']}"
+              if mesh is not None else "") + "]")
     gen = torch.Generator(device=device).manual_seed(0)
     t0 = time.perf_counter()
     if params is None:
         params = M.init_params(cfg, gen, device)
-    eng = ServeEngine(cfg, params, max_batch=4, max_len=max_len,
+    eng = ServeEngine(cfg, params, max_batch=max_batch, max_len=max_len,
                       kv_page_size=16, kv_calib_pages=calib_pages,
                       kv_fused=fused, weights=weights, device=device,
                       **(engine_kw or {}))
@@ -2250,17 +2440,19 @@ def teacher_forced(run, stores, layers=None):
     return rates
 
 
-def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80):
+def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80, n=4,
+                         drain=True):
     """Where a steady decode step's time goes: torch.profiler over ten
-    steps of a fresh full batch (tables already calibrated; prompts of
-    ``prompt_len`` tokens), device time by kernel name (the top twelve and
-    every kernel of the port), the device's idle share of the window and
-    the fused attention kernel's launches a step.  Returns the window's
-    wall and busy ms a step and its idle share."""
+    steps of a fresh full batch of ``n`` requests (tables already
+    calibrated; prompts of ``prompt_len`` tokens), device time by kernel
+    name (the top twelve and every kernel of the port), the device's idle
+    share of the window and the fused attention kernel's launches a step;
+    then the requests finish (``drain``), for an engine that serves on.
+    Returns the window's wall and busy ms a step and its idle share."""
     import numpy as np
     import torch
     from repro_torch.serve import Request
-    for i in range(4):
+    for i in range(n):
         eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size,
                                                  prompt_len),
                            max_new_tokens=24))
@@ -2270,7 +2462,8 @@ def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80):
     attn = sum(r[2] for r in out.pop("rows")
                if "fused_page_attention_kernel" in r[1]) / 10
     print(f"profile {tag}: fused attention launches a step {attn}")
-    eng.run_until_drained()
+    if drain:
+        eng.run_until_drained()
     return out
 
 
@@ -2432,6 +2625,176 @@ def check_async(run: dict, rec: dict, tokens: list, tag: str) -> dict:
     return res
 
 
+# --------------------------------------------------- the mesh (slice 13)
+MESH_STEADY_MIN = 10        # seal-free steps (l) must see, at least
+
+
+def mesh_hook(rec: dict):
+    """``hook(eng, i)`` for (l): each step's ``.cpu()`` calls (counted by
+    the wrapper that ``mesh_phase`` installs), accounted device-to-host
+    pulls (seal batches) and kernel 3 launches; at steps 3 and 30 every
+    active request's pages must lie in its slot's data-shard range."""
+    import repro_torch
+
+    def hook(eng, i):
+        kv = eng.kv
+        now = (rec["cpu_calls"], kv.transfers["d2h_calls"],
+               repro_torch.launch_counts()["fused_page_attention"])
+        if "last" in rec:
+            rec["steps"].append(tuple(a - b for a, b in
+                                      zip(now, rec["last"])) + (i,))
+        rec["last"] = now
+        if i in (3, 30):
+            pps = kv.pool.pages_per_shard
+            spb = eng.max_batch // eng._n_data
+            for slot, r in enumerate(eng.active):
+                if r is None:
+                    continue
+                bad = [p for pids in kv.page_tables[r.rid] for p in pids
+                       if p // pps != slot // spb]
+                if bad:
+                    raise AssertionError(
+                        f"mesh serve: request {r.rid} in slot {slot} holds "
+                        f"pages {bad[:4]} outside data shard {slot // spb}")
+            rec["range_checked"].append(i)
+    return hook
+
+
+def mesh_phase(device, fused_tokens: list, sync_run: dict,
+               sync_profile: dict) -> dict:
+    """(l) the mesh serve: qwen3-1.7b at published widths and depth (28
+    layers, phase 3's seed-0 weights) on ``make_debug_mesh(2, 2)``, every
+    shard on the one card, ``max_batch=8`` (each data shard decodes 4
+    rows, as phase 3's engine does: a cuBLAS GEMM may pick another
+    algorithm at another M), phase 3's 8 requests.  Gates: tokens equal
+    phase 3's; at steps 3 and 30 every request's pages in its slot's
+    data-shard range; after the drain every shard's free list whole; every
+    step without a seal pull reads back one ``.cpu()`` (its tokens), as
+    the single-device step; kernel 3 launched 28 x 2 x 2 times a step.
+    Printed: both serves' ``kv_ratio``, median and longest step, a
+    profiler window beside phase 3's."""
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(2, 2, device=device)
+    print(f"serving mesh: {mesh.shape} over {mesh.size} devices "
+          f"({mesh.describe()})")
+    rec = {"cpu_calls": 0, "steps": [], "range_checked": []}
+    orig = torch.Tensor.cpu
+
+    def counting(self, *a, **k):
+        rec["cpu_calls"] += 1
+        return orig(self, *a, **k)
+    torch.Tensor.cpu = counting
+    try:
+        run = serve_full_width(device, layers=28, max_batch=8,
+                               engine_kw={"mesh": mesh},
+                               hook=mesh_hook(rec))
+    finally:
+        torch.Tensor.cpu = orig
+    eng, cfg = run["eng"], run["cfg"]
+    tokens = [r.tokens for r in run["reqs"]]
+    if tokens != fused_tokens:
+        raise AssertionError("mesh serve: tokens differ from phase 3's "
+                             f"({token_agreement(tokens, fused_tokens):.4f} "
+                             "agree)")
+    pool = eng.kv.pool
+    free = [pool.free_count_shard(s) for s in range(pool.n_shards)]
+    if free != [pool.pages_per_shard] * pool.n_shards:
+        raise AssertionError(f"mesh serve: free lists {free} not whole")
+    if rec["range_checked"] != [3, 30]:
+        raise AssertionError("mesh serve: the page-range check ran at "
+                             f"{rec['range_checked']}")
+    want_k3 = cfg.num_layers * 2 * 2
+    k3 = sorted({s[2] for s in rec["steps"]})
+    steady = [s for s in rec["steps"] if s[1] == 0]
+    if k3 != [want_k3]:
+        raise AssertionError(f"mesh serve: kernel 3 launches a step {k3}, "
+                             f"not {want_k3}")
+    if len(steady) < MESH_STEADY_MIN or any(s[0] != 1 for s in steady):
+        raise AssertionError("mesh serve: a step without seals read back "
+                             f"{sorted({s[0] for s in steady})} times "
+                             f"({len(steady)} such steps)")
+    prof = profile_steady_steps(eng, cfg, run["rng"], "mesh 2x2", n=8,
+                                drain=False)
+    summary = run["summary"]
+    out = {"tokens_equal_phase_3": True, "free_lists_whole": free,
+           "kernel_3_launches_per_step": want_k3,
+           "seal_free_steps": len(steady),
+           "pulls_per_seal_free_step": 1,
+           "kv_ratio": summary["kv_ratio"],
+           "phase_3_kv_ratio": sync_run["kv_ratio"],
+           "median_step_ms": summary["median_step_ms"],
+           "max_step_ms": summary["max_step_ms"],
+           "phase_3_median_step_ms": sync_run["median_step_ms"],
+           "phase_3_max_step_ms": sync_run["max_step_ms"],
+           "profile": {k: prof[k] for k in ("wall_ms_per_step",
+                                             "busy_ms_per_step",
+                                             "idle_share")},
+           "phase_3_profile": {k: sync_profile[k] for k in (
+               "wall_ms_per_step", "busy_ms_per_step", "idle_share")},
+           "launches_per_step": summary["launches_per_step"]}
+    print("mesh serve (l) [qwen3-1.7b, 28 layers, 2x2] vs phase 3: "
+          + json.dumps(out))
+    return out
+
+
+def packed_mesh_phase(device) -> dict:
+    """(m) the packed mesh check: qwen3-1.7b at published widths, its first
+    ``CUT_LAYERS`` layers, from packed weights on ``make_debug_mesh(1,
+    2)``: every packed site K-split (``ShardedPackedWeight``, kernel 5 a
+    model shard on its K half, the halves summed), phase 3's requests at
+    phase 3's batch.  Gate: phase 4's, the teacher-forced RMS logit drift
+    against the f64 oracle at most ``RMS_DRIFT_RATIO`` times f32's
+    (``teacher_forced`` over ``oracle_stores``).  Printed: the largest
+    logit difference against the single-device packed store on the same
+    sequences, and kernel 5's launches a step."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import modules as mm
+    run = serve_full_width(device, layers=CUT_LAYERS, weights="apack-int8",
+                           engine_kw={"mesh": make_debug_mesh(1, 2,
+                                                              device=device)})
+    eng = run["eng"]
+    sites = [pw for *_, pw in with_head(eng.params)]
+    if not sites or not all(isinstance(pw, mm.ShardedPackedWeight)
+                            for pw in sites):
+        raise AssertionError("packed mesh: a packed site is not K-split")
+    stores = oracle_stores(eng.params, run.pop("host_weights"))
+    rates = teacher_forced(run, stores, layers=CUT_LAYERS)
+    del stores
+    # the single-device store: each site's whole weight (its K halves'
+    # planes joined again) through one launch
+    def whole(w):
+        p = w.parts
+        return mm.PackedWeight(dataclasses.replace(
+            p[0], **{f: torch.cat([getattr(x, f) for x in p], dim=-1)
+                     for f in ("sym_plane", "ofs_plane", "stored")},
+            k=w.cw.k, payload_bits=w.cw.payload_bits),
+            w.shape, w.n_contract, w.dtype)
+    single = {**eng.params, "blocks": [
+        {g: ({n: (whole(w) if isinstance(w, mm.ShardedPackedWeight) else w)
+              for n, w in v.items()} if isinstance(v, dict) else v)
+         for g, v in b.items()} for b in eng.params["blocks"]]}
+    worst = 0.0
+    for r in run["reqs"]:
+        toks = torch.as_tensor([list(r.prompt) + r.tokens[:-1]],
+                               device=eng.device)
+        a = M.forward(run["cfg"], eng.params, toks)[0]
+        b = M.forward(run["cfg"], single, toks)[0]
+        worst = max(worst, (a.float() - b.float()).abs().max().item())
+    out = {"sites_k_split": len(sites),
+           "max_abs_logit_diff_vs_single_device": worst,
+           "decompress_matmul_launches_per_step":
+               run["summary"]["launches_per_step"]["decompress_matmul"],
+           "agreement": rates}
+    print(f"packed mesh (m) [qwen3-1.7b, {CUT_LAYERS} layers, 1x2]: "
+          + json.dumps(out))
+    del run, eng, single
+    return out
+
+
 def async_qwen_phase(device, sync_run: dict, sync_profile: dict) -> dict:
     """(e) qwen3-1.7b at 28 layers on the async scheduler: phase 3's 8
     requests at the default chunk (64 tokens), slot 0 preempted with spill
@@ -2517,13 +2880,13 @@ def capture_packed(eng):
               for _ in sorted(kv._packed[layer])]
     if not pids:
         return None
-    idx = torch.as_tensor(pids, device=kv.device)
+    ix = kv.pool.index(pids)
     vm, ol, cm = kv._tables_stacked()
     rows = np.array([[2 * l + kind for l in layers] for kind in (0, 1)])
     dev = kv.device
-    return {"sym": kv.pool.sym[:, idx].clone(),
-            "ofs": kv.pool.ofs[:, idx].clone(),
-            "stored": kv.pool.stored[:, idx].clone(),
+    return {"sym": kv.pool.read("sym", ix).clone(),
+            "ofs": kv.pool.read("ofs", ix).clone(),
+            "stored": kv.pool.read("stored", ix).clone(),
             "vm": torch.as_tensor(vm[rows], device=dev),
             "ol": torch.as_tensor(ol[rows], device=dev),
             "cum": torch.as_tensor(cm[rows], device=dev)}
@@ -3935,6 +4298,9 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     # minitron-8b's head and squared-ReLU FFN
     check_attention_heads(device, new_records)
     check_minitron_matmul(device, new_records)
+    # kernel 3 on a mesh's model shards' head blocks, kernel 5 on a K half
+    check_attention_head_shards(device, new_records)
+    check_matmul_k_split(device, new_records)
     # kernels 2 and 1 at (j)'s checkpoint plane
     check_ckpt_plane(device, new_records)
     lap("2 kernel checks")
@@ -3960,6 +4326,10 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     async_per_step = async_qwen_phase(device, sync_run, sync_profile)
     torch.cuda.empty_cache()
     lap("(e) async serve")
+    # (l) the same requests on a 2x2 mesh, every shard on the card
+    mesh_run = mesh_phase(device, fused_tokens, sync_run, sync_profile)
+    torch.cuda.empty_cache()
+    lap("(l) mesh serve")
     # the CPU sides of phase 10 and (d) run from here on, in the
     # background: after the kernel checks, whose plain versions use every
     # core, and after the step times that (e) compares
@@ -3986,6 +4356,10 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     verify_packed(packed["snapshot"])
     launches = packed["launches"]
     lap("4 packed serve")
+    # (m) packed weights K-split over a 1x2 mesh
+    packed_mesh = packed_mesh_phase(device)
+    torch.cuda.empty_cache()
+    lap("(m) packed mesh")
     # (e) the main path on the async scheduler, from phase 4's planes
     async_k5 = async_packed(device, packed)
     del packed
@@ -4083,7 +4457,7 @@ def card_phases(t_script: float, twins_run: dict) -> int:
                 profile=2)
     restart = train_restart(device, CUT_LAYERS)
     lap("(j) qwen3-1.7b training")
-    train_steps(device, XLSTM, 3, f"train (k) [{XLSTM}, 12 layers]")
+    train_steps(device, XLSTM, 2, f"train (k) [{XLSTM}, 12 layers]")
     lap("(k) xlstm-125m training")
     twins = wait_cpu_twins(twins_run["proc"], twins_path)
     lap("10 wait for the CPU twins")
@@ -4140,6 +4514,13 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     for name in ("apack_decode", "apack_encode", "fused_page_attention"):
         extra.setdefault(name, {})["async_launches_per_step"] = \
             async_per_step[name]
+    # kernels 1, 2 and 3 a step of the mesh serve (l), kernel 5 a step of
+    # the packed mesh check (m)
+    for name in ("apack_decode", "apack_encode", "fused_page_attention"):
+        extra[name]["mesh_launches_per_step"] = \
+            mesh_run["launches_per_step"][name]
+    extra["decompress_matmul"]["mesh_launches_per_step"] = \
+        packed_mesh["decompress_matmul_launches_per_step"]
     # kernels 3 and 5 a step of (g) (fused, packed) and (h)
     for tag, run in (("minitron", mini), ("dbrx", dbrx)):
         for name, n in run["launches_per_step"].items():

@@ -103,6 +103,17 @@ def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(fn, *args, on) -> int:
+    """Call launcher ``fn`` with ``args`` and the current stream of
+    tensor ``on``'s device, that device current: a kernel launches on the
+    current device, so a tensor on another card than the current one
+    (a mesh's shard) gets its kernel there.  Returns the launcher's
+    ``cudaError_t``."""
+    import torch
+    with torch.cuda.device(on.device):
+        return fn(*args, stream_of(on))
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if rc != 0:

@@ -91,8 +91,9 @@ def decode(sym: torch.Tensor, ofs: torch.Tensor, stored: torch.Tensor,
     rs, ro = staged_rows(n_steps, bits, ws, wo)
     fn = _build.load("apack_decode").apack_decode_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(*ptrs, b, ws, wo, s, n_steps, bits, _STORED_BYTES[st.dtype],
-            *(stride for _, stride in tabs), rs, ro, _build.stream_of(sym))
+    rc = _build.launch(fn, *ptrs, b, ws, wo, s, n_steps, bits,
+                       _STORED_BYTES[st.dtype],
+                       *(stride for _, stride in tabs), rs, ro, on=sym)
     _build.check(rc, "apack_decode")
     _build.LAUNCHES["apack_decode"] += 1
     return out

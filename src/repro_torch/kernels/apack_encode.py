@@ -63,8 +63,8 @@ def encode(values: torch.Tensor, v_min: torch.Tensor, ol: torch.Tensor,
             ofs_bits.data_ptr(), stored.data_ptr()]
     fn = _build.load("apack_encode").apack_encode_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(*ptrs, b, s, n_steps, bits, ws, wo,
-            *(stride for _, stride in tabs), _build.stream_of(values))
+    rc = _build.launch(fn, *ptrs, b, s, n_steps, bits, ws, wo,
+                       *(stride for _, stride in tabs), on=values)
     _build.check(rc, "apack_encode")
     _build.LAUNCHES["apack_encode"] += 1
     return sym, ofs, sym_bits, ofs_bits, stored

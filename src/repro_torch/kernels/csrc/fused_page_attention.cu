@@ -50,6 +50,17 @@
 // decoded by both head blocks.  With one head block (every page at most
 // 4096 query-head values) the kernel is the single-block design above.
 //
+// Head tensor-parallelism (a serving mesh's model axis): a job may carry a
+// third jobmeta word h0, the first of the Hf KV heads of a PACKED page that
+// this launch's dense planes hold, H of them (`_page_tile` :67-97).  The
+// HOT and COLD planes and the page scales then hold only heads
+// [h0, h0 + H); a PACKED page's streams interleave all Hf heads, so its
+// planes stay whole, the page decodes into a tile of Hf heads and the
+// block reads its heads at h0 + kh.  A query head's scores, softmax and PV
+// sum read only its own KV head, in the same order whatever heads share its
+// block, so the head blocks of two launches, side by side, are bit-equal to
+// one launch over every head.
+//
 // What bounds it on the card: the serial decode of a PACKED page (128
 // dependent steps a stream at full width), not bytes: a page is ~24 KB of
 // planes and the job's scores are a few MFLOP.  One page a block puts all
@@ -74,7 +85,7 @@ struct Args {
   const int32_t* page_idx;         // [J, P]
   const int32_t* table_idx;        // [J, P]  K row; V row = K row + 1
   const int32_t* meta;             // [J, P, 2] (state, t0)
-  const int32_t* jobmeta;          // [J, 2] (qpos, window)
+  const int32_t* jobmeta;          // [J, jw] (qpos, window[, h0])
   const int8_t* tok[2];            // [Pp, ps, H, dh]
   const float* tok_s[2];           // [Pp, ps, H]
   const int8_t* cold[2];           // [Pp, ps, H, dh]
@@ -89,6 +100,8 @@ struct Args {
   float* m_out;                    // [J, NB, Hq]
   float* l_out;                    // [J, NB, Hq]
   int P, Pp, T, Hq, H, dh, ps, S, Ws, Wo, n_steps, bits;
+  int Hf;                          // KV heads of a PACKED page (H unsplit)
+  int jw;                          // jobmeta words a job: 2, or 3 with h0
   int ppb, rs, ro;                 // pages a block; staged plane rows
   int hpb;                         // KV heads a block (blockIdx.z's)
   float scale, softcap;
@@ -110,8 +123,9 @@ __device__ __forceinline__ bool stream_in_heads(int s, int n_steps, int dh,
   return false;
 }
 
-// Shared memory of pass 1: the int8 K and V tiles, two staged table rows,
-// the staged K and V planes, then the f32 scratch.
+// Shared memory of pass 1: the int8 K and V tiles (each with room for a
+// PACKED page's Hf heads), two staged table rows, the staged K and V
+// planes, then the f32 scratch.
 __host__ __device__ inline int plane_offset(int tile) {
   return 2 * tile + 2 * TAB_BYTES;
 }
@@ -132,19 +146,24 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
   const int j = blockIdx.x;
   const int b = blockIdx.y;
   const int nb = gridDim.y;
-  const int tile = a.ps * a.H * a.dh;
+  const int tile = a.ps * a.Hf * a.dh;     // a tile's room
+  const int dtile = a.ps * a.H * a.dh;     // a dense (HOT, COLD) page
   const int g = a.Hq / a.H;
   const size_t part = (size_t)j * nb + b;
   // this block's KV heads [kh0, kh0 + hpb): query heads [hq0, hq0 + Hb)
   const int kh0 = blockIdx.z * a.hpb;
   const int Hb = a.hpb * g;
   const int hq0 = kh0 * g;
-  const bool all_heads = a.hpb == a.H;
+  const int qpos = a.jobmeta[j * a.jw + 0];
+  const int window = a.jobmeta[j * a.jw + 1];
+  // the dense planes' first head among a PACKED page's Hf (the wrapper
+  // cannot check a device value: clamped into range, as page ids are)
+  const int h0 = a.jw > 2 ? min(max(a.jobmeta[j * a.jw + 2], 0), a.Hf - a.H)
+                          : 0;
+  const bool all_heads = a.hpb == a.Hf;
   float* acc_out = a.acc + part * a.Hq * a.dh + (size_t)hq0 * a.dh;
   float* m_part = a.m_out + part * a.Hq + hq0;
   float* l_part = a.l_out + part * a.Hq + hq0;
-  const int qpos = a.jobmeta[j * 2 + 0];
-  const int window = a.jobmeta[j * 2 + 1];
   const int p0 = b * a.ppb;
   const int p1 = min(a.P, p0 + a.ppb);
   // the score every masked position takes (after the softcap)
@@ -231,7 +250,7 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
         for (int st = threadIdx.x; st < 2 * a.S; st += THREADS) {
           const int kind = st / a.S, s = st % a.S;
           if (!all_heads &&
-              !stream_in_heads(s, a.n_steps, a.dh, a.H, kh0, a.hpb))
+              !stream_in_heads(s, a.n_steps, a.dh, a.Hf, h0 + kh0, a.hpb))
             continue;
           const apack::SmemTable tb{tab_rows(kind), tab_cum(kind)};
           const bool stored = (kind ? a.stored[1] : a.stored[0])
@@ -264,8 +283,8 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
       } else {
         const int8_t* src0 = state == PAGE_HOT ? a.tok[0] : a.cold[0];
         const int8_t* src1 = state == PAGE_HOT ? a.tok[1] : a.cold[1];
-        copy_bytes(kv_t[0], src0 + (size_t)pid * tile, tile);
-        copy_bytes(kv_t[1], src1 + (size_t)pid * tile, tile);
+        copy_bytes(kv_t[0], src0 + (size_t)pid * dtile, dtile);
+        copy_bytes(kv_t[1], src1 + (size_t)pid * dtile, dtile);
       }
       for (int i = threadIdx.x; i < 2 * a.ps * a.H; i += THREADS) {
         const int kind = i / (a.ps * a.H), r = i % (a.ps * a.H);
@@ -274,6 +293,10 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
             : a.pscale[kind][(size_t)pid * a.H + r % a.H];
       }
     }
+    // a tile row's KV heads and this block's first among them: a PACKED
+    // tile holds all Hf heads of the page, a dense one the planes' H
+    const int tH = state == PAGE_PACKED ? a.Hf : a.H;
+    const int th0 = state == PAGE_PACKED ? h0 : 0;
     __syncthreads();
     // scores [Hb, ps]: QK^T * dh^-0.5, mask, softcap
     for (int i = threadIdx.x; i < Hb * a.ps; i += THREADS) {
@@ -283,7 +306,7 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
                          (window <= 0 || pos > qpos - window);
       float s = NEG_INF;
       if (valid) {
-        const int8_t* kr = kv_t[0] + (size_t)(t * a.H + kh) * a.dh;
+        const int8_t* kr = kv_t[0] + (size_t)(t * tH + th0 + kh) * a.dh;
         const float ksc = sc_t[0][t * a.H + kh];
         const float* qr = qs + h * a.dh;
         float dot = 0.f;
@@ -326,7 +349,7 @@ __global__ void __launch_bounds__(THREADS) fused_page_attention_kernel(Args a) {
         if (live) {
           for (int t = 0; t < a.ps; ++t)
             pv += w_s[h * a.ps + t] *
-                  ((float)kv_t[1][(size_t)(t * a.H + kh) * a.dh + d] *
+                  ((float)kv_t[1][(size_t)(t * tH + th0 + kh) * a.dh + d] *
                    sc_t[1][t * a.H + kh]);
         }
         acc[k] = acc[k] * alpha_s[h] + pv;
@@ -380,10 +403,12 @@ fused_page_attention_combine_kernel(const float* __restrict__ acc_p,
 
 }  // namespace
 
-// Hb: the query heads of one head block (Hq with one block)
-extern "C" int fused_page_attention_smem_bytes(int Hb, int H, int dh, int ps,
-                                               int S, int rs, int ro) {
-  const int tile = ps * H * dh;
+// Hb: the query heads of one head block (Hq with one block); Hf: the KV
+// heads of a PACKED page (H without head tensor-parallelism)
+extern "C" int fused_page_attention_smem_bytes(int Hb, int H, int Hf, int dh,
+                                               int ps, int S, int rs,
+                                               int ro) {
+  const int tile = ps * Hf * dh;
   return float_offset(tile, S, rs, ro) +
          4 * (2 * ps * H + Hb * dh + Hb * ps + 3 * Hb);
 }
@@ -392,7 +417,8 @@ extern "C" int fused_page_attention_smem_bytes(int Hb, int H, int dh, int ps,
 // Args; acc_p / m_p / l_p f32 scratch [J, NB, Hq, dh] / [J, NB, Hq] with
 // NB = ceil(P / ppb); acc / m_out / l_out f32 [J, Hq, dh] / [J, Hq]; hpb
 // KV heads a pass-1 block (a divisor of H), H / hpb blocks a (job, page
-// chunk).
+// chunk); Hf the KV heads of a PACKED page and jw the jobmeta words a job
+// (2: (qpos, window), h0 = 0; 3: (qpos, window, h0)).
 extern "C" int fused_page_attention_launch(
     const void* q, const void* page_idx, const void* table_idx,
     const void* meta, const void* jobmeta, const void* tok_k,
@@ -402,11 +428,12 @@ extern "C" int fused_page_attention_launch(
     const void* stored_k, const void* sym_v, const void* ofs_v,
     const void* stored_v, const void* vm, const void* ol, const void* cum,
     void* acc_p, void* m_p, void* l_p, void* acc, void* m_out, void* l_out,
-    int J, int P, int Pp, int T, int Hq, int H, int dh, int ps, int S, int Ws,
-    int Wo, int n_steps, int bits, int ppb, int rs, int ro, int hpb,
-    float scale, float softcap, void* stream) {
+    int J, int P, int Pp, int T, int Hq, int H, int Hf, int dh, int ps, int S,
+    int Ws, int Wo, int n_steps, int bits, int ppb, int rs, int ro, int hpb,
+    int jw, float scale, float softcap, void* stream) {
   if (J == 0) return 0;
   if (hpb < 1 || H % hpb || hpb * (Hq / H) * dh > MAX_ACC * THREADS ||
+      H > Hf || (jw != 2 && jw != 3) ||
       ppb < 1 || rs < 1 || rs > Ws + 1 || ro < 1 || ro > Wo + 1)
     return (int)cudaErrorInvalidValue;
   const int nb = (P + ppb - 1) / ppb;
@@ -440,11 +467,11 @@ extern "C" int fused_page_attention_launch(
     a.l_out = (float*)l_p;
     a.P = P; a.Pp = Pp; a.T = T; a.Hq = Hq; a.H = H; a.dh = dh; a.ps = ps;
     a.S = S; a.Ws = Ws; a.Wo = Wo; a.n_steps = n_steps; a.bits = bits;
-    a.ppb = ppb; a.rs = rs; a.ro = ro; a.hpb = hpb;
+    a.ppb = ppb; a.rs = rs; a.ro = ro; a.hpb = hpb; a.Hf = Hf; a.jw = jw;
     a.scale = scale;
     a.softcap = softcap;
-    const int smem = fused_page_attention_smem_bytes(hpb * (Hq / H), H, dh,
-                                                     ps, S, rs, ro);
+    const int smem = fused_page_attention_smem_bytes(hpb * (Hq / H), H, Hf,
+                                                     dh, ps, S, rs, ro);
     cudaError_t e = apack::allow_max_smem<fused_page_attention_kernel>();
     if (e != cudaSuccess) return (int)e;
     fused_page_attention_kernel<<<dim3(J, nb, H / hpb), THREADS, smem, st>>>(

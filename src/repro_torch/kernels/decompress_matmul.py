@@ -14,6 +14,14 @@ planes: it is tiled into (K_pad / tile_k) x (N_pad / 128) tiles, and stream
 each tile once, dequantizes it with the per-column scale and sums the K
 tiles' f32 partial products in kt order.
 
+Row-parallel tensor parallelism (``packed_proj`` :113-135): the stream
+axis is kt-major, so a contiguous range of streams is a contiguous range
+of K tiles.  ``split_k`` cuts a weight into such ranges, one a model shard,
+each a ``CompressedLinear`` of ``k / n`` rows that the kernel runs as it
+runs any weight: its wrapper reads only the weight's own layout, so the
+kernel body is unchanged.  The shards' partial products are summed by the
+caller (``models.sharding.psum``).
+
 ``stack_compressed`` (:138) is not ported: it stacks per-layer planes for
 ``lax.scan``, and the port keeps one param dict per layer
 (``models/convert.py``), so each layer holds its own ``CompressedLinear``.
@@ -226,12 +234,62 @@ def compressed_matmul(x: torch.Tensor, cw: CompressedLinear, *,
             partial.data_ptr(), out.data_ptr()]
     fn = lib.decompress_matmul_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(*ptrs, m, cw.k, cw.n, cw.tile_k, nk, nn, ws, wo, rs, ro, ldx,
-            xkt, int(stage_only), _build.stream_of(x))
+    rc = _build.launch(fn, *ptrs, m, cw.k, cw.n, cw.tile_k, nk, nn, ws, wo,
+                       rs, ro, ldx, xkt, int(stage_only), on=x)
     _build.check(rc, "decompress_matmul")
     if not stage_only:
         _build.LAUNCHES["decompress_matmul"] += 1
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A ``CompressedLinear``'s shape and coded size without its tensors:
+    what a weight split into K ranges keeps of the whole
+    (``models.modules.ShardedPackedWeight``), so that the whole planes
+    need not stay beside the parts."""
+
+    k: int
+    n: int
+    tile_k: int
+    payload_bits: int
+
+    @classmethod
+    def of(cls, cw: CompressedLinear) -> "Layout":
+        return cls(cw.k, cw.n, cw.tile_k, cw.payload_bits)
+
+    @property
+    def k_pad(self) -> int:
+        return -(-self.k // self.tile_k) * self.tile_k
+
+    @property
+    def n_pad(self) -> int:
+        return -(-self.n // TILE_N) * TILE_N
+
+
+def k_splittable(cw: CompressedLinear, n_parts: int) -> bool:
+    """Whether ``cw`` splits into ``n_parts`` K ranges of whole tiles
+    (``packed_param_specs`` :656): K unpadded and the K tiles dividing
+    evenly."""
+    nk = cw.k_pad // cw.tile_k
+    return n_parts > 1 and cw.k == cw.k_pad and nk % n_parts == 0
+
+
+def split_k(cw: CompressedLinear, n_parts: int) -> list[CompressedLinear]:
+    """``cw`` cut into ``n_parts`` contiguous K-tile ranges, in order: part
+    ``j`` holds the streams of K tiles ``[j nk/n, (j+1) nk/n)`` (copied to
+    their own contiguous planes) and computes ``x[:, j k/n:(j+1) k/n] @
+    W[j k/n:(j+1) k/n]``.  Tables and column scales are shared; the coded
+    size stays accounted on the whole weight (``payload_bits`` 0)."""
+    if not k_splittable(cw, n_parts):
+        raise ValueError(f"K {cw.k} in tiles of {cw.tile_k} does not split "
+                         f"into {n_parts} whole-tile ranges")
+    per = (cw.k_pad // cw.tile_k // n_parts) * (cw.n_pad // TILE_N) * TILE_N
+    return [dataclasses.replace(
+        cw, sym_plane=cw.sym_plane[:, j * per:(j + 1) * per].contiguous(),
+        ofs_plane=cw.ofs_plane[:, j * per:(j + 1) * per].contiguous(),
+        stored=cw.stored[j * per:(j + 1) * per].contiguous(),
+        k=cw.k // n_parts, payload_bits=0) for j in range(n_parts)]
 
 
 def reference_matmul(x: torch.Tensor, cw: CompressedLinear) -> torch.Tensor:

@@ -15,11 +15,17 @@ folded into an online softmax.  The result is the *unnormalized*
 in a block of its own and merges the pages' partial states in a second
 pass; ``combine_partials`` is that merge in plain PyTorch, for the tests.
 
-Head tensor-parallelism is not part of this slice: a PACKED page decodes
-all of its heads, which are exactly the dense planes' heads, so the
-reference's ``h0`` slice is the identity and ``jobmeta`` carries
-``(qpos, window)`` only.  The TPU kernel keeps ``acc [hkv, g, dh]`` for
-any head count; a block of the CUDA kernel holds at most
+Head tensor-parallelism over a serving mesh's model axis follows the
+reference (``_page_tile`` :67-97, ``_fused_kernel`` :110-134): a job's
+``jobmeta`` row may be ``(qpos, window, h0)``; the dense HOT/COLD planes
+and the page scales then hold only the launch's ``H`` KV heads, a PACKED
+page still decodes all ``h_full`` heads (its streams interleave them) and
+the job reads heads ``[h0, h0 + H)`` of it.  A ``[J, 2]`` jobmeta is
+``h0 = 0`` on a pool of every head.  Per-KV-head attention has no
+cross-head sum, so two launches over the two halves of the heads, side by
+side, equal one launch over all of them bit for bit.  The TPU kernel keeps
+``acc [hkv, g, dh]`` for any head count; a block of the CUDA kernel holds
+at most
 ``MAX_BLOCK_VALUES`` query-head values, so a wider page splits its KV heads
 over blocks (``heads_per_block``), each decoding only the streams that hold
 its heads' values.
@@ -49,18 +55,30 @@ MAX_BLOCK_VALUES = 16 * 256
 # dynamic shared memory a block may use on sm_90
 _MAX_SMEM = 232448
 
-_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 17
+_ARGTYPES = ([ctypes.c_void_p] * 28 + [ctypes.c_int] * 19
              + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
+def _head_offsets(jobmeta: torch.Tensor) -> torch.Tensor:
+    """Each job's first KV head ``h0``: jobmeta's third column, or 0 for a
+    ``[J, 2]`` jobmeta."""
+    if jobmeta.shape[1] > 2:
+        return jobmeta[:, 2].long()
+    return torch.zeros(jobmeta.shape[0], dtype=torch.long,
+                       device=jobmeta.device)
+
+
 def _page_tiles(planes: dict, page_idx, table_idx, state, n_steps: int,
-                bits: int):
+                bits: int, h0=None, h_full: int | None = None):
     """f32 K and V tiles [J, P, ps, H, dh] of every (job, page slot) by
     lifecycle state (``_page_tile`` / ``dequant_page``); all PACKED pages
-    of both kinds decode in one batched call.  Slots in no lifecycle state
-    (FREE) stay zero: they are fully masked, and a zero tile folds in
-    exactly as the reference's tile of whatever page the slot names."""
+    of both kinds decode in one batched call, to ``h_full`` heads (H when
+    None), of which a job keeps ``[h0, h0 + H)`` (``h0`` [J]).  Slots in no
+    lifecycle state (FREE) stay zero: they are fully masked, and a zero
+    tile folds in exactly as the reference's tile of whatever page the slot
+    names."""
     ps, h, dh = planes["tok_k"].shape[1:]
+    hf = h if h_full is None else h_full
     pid = page_idx.long()
     tiles = torch.zeros(2, *pid.shape, ps, h, dh, dtype=F32,
                         device=planes["tok_k"].device)
@@ -85,7 +103,13 @@ def _page_tiles(planes: dict, page_idx, table_idx, state, n_steps: int,
                        planes["vm"][rows], planes["ol"][rows],
                        planes["cum"][rows], n_steps, bits)
         sgn = torch.where(u >= 128, u - 256, u).to(F32).reshape(
-            2, -1, ps, h, dh)
+            2, -1, ps, hf, dh)
+        if hf != h:
+            # each page keeps its job's head block
+            heads = (h0[:, None].expand(pid.shape)[packed][:, None]
+                     + torch.arange(h, device=sgn.device))
+            sgn = sgn.gather(3, heads[None, :, None, :, None].expand(
+                2, -1, ps, h, dh))
         for i, kind in enumerate("kv"):
             tiles[i][packed] = (sgn[i] * planes[f"pscale_{kind}"][p]
                                 .to(F32)[:, None, :, None])
@@ -94,9 +118,11 @@ def _page_tiles(planes: dict, page_idx, table_idx, state, n_steps: int,
 
 def fused_page_attention_plain(q, page_idx, table_idx, meta, jobmeta,
                                planes: dict, *, n_steps: int,
-                               softcap: float = 0.0, bits: int = 8):
-    """Plain PyTorch version (``fused_page_attention_ref``): the same
-    page-by-page online-softmax update order, jobs as a batch axis."""
+                               softcap: float = 0.0, bits: int = 8,
+                               h_full: int | None = None):
+    """Plain PyTorch version (``fused_page_attention_ref`` :293): the same
+    page-by-page online-softmax update order, jobs as a batch axis; a
+    ``[J, 3]`` jobmeta's ``h0`` and ``h_full`` as the kernel takes them."""
     jn, hq, dh = q.shape
     n_pages = page_idx.shape[1]
     ps, hkv = planes["tok_k"].shape[1:3]
@@ -109,7 +135,8 @@ def fused_page_attention_plain(q, page_idx, table_idx, meta, jobmeta,
     window = jobmeta[:, 1:2].to(I32)
     offs = torch.arange(ps, dtype=I32, device=q.device)
     kt_all, vt_all = _page_tiles(planes, page_idx, table_idx, meta[..., 0],
-                                 n_steps, bits)
+                                 n_steps, bits, _head_offsets(jobmeta),
+                                 h_full)
     for p in range(n_pages):
         state = meta[:, p, 0]
         kt, vt = kt_all[:, p], vt_all[:, p]
@@ -135,7 +162,8 @@ def fused_page_attention_plain(q, page_idx, table_idx, meta, jobmeta,
 
 def fused_page_attention_f64(q, page_idx, table_idx, meta, jobmeta,
                              planes: dict, *, n_steps: int,
-                             softcap: float = 0.0, bits: int = 8):
+                             softcap: float = 0.0, bits: int = 8,
+                             h_full: int | None = None):
     """The same unnormalized state in f64 over all pages at once, plus the
     magnitude ``sum_k w_k |v_k|`` of each ``acc`` element: the size at
     which the f32 sums of ``acc`` run, against which the kernel's and the
@@ -145,7 +173,7 @@ def fused_page_attention_f64(q, page_idx, table_idx, meta, jobmeta,
     jn, hq, dh = q.shape
     ps, hkv = planes["tok_k"].shape[1:3]
     kt, vt = _page_tiles(planes, page_idx, table_idx, meta[..., 0], n_steps,
-                         bits)
+                         bits, _head_offsets(jobmeta), h_full)
     k = kt.double().reshape(jn, -1, hkv, dh)
     v = vt.double().reshape(jn, -1, hkv, dh)
     q3 = q.double().reshape(jn, hkv, hq // hkv, dh)
@@ -203,7 +231,8 @@ def heads_per_block(hq: int, h: int, dh: int) -> int:
 def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
                          table_idx: torch.Tensor, meta: torch.Tensor,
                          jobmeta: torch.Tensor, planes: dict, *,
-                         n_steps: int, softcap: float = 0.0, bits: int = 8):
+                         n_steps: int, softcap: float = 0.0, bits: int = 8,
+                         h_full: int | None = None):
     """Fused paged attention over a job batch.
 
     Args:
@@ -211,8 +240,15 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
       page_idx:  int32 [J, P] pool page per (job, page slot).
       table_idx: int32 [J, P] K row of the stacked tables (V row = +1).
       meta:      int32 [J, P, 2] (lifecycle state, first token position).
-      jobmeta:   int32 [J, 2] (qpos, window); window 0 means global.
-      planes:    the ``model.DevicePoolPlanes`` dict (``PLANE_KEYS``).
+      jobmeta:   int32 [J, 2] (qpos, window) or [J, 3] (qpos, window, h0);
+                 window 0 means global, h0 the first of a PACKED page's
+                 ``h_full`` KV heads that the dense planes hold (0 for
+                 [J, 2]).
+      planes:    the ``model.DevicePoolPlanes`` dict (``PLANE_KEYS``) or a
+                 model shard's: HOT/COLD planes and page scales of H heads,
+                 PACKED planes of the whole page.
+      h_full:    KV heads of a PACKED page (H, the dense planes' heads,
+                 when None).
 
     Returns ``(acc f32 [J, Hq, dh], m f32 [J, Hq], l f32 [J, Hq])``.  A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -221,7 +257,8 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
     if q.device.type == "cpu":
         return fused_page_attention_plain(q, page_idx, table_idx, meta,
                                           jobmeta, planes, n_steps=n_steps,
-                                          softcap=softcap, bits=bits)
+                                          softcap=softcap, bits=bits,
+                                          h_full=h_full)
     if q.device.type != "cuda":
         raise ValueError(f"fused_page_attention: unsupported device "
                          f"{q.device}")
@@ -231,21 +268,25 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
     jn, hq, dh = q.shape
     n_pages = page_idx.shape[1]
     pp, ps, h, _ = planes["tok_k"].shape
+    hf = h if h_full is None else h_full
     ws, s = planes["sym_k"].shape[1:]
     wo = planes["ofs_k"].shape[1]
     t_rows = planes["vm"].shape[0]
-    if hq % h or s * n_steps != ps * h * dh or (ps * h * dh) % 16:
+    jw = jobmeta.shape[1] if jobmeta.dim() == 2 else 0
+    if hq % h or hf % h or s * n_steps != ps * hf * dh or (ps * h * dh) % 16 \
+            or jw not in (2, 3):
         raise ValueError(
-            f"fused_page_attention: Hq={hq}, H={h}, S={s}, n_steps={n_steps}"
-            f", page [{ps}, {h}, {dh}] do not fit together")
+            f"fused_page_attention: Hq={hq}, H={h}, h_full={hf}, S={s}, "
+            f"n_steps={n_steps}, page [{ps}, {h}, {dh}], jobmeta "
+            f"{tuple(jobmeta.shape)} do not fit together")
     if t_rows < 2:
         raise ValueError("fused_page_attention: fewer than two table rows")
     hpb = heads_per_block(hq, h, dh)
     rs, ro = apack_decode.staged_rows(n_steps, bits, ws, wo)
     lib = _build.load("fused_page_attention")
     fn = lib.fused_page_attention_smem_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int] * 7, ctypes.c_int
-    smem = fn(hpb * (hq // h), h, dh, ps, s, rs, ro)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 8, ctypes.c_int
+    smem = fn(hpb * (hq // h), h, hf, dh, ps, s, rs, ro)
     if smem > _MAX_SMEM:
         raise ValueError(f"fused_page_attention: {smem} bytes of shared "
                          f"memory a block, above the {_MAX_SMEM} it has")
@@ -273,14 +314,14 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
             _build.require(page_idx, I32, (jn, n_pages), "page_idx", dev),
             _build.require(table_idx, I32, (jn, n_pages), "table_idx", dev),
             _build.require(meta, I32, (jn, n_pages, 2), "meta", dev),
-            _build.require(jobmeta, I32, (jn, 2), "jobmeta", dev),
+            _build.require(jobmeta, I32, (jn, jw), "jobmeta", dev),
             *plane_ptrs, acc_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
             acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr()]
     fn = lib.fused_page_attention_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(*ptrs, jn, n_pages, pp, t_rows, hq, h, dh, ps, s, ws, wo,
-            n_steps, bits, PAGES_PER_BLOCK, rs, ro, hpb, dh ** -0.5,
-            float(softcap), _build.stream_of(q))
+    rc = _build.launch(fn, *ptrs, jn, n_pages, pp, t_rows, hq, h, hf, dh, ps,
+                       s, ws, wo, n_steps, bits, PAGES_PER_BLOCK, rs, ro, hpb,
+                       jw, dh ** -0.5, float(softcap), on=q)
     _build.check(rc, "fused_page_attention")
     _build.LAUNCHES["fused_page_attention"] += 1
     return acc, m_out, l_out

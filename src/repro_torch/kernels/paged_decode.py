@@ -208,8 +208,8 @@ def launch_gather_decode(sym: torch.Tensor, ofs: torch.Tensor,
     rs, ro = apack_decode.staged_rows(n_steps, bits, ws, wo)
     fn = _build.load("gather_decode").gather_decode_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(*ptrs, g, ws, wo, s, n_steps, bits, rs, ro,
-            _build.stream_of(sym))
+    rc = _build.launch(fn, *ptrs, g, ws, wo, s, n_steps, bits, rs, ro,
+                       on=sym)
     _build.check(rc, "gather_decode")
     _build.LAUNCHES["gather_decode"] += 1
     return out

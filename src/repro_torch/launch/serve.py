@@ -36,9 +36,16 @@ re-packs pages under them; ``--kv-pages`` below the worst case with
 through the host spill tier.  ``--scheduler async`` serves through the
 event loop (host work overlapped with the step in flight, prefills
 ingested ``--prefill-chunk`` tokens a step), and ``--slo-ms`` gives every
-request a latency SLO, which orders admission by earliest deadline.  The
-JAX CLI's ``--mesh`` is accepted and refused with ``NotImplementedError``
-naming its ROADMAP item.
+request a latency SLO, which orders admission by earliest deadline.
+``--mesh DATAxMODEL`` serves on a mesh of that shape with every shard on
+``--device`` (``launch.mesh.make_debug_mesh``; the fused paged apack-int8
+KV on the sync scheduler): the page pool and the slots split over the
+data shards, KV heads and packed weights' K ranges over the model shards;
+it prints the mesh and its devices, as the JAX CLI does (``serve.py``
+:94-131).  On the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --smoke --kv apack-int8 --no-compress --mesh 2x2 --device cpu
 """
 from __future__ import annotations
 
@@ -52,15 +59,10 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve
 from repro_torch.kernels.decompress_matmul import DEFAULT_WEIGHT_MIN_SIZE
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import model as M
 from repro_torch.serve import (Request, ServeEngine, compress_params,
                                decompress_params)
-
-# flags of the JAX CLI that the port does not serve yet: (flag, value
-# that means "not asked for", ROADMAP item)
-UNPORTED = (
-    ("--mesh", None, "open item 1.10, multi-device serving"),
-)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -137,21 +139,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions (without a card, cuda raises)")
-    for flag, _, item in UNPORTED:
-        ap.add_argument(flag, help=f"not ported yet (ROADMAP {item})")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="mesh-sharded serving, e.g. '2x2' (decode jobs "
+                         "data-parallel, KV heads and packed weights' K "
+                         "ranges tensor-parallel), every shard on --device; "
+                         "requires the fused apack-int8 KV and the sync "
+                         "scheduler")
     return ap.parse_args(argv)
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    for flag, unset, item in UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")) != unset:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    refuse_unported(args)
     device = resolve(args.device)
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
@@ -172,8 +170,15 @@ def main(argv=None) -> None:
               f"{cp.compressed_bytes/1e6:.1f} MB "
               f"({cp.ratio:.2f}x, {time.time()-t0:.1f}s)")
         params = decompress_params(cp, device)
+    mesh = None
+    if args.mesh:
+        n_data, _, n_model = args.mesh.partition("x")
+        mesh = make_debug_mesh(int(n_data), int(n_model or 1), device=device)
+        print(f"serving mesh: {mesh.shape} over {mesh.size} devices "
+              f"({mesh.describe()})")
     engine = ServeEngine(cfg, params, max_batch=args.max_batch,
                          max_len=args.prompt_len + args.max_new + 8,
+                         mesh=mesh,
                          weights=args.weights,
                          weight_min_size=args.weight_min_size,
                          kv_page_size=args.kv_page_size,

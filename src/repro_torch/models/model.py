@@ -36,7 +36,13 @@ request's pages.  An encoder (hubert-xlarge) forwards only; its decode
 entry points refuse it (``check_decoder``).  The training forward
 (``forward_train``, ``forward`` :273 without caches, with the MoE aux
 losses and ``remat`` per cycle) runs the same layers (``_layers``), and
-``loss_fn`` :322 scores it.  Not ported here: meshes.
+``loss_fn`` :322 scores it.  Serving on a mesh: ``mesh_axis_sizes``
+:682, ``packed_param_specs`` :656, ``_localize_meta``/
+``_localize_targets`` :688/:708 (``PagedKVCache.step_meta_sharded``/
+``claim_append_targets_sharded``), ``_state_specs`` :739 (the state
+store split by batch, ``enable_device_pool``), ``build_sharded_step`` :750, ``device_append``'s head blocks :527-532 and
+``PagedKVCache(mesh=)``'s per-shard pool and requests (``request_shard``
+:1030); one controller drives every shard's tensors.
 """
 from __future__ import annotations
 
@@ -653,21 +659,173 @@ def init_state_store(cfg: ModelConfig, batch: int, device=None) -> list:
             for kind in layer_kinds(cfg)]
 
 
-def device_append(planes: dict, new_kv: dict, targets: dict) -> None:
+def device_append(planes, new_kv: dict, targets: dict) -> None:
     """On-device page append (``device_append`` :488), in place: scatter
     each active (attention layer, slot) new-token K/V into the HOT token
     planes at the (page, offset) slots claimed by
     ``PagedKVCache.claim_append_targets``.  Idle slots are not in
     ``targets`` (the host builds the index lists), so nothing is dropped
-    on the device and no mask needs a host round trip."""
+    on the device and no mask needs a host round trip.  ``planes`` may be
+    a data shard's list of model shards' planes (``DevicePoolPlanes.
+    shards[d]``), whose token planes hold a KV-head block each: each takes
+    its block of the new K/V (:527-532), on its device."""
     if not new_kv:
         return
+    shards = planes if isinstance(planes, list) else [planes]
+    hl = shards[0]["tok_k"].shape[2]
     rows, pid, off = targets["row"], targets["pid"], targets["off"]
     for f, name in (("k", "tok_k"), ("v", "tok_v"), ("k_scale", "tok_sk"),
                     ("v_scale", "tok_sv")):
         x = new_kv[f]
         src = x.reshape(-1, *x.shape[2:])[rows]
-        planes[name].index_put_((pid, off), src)
+        for j, pl in enumerate(shards):
+            dev = pl[name].device
+            part = src if len(shards) == 1 \
+                else src[:, j * hl:(j + 1) * hl].to(dev)
+            pl[name].index_put_((pid.to(dev), off.to(dev)), part)
+
+
+# ------------------------------------------------ mesh-sharded decode step
+def mesh_axis_sizes(mesh) -> tuple[int, int]:
+    """(n_data, n_model) of a serving mesh (``mesh_axis_sizes`` :682);
+    absent axes count as 1."""
+    shape = dict(mesh.shape)
+    return int(shape.get("data", 1)), int(shape.get("model", 1))
+
+
+def packed_param_specs(params: dict, n_model: int) -> dict:
+    """The param tree's specs for the mesh step (``packed_param_specs``
+    :656): a dense leaf replicates (``()``); a ``PackedWeight`` gets the
+    specs of its leaves in ``sharding.PACKED_LEAF_KINDS`` order, its
+    stream planes K-split over "model" where the layout divides
+    (``dm.k_splittable``: K unpadded, the K tiles dividing evenly), else
+    replicated."""
+    from . import sharding as shd
+
+    def one(x):
+        if isinstance(x, dict):
+            return {k: one(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [one(v) for v in x]
+        if isinstance(x, m.PackedWeight):
+            cw = x.cw
+            return shd.packed_leaf_pspecs(
+                [cw.sym_plane, cw.ofs_plane, cw.stored, cw.v_min, cw.ol,
+                 cw.cum, cw.scale], splittable=dm.k_splittable(cw, n_model))
+        return ()
+    return one(params)
+
+
+def _spread(t: torch.Tensor, devices: list) -> list:
+    """``t`` on each of ``devices``, one copy a device (``t`` itself where
+    it lies there already)."""
+    on: dict = {}
+    for dev in devices:
+        if dev not in on:
+            on[dev] = t.to(dev)
+    return [on[dev] for dev in devices]
+
+
+def _spread_cw(cw: dm.CompressedLinear, devices: list) -> list:
+    """``cw`` on each of ``devices``, its tensors spread as ``_spread``
+    does."""
+    import dataclasses
+    fields = {f.name: _spread(getattr(cw, f.name), devices)
+              for f in dataclasses.fields(cw)
+              if torch.is_tensor(getattr(cw, f.name))}
+    return [dataclasses.replace(cw, **{k: v[i] for k, v in fields.items()})
+            for i in range(len(devices))]
+
+
+def shard_params(params: dict, grid: list) -> list[dict]:
+    """Every data shard's params for the mesh step, ``grid`` the mesh's
+    devices by [data shard][model shard]: dense leaves on each data
+    shard's lead device (every model shard's replicated work runs once
+    there); each ``PackedWeight`` K-split over the model shards where
+    ``packed_param_specs`` splits it (``modules.ShardedPackedWeight``:
+    ``dm.split_k`` once a weight, part ``j`` on model shard ``j``'s
+    device, the whole weight kept only as its ``dm.Layout``), else whole
+    on the lead devices.  A tensor goes to a device once and is shared by
+    the data shards there, and left where it lies already, so a mesh on
+    one card holds each weight once."""
+    n_data, n_model = len(grid), len(grid[0])
+    leads = [row[0] for row in grid]
+
+    def one(x) -> list:             # the leaf of each data shard
+        if isinstance(x, dict):
+            kids = {k: one(v) for k, v in x.items()}
+            return [{k: v[d] for k, v in kids.items()} for d in range(n_data)]
+        if isinstance(x, list):
+            kids = [one(v) for v in x]
+            return [[v[d] for v in kids] for d in range(n_data)]
+        if isinstance(x, m.PackedWeight):
+            meta = (x.shape, x.n_contract, x.dtype)
+            if not any("model" in spec
+                       for spec in packed_param_specs(x, n_model)):
+                return [m.PackedWeight(cw, *meta)
+                        for cw in _spread_cw(x.cw, leads)]
+            parts = [_spread_cw(p, [row[j] for row in grid])
+                     for j, p in enumerate(dm.split_k(x.cw, n_model))]
+            layout = dm.Layout.of(x.cw)
+            return [m.ShardedPackedWeight(layout, *meta,
+                                          [parts[j][d]
+                                           for j in range(n_model)])
+                    for d in range(n_data)]
+        if torch.is_tensor(x):
+            return _spread(x, leads)
+        return [x] * n_data
+    return one(params)
+
+
+def build_sharded_step(cfg: ModelConfig, mesh, *, params: dict):
+    """The mesh-sharded fused decode step (``build_sharded_step`` :750):
+    decode, on-device append and argmax over every data shard.
+
+    Jobs are data-parallel over "data": each data shard decodes its slots'
+    rows against its own page range and state store, on its lead device
+    (``shard_params``: the projections, norms, FFN and head, which the
+    reference computes alike on every model shard, run once a data
+    shard).  The model axis fans out at the two sharded sites only, each
+    followed at once by its collective: kernel 3 once a model shard on its
+    KV-head block, then ``all_gather`` of ``(acc, m, l)`` in head order
+    (``modules.paged_attention_step``); and kernel 5 once a model shard on
+    its K-tile range, then ``psum`` of the partials in shard order
+    (``modules.ShardedPackedWeight``).
+
+    Returns ``step(planes, states, metas, tokens, pos, targets) -> (toks,
+    logits, planes', states')``, every argument a list by data shard:
+    ``planes`` ``DevicePoolPlanes.shards``, ``states`` the shards' state
+    stores, ``metas``/``targets`` from ``PagedKVCache.step_meta_sharded``/
+    ``claim_append_targets_sharded`` (claimed before the step, as the
+    reference claims them: a freshly claimed page is HOT with no token, so
+    every key slot it covers is masked), tokens [B/n, 1] and positions
+    [B/n] on each lead device.  ``toks`` is every slot's greedy token,
+    gathered onto data shard 0's lead device for the step's one pull;
+    ``logits`` the shards' [B/n, 1, V].  ``step.params`` holds the shards'
+    params."""
+    from repro_torch.launch.mesh import device_grid
+    from .sharding import all_gather
+    n_data, n_model = mesh_axis_sizes(mesh)
+    if n_model > 1 and cfg.num_kv_heads % n_model:
+        raise ValueError(
+            f"num_kv_heads={cfg.num_kv_heads} must divide over the "
+            f"{n_model}-way model axis for tensor-parallel paged decode")
+    grid = device_grid(mesh)
+    sharded = shard_params(params, grid)
+
+    def step(planes, states, metas, tokens, pos, targets):
+        toks, logits = [], []
+        for d in range(n_data):
+            lg, new_kv, states[d] = decode_step_paged(
+                cfg, sharded[d], planes[d], metas[d], states[d], tokens[d],
+                pos[d])
+            device_append(planes[d], new_kv, targets[d])
+            toks.append(lg[:, 0].argmax(dim=-1))
+            logits.append(lg)
+        return all_gather(toks, 0, grid[0][0]), logits, planes, states
+
+    step.params = sharded
+    return step
 
 
 # ------------------------------------------------------- paged APack KV
@@ -728,23 +886,44 @@ class DevicePoolPlanes:
     """The fused kernel's view of the pool: kind-split views of the pool's
     device payload tensors plus the stacked activation tables
     (``DevicePoolPlanes`` :867).  The views share storage with the pool, so
-    an append or a pack is visible without a sync step."""
+    an append or a pack is visible without a sync step.
+
+    Under a mesh, ``shards[d][j]`` is that view of data shard ``d``'s page
+    range on model shard ``j`` (``sharding.plane_pspecs``: its KV-head
+    block of the dense planes, whole PACKED planes, replicated tables, one
+    table copy a device); ``planes`` is ``shards[0][0]``, the whole pool
+    without one."""
 
     def __init__(self, pool: m.KVPagePool, n_tables: int):
-        dev = pool.device
         self.n_tables = n_tables
-        self.planes: dict[str, torch.Tensor] = {
-            "tok_k": pool.tok_q[0], "tok_v": pool.tok_q[1],
-            "tok_sk": pool.tok_scale[0], "tok_sv": pool.tok_scale[1],
-            "cold_k": pool.cold_q[0], "cold_v": pool.cold_q[1],
-            "pscale_k": pool.page_scale[0], "pscale_v": pool.page_scale[1],
-            "sym_k": pool.sym[0], "sym_v": pool.sym[1],
-            "ofs_k": pool.ofs[0], "ofs_v": pool.ofs[1],
-            "stored_k": pool.stored[0], "stored_v": pool.stored[1],
-            "vm": torch.zeros(n_tables, 17, dtype=torch.int32, device=dev),
-            "ol": torch.zeros(n_tables, 16, dtype=torch.int32, device=dev),
-            "cum": torch.zeros(n_tables, 17, dtype=torch.int32, device=dev),
-        }
+        self.tables: dict = {}          # device -> {vm, ol, cum}
+        # the views' keys into ``tables``: the pool's devices, not their
+        # tensors' (a device may be named in more than one way)
+        self.devices = pool.devices
+        self.shards = [[self._views(part, dev)
+                        for part, dev in zip(pool.parts[s], pool.devices[s])]
+                       for s in range(pool.n_shards)]
+        self.planes: dict[str, torch.Tensor] = self.shards[0][0]
+
+    def _table_planes(self, dev) -> dict:
+        if dev not in self.tables:
+            n = self.n_tables
+            self.tables[dev] = {
+                "vm": torch.zeros(n, 17, dtype=torch.int32, device=dev),
+                "ol": torch.zeros(n, 16, dtype=torch.int32, device=dev),
+                "cum": torch.zeros(n, 17, dtype=torch.int32, device=dev)}
+        return self.tables[dev]
+
+    def _views(self, part: dict, dev) -> dict:
+        return {"tok_k": part["tok_q"][0], "tok_v": part["tok_q"][1],
+                "tok_sk": part["tok_scale"][0], "tok_sv": part["tok_scale"][1],
+                "cold_k": part["cold_q"][0], "cold_v": part["cold_q"][1],
+                "pscale_k": part["page_scale"][0],
+                "pscale_v": part["page_scale"][1],
+                "sym_k": part["sym"][0], "sym_v": part["sym"][1],
+                "ofs_k": part["ofs"][0], "ofs_v": part["ofs"][1],
+                "stored_k": part["stored"][0], "stored_v": part["stored"][1],
+                **self._table_planes(dev)}
 
     def ensure_table_capacity(self, n_rows: int) -> bool:
         """Grow the table planes to hold ``n_rows`` rows, doubling
@@ -758,10 +937,13 @@ class DevicePoolPlanes:
         while cap < n_rows:
             cap *= 2
         self.n_tables = cap
-        dev = self.planes["vm"].device
-        for name, width in (("vm", 17), ("ol", 16), ("cum", 17)):
-            self.planes[name] = torch.zeros(cap, width, dtype=torch.int32,
-                                            device=dev)
+        for dev, tabs in self.tables.items():
+            for name, width in (("vm", 17), ("ol", 16), ("cum", 17)):
+                tabs[name] = torch.zeros(cap, width, dtype=torch.int32,
+                                         device=dev)
+        for row, devs in zip(self.shards, self.devices):
+            for pl, dev in zip(row, devs):
+                pl.update(self.tables[dev])
         return True
 
 
@@ -798,10 +980,10 @@ class PagedKVCache:
                  refresh_min_pages: int = 4,
                  verify_on_repack: bool = False,
                  transfer_retries: int = 2,
-                 drift_sketch: bool = True, device=None):
+                 drift_sketch: bool = True, device=None, mesh=None):
         check_decoder(cfg)
         self.cfg = cfg
-        self.device = resolve(device)
+        self.mesh = mesh
         self.page_size = page_size
         self.calib_pages = calib_pages
         # table refresh (``__init__`` :998-1008): a layer's tables refresh
@@ -826,9 +1008,19 @@ class PagedKVCache:
         self.state_layers = [i for i, k in enumerate(self.layer_kinds)
                              if k in STATE_KINDS]
         self.window = cfg.window_size
+        # under a mesh each data shard owns a contiguous page range
+        self.n_shards = 1 if mesh is None else mesh_axis_sizes(mesh)[0]
         self.pool = m.KVPagePool(num_pages, page_size, cfg.num_kv_heads,
                                  cfg.head_dim, elems_per_stream,
-                                 device=self.device)
+                                 device=device, n_shards=self.n_shards,
+                                 mesh=mesh)
+        # the controller's device: the whole pool's, or data shard 0's lead
+        # device under a mesh
+        self.device = self.pool.device
+        # mesh-sharded serving (``__init__`` :1024-1030): every request is
+        # bound to one data shard's page range at admission, and its pages
+        # come from that shard's free list only
+        self.request_shard: dict[int, int] = {}
         self.tables: list[list] = [[None, None] for _ in range(self.n_layers)]
         self.hists = np.zeros((self.n_layers, 2, 256), np.int64)
         self.hist_pages = np.zeros((self.n_layers, 2), np.int32)
@@ -1020,6 +1212,13 @@ class PagedKVCache:
         out, _ = _unpack_bytes(arr, host.to(self.device, non_blocking=True))
         return out
 
+    def _put_to(self, arr: np.ndarray, device) -> torch.Tensor:
+        """``_put`` of one array to ``device`` (a data shard's lead
+        device)."""
+        self._transfer_guard("h2d")
+        self._count_put(arr)
+        return m.to_device(arr, device)
+
     def _count_put(self, arr) -> None:
         """Account an upload that a kernel wrapper makes itself."""
         self.transfers["h2d_calls"] += 1
@@ -1028,9 +1227,15 @@ class PagedKVCache:
             else sum(a.nbytes for a in arr.values()))
 
     # ----------------------------------------------------------- requests
-    def add_request(self, rid: int) -> None:
+    def add_request(self, rid: int, shard: int = 0) -> None:
+        """Start a request, bound to data shard ``shard``'s page range
+        (``add_request`` :1212)."""
         if rid in self.page_tables:
             raise ValueError(f"duplicate request id {rid}")
+        if not 0 <= shard < self.n_shards:
+            raise ValueError(f"shard {shard} out of range "
+                             f"(pool has {self.n_shards})")
+        self.request_shard[rid] = shard
         self.page_tables[rid] = [[] for _ in range(self.n_layers)]
         self.page_base[rid] = [0] * self.n_layers
         self.states[rid] = {}
@@ -1055,6 +1260,7 @@ class PagedKVCache:
         del self.page_base[rid]
         del self.states[rid]
         del self.seq_len[rid]
+        self.request_shard.pop(rid, None)
 
     # ------------------------------------------------------------ appends
     def _claim_page(self, rid: int, layer: int, t: int) -> int:
@@ -1067,10 +1273,14 @@ class PagedKVCache:
                 raise RuntimeError(
                     f"page-table desync for rid={rid} layer={layer}: token "
                     f"{t} vs base={base} live={len(pids)}")
-            pid = self.pool.alloc()
+            shard = self.request_shard.get(rid, 0)
+            pid = self.pool.alloc(shard)
             if pid is None:
-                raise RuntimeError("page pool exhausted mid-flight "
-                                   "(admission must reserve)")
+                raise RuntimeError(
+                    "page pool exhausted mid-flight (admission must reserve)"
+                    if self.n_shards == 1 else
+                    f"page shard {shard} exhausted mid-flight (admission "
+                    "must reserve per shard)")
             pids.append(pid)
         if pids[-1] < 0:
             raise m.PageIntegrityError(
@@ -1210,22 +1420,12 @@ class PagedKVCache:
                         events.append((layer, pid))
             n_src += rows
         if live_dst or dead_dst:
-            ld = np.concatenate(live_dst or [np.zeros(0, np.int64)])
-            ls = np.concatenate(live_src or [np.zeros(0, np.int64)])
-            dd = np.concatenate(dead_dst or [np.zeros(0, np.int64)])
-            idx = pool._idx(np.concatenate([ld, ls, dd]))
-            ld_t, ls_t = idx[:len(ld)], idx[len(ld):len(ld) + len(ls)]
-            dd_t = idx[len(ld) + len(ls):]
-            h, dh = pool.kv_heads, pool.head_dim
-            for kind in (0, 1):
-                q, sc = view["stacked"][kind], view["stacked"][2 + kind]
-                qf = pool.tok_q[kind].view(-1, h, dh)
-                sf = pool.tok_scale[kind].view(-1, h)
-                qf.index_copy_(0, ld_t, q.index_select(0, ls_t))
-                sf.index_copy_(0, ld_t, sc.index_select(0, ls_t))
-                if len(dd):
-                    qf.index_fill_(0, dd_t, 0)
-                    sf.index_fill_(0, dd_t, 0)
+            pool.write_tokens(
+                self.request_shard.get(rid, 0),
+                np.concatenate(live_dst or [np.zeros(0, np.int64)]),
+                np.concatenate(live_src or [np.zeros(0, np.int64)]),
+                np.concatenate(dead_dst or [np.zeros(0, np.int64)]),
+                view["stacked"])
         if seal:
             self._seal(events)
         return events
@@ -1252,16 +1452,8 @@ class PagedKVCache:
         calibration pull when the layer calibrated earlier in the batch."""
         if not events:
             return
-        pool = self.pool
-        pids = [pid for _, pid in events]
-        idx = self.pool._idx(pids)
-        f = pool.tok_q[:, idx].to(F32) * pool.tok_scale[:, idx][..., None]
-        # the reference divides on the host (numpy): a true division
-        sc = quant.true_divide(torch.clamp_min(f.abs().amax(dim=(2, 4)),
-                                               1e-8), 127.0)
-        q2 = torch.clamp(torch.round(f / sc[:, :, None, :, None]),
-                         -127, 127).to(torch.int8)
-        pool.seal(pids, q2, sc)
+        # HOT -> COLD where the pages lie (each model shard its heads)
+        q2 = self.pool.seal([pid for _, pid in events])
         cal = [self.tables[layer][0] is not None for layer, _ in events]
         uncal = [i for i, c in enumerate(cal) if not c]
         sketch = ([i for i, c in enumerate(cal) if c]
@@ -1329,32 +1521,49 @@ class PagedKVCache:
         scrubbed.  One pull brings back each page's coded bit count and
         that check, ``extra`` (an int64 device tensor, returned as a host
         array) and, with ``verify_on_repack``, the new planes, whose
-        checksum becomes the page's ``page_crc``."""
+        checksum becomes the page's ``page_crc``.
+
+        Under a mesh each data shard packs its own pages on its lead
+        device (``_pack`` :1323): their COLD head blocks gathered there,
+        encoded and decode-checked once, the planes then written to every
+        model shard of that data shard; the counts of all shards come back
+        in the one pull."""
         if not items:
             return None
         pool = self.pool
         pids = [pid for _, pid in items]
-        idx = self.pool._idx(pids)
         n, s, e = len(pids), pool.n_streams, pool.elems_per_stream
-        vals = quant.to_unsigned(pool.cold_q[:, idx]).reshape(2, n, s, e)
         rows = np.array([[self._row(int(self.table_gen[layer]), layer, kind)
                           for layer, _ in items] for kind in (0, 1)])
         vm_r, ol_r, cm_r = self._table_rows(rows)
-        planes = apack_encode.encode(vals.contiguous(), vm_r, ol_r, cm_r,
-                                     n_steps=e, bits=8)
-        # lossless check before the COLD payload is scrubbed: decode the new
-        # planes and count values that do not come back; the count rides
-        # the same pull as the bit counts
-        back = apack_decode.decode(planes[0], planes[1], planes[4],
-                                   vm_r, ol_r, cm_r, n_steps=e, bits=8)
-        bad = (back != vals).sum(dim=(0, 2, 3))
-        counts = [planes[2].sum(dim=(0, 2), dtype=torch.int64)
-                  + planes[3].sum(dim=(0, 2), dtype=torch.int64), bad]
+        packs, bits_at, bad_at = [], [], []
+        for group in pool.index(pids):
+            shard, at, _ = group
+            g_pids = pids if at is None else [pids[i] for i in at]
+            dev = pool.lead(shard)
+            ix = [group]
+            vals = quant.to_unsigned(pool.read("cold_q", ix, dev)).reshape(
+                2, len(g_pids), s, e)
+            tabs = [(t if at is None else t[:, self.pool._idx(at)]).to(dev)
+                    for t in (vm_r, ol_r, cm_r)]
+            planes = apack_encode.encode(vals.contiguous(), *tabs,
+                                         n_steps=e, bits=8)
+            # lossless check before the COLD payload is scrubbed: decode
+            # the new planes and count values that do not come back; the
+            # count rides the same pull as the bit counts
+            back = apack_decode.decode(planes[0], planes[1], planes[4],
+                                       *tabs, n_steps=e, bits=8)
+            bad_at.append((at, (back != vals).sum(dim=(0, 2, 3))))
+            bits_at.append((at, planes[2].sum(dim=(0, 2), dtype=torch.int64)
+                            + planes[3].sum(dim=(0, 2), dtype=torch.int64)))
+            packs.append((at, g_pids, ix, planes))
+        counts = [self._in_order(bits_at, n), self._in_order(bad_at, n)]
         if extra is not None:
             counts.append(extra.reshape(-1))
         tree = {"counts": torch.cat(counts)}
         if self.verify_on_repack:
-            tree.update(_plane_tree(planes, pool.page_scale[:, idx]))
+            tree.update(_plane_tree(packs[0][3],
+                                    pool.read("page_scale", packs[0][2])))
         pulled = self._fetch(tree)
         c = pulled["counts"]
         bits, bad = c[:n], c[n:2 * n]
@@ -1362,7 +1571,8 @@ class PagedKVCache:
             raise RuntimeError(
                 f"APack pack of pages {[p for p, b in zip(pids, bad) if b]}"
                 " does not decode to its COLD payload")
-        pool.pack(pids, planes, bits)
+        for at, g_pids, _, planes in packs:
+            pool.pack(g_pids, planes, bits if at is None else bits[at])
         for i, (layer, pid) in enumerate(items):
             self._cold[layer].discard(pid)
             self._packed[layer].add(pid)
@@ -1374,14 +1584,26 @@ class PagedKVCache:
             return None
         return c[2 * n:].reshape(extra.shape)
 
+    def _in_order(self, parts: list, n: int) -> torch.Tensor:
+        """Per-shard results ``(places, tensor [m])`` (``KVPagePool.index``'s
+        groups) as one tensor [n] in the pages' order, on the controller's
+        device."""
+        if len(parts) == 1 and parts[0][0] is None:
+            return parts[0][1].to(self.device)
+        out = torch.empty(n, dtype=parts[0][1].dtype, device=self.device)
+        for at, t in parts:
+            out.index_copy_(0, self.pool._idx(at), t.to(self.device))
+        return out
+
     def _plane_crc(self, pids: list) -> list[int]:
         """Checksums of PACKED pages' planes and page scales as they lie in
         the pool (``_plane_crc`` :1559), one pull for all of them."""
-        idx = self.pool._idx(pids)
         p = self.pool
+        ix = p.index(pids)
         pulled = self._fetch(_plane_tree(
-            (p.sym[:, idx], p.ofs[:, idx], p.sym_bits[:, idx],
-             p.ofs_bits[:, idx], p.stored[:, idx]), p.page_scale[:, idx]))
+            tuple(p.read(f, ix) for f in ("sym", "ofs", "sym_bits",
+                                          "ofs_bits", "stored")),
+            p.read("page_scale", ix)))
         return [_page_crc(pulled, i) for i in range(len(pids))]
 
     # ------------------------------------------------ generation-versioned
@@ -1635,7 +1857,7 @@ class PagedKVCache:
     def _launch_repack(self, items: list, force: bool) -> dict:
         pool = self.pool
         pids = [pid for _, pid in items]
-        idx = self.pool._idx(pids)
+        ix = pool.index(pids)
         e = pool.elems_per_stream
         old = [int(self.page_gen[pid]) for pid in pids]
         new = [int(self.table_gen[layer]) for layer, _ in items]
@@ -1643,15 +1865,15 @@ class PagedKVCache:
                            for g, (layer, _) in zip(gens, items)]
                           for kind in (0, 1)] for gens in (old, new)])
         vm, ol, cm = self._table_rows(rows)            # [2 old|new, 2, n]
-        sym, ofs, st = (pool.sym[:, idx], pool.ofs[:, idx],
-                        pool.stored[:, idx])
+        sym, ofs, st = (pool.read(f, ix) for f in ("sym", "ofs", "stored"))
         vals = apack_decode.decode(sym, ofs, st, vm[0], ol[0], cm[0],
                                    n_steps=e, bits=8)
         planes = apack_encode.encode(vals, vm[1], ol[1], cm[1], n_steps=e,
                                      bits=8)
-        old_bits = (pool.sym_bits[:, idx].sum(dim=(0, 2), dtype=torch.int64)
-                    + pool.ofs_bits[:, idx].sum(dim=(0, 2),
-                                                dtype=torch.int64))
+        old_bits = (pool.read("sym_bits", ix).sum(dim=(0, 2),
+                                                  dtype=torch.int64)
+                    + pool.read("ofs_bits", ix).sum(dim=(0, 2),
+                                                    dtype=torch.int64))
         new_bits = (planes[2].sum(dim=(0, 2), dtype=torch.int64)
                     + planes[3].sum(dim=(0, 2), dtype=torch.int64))
         swap = (torch.ones_like(new_bits, dtype=torch.bool) if force
@@ -1659,7 +1881,7 @@ class PagedKVCache:
         pool.repack(pids, planes, swap)
         pull = {"repack": torch.stack([new_bits, swap.long()])}
         if self.verify_on_repack:
-            pull.update(_plane_tree(planes, pool.page_scale[:, idx]))
+            pull.update(_plane_tree(planes, pool.read("page_scale", ix)))
         return {"items": items, "gens": new, "pull": pull,
                 "old_bytes": pool.page_bytes(np.asarray(pids, np.int64))}
 
@@ -1720,11 +1942,21 @@ class PagedKVCache:
         """Expose the pool to the fused kernel (``enable_device_pool``
         :2079): kind-split plane views and the device table stack; with
         ``max_batch``, also the device state store of the recurrent layers
-        (``init_state_store``), which the fused step carries."""
+        (``init_state_store``), which the fused step carries.  Under a mesh
+        the state store is split by batch over the data shards
+        (``_state_specs`` :739), one store of ``max_batch / n_data`` slots
+        on each data shard's lead device."""
         self.dev = DevicePoolPlanes(self.pool, max(2, self.n_table_rows))
         if max_batch is not None:
-            self.dev_states = init_state_store(self.cfg, max_batch,
-                                               self.device)
+            if self.mesh is None:
+                self.dev_states = init_state_store(self.cfg, max_batch,
+                                                   self.device)
+            else:
+                self.slots_per_shard = max_batch // self.n_shards
+                self.dev_states = [
+                    init_state_store(self.cfg, self.slots_per_shard,
+                                     self.pool.lead(sh))
+                    for sh in range(self.n_shards)]
         self._tables_dirty = True
         self._flush_tables()
 
@@ -1737,10 +1969,10 @@ class PagedKVCache:
         vm, ol, cm = self._tables_stacked()
         n = vm.shape[0]
         self.dev.ensure_table_capacity(n)
-        d = self.dev.planes
-        d["vm"][:n] = self._put(vm)
-        d["ol"][:n] = self._put(ol)
-        d["cum"][:n] = self._put(cm)
+        up = [self._put(vm), self._put(ol), self._put(cm)]
+        for tabs in self.dev.tables.values():    # one copy a device
+            for name, t in zip(("vm", "ol", "cum"), up):
+                tabs[name][:n] = t
         self._tables_dirty = False
 
     def claim_append_targets(self, slot_rids: list) -> dict:
@@ -1761,6 +1993,35 @@ class PagedKVCache:
                 offs.append(t % self.page_size)
         buf = self._put(np.asarray([rows, pids, offs], np.int64))
         return {"row": buf[0], "pid": buf[1], "off": buf[2]}
+
+    def claim_append_targets_sharded(self, slot_rids: list) -> list[dict]:
+        """``claim_append_targets`` under a mesh, one target dict a data
+        shard on its lead device, in its own terms (``_localize_targets``
+        :708): rows of its slots' new K/V, page ids within its range.  A
+        shard appends only into its own pages; its idle slots claim
+        nothing."""
+        b = len(slot_rids)
+        spb = b // self.n_shards
+        pps = self.pool.pages_per_shard
+        out = []
+        for sh in range(self.n_shards):
+            rows, pids, offs = [], [], []
+            for ls in range(spb):
+                rid = slot_rids[sh * spb + ls]
+                if rid is None:
+                    continue
+                t = self.seq_len[rid]
+                for i, layer in enumerate(self.attn_layers):
+                    rows.append(i * spb + ls)
+                    pids.append(self._claim_page(rid, layer, t) - sh * pps)
+                    offs.append(t % self.page_size)
+            arr = np.asarray([rows, pids, offs], np.int64).reshape(3, -1)
+            if ((arr[1] < 0) | (arr[1] >= pps)).any():
+                raise RuntimeError(f"data shard {sh} claimed a page outside "
+                                   "its range")
+            buf = self._put_to(arr, self.pool.lead(sh))
+            out.append({"row": buf[0], "pid": buf[1], "off": buf[2]})
+        return out
 
     def note_appended(self, slot_rids: list) -> None:
         """Metadata half of the on-device append (``note_appended``
@@ -1810,8 +2071,9 @@ class PagedKVCache:
                                       in zip(self.attn_layers, slots)])
                       for f in ("k", "v", "k_scale", "v_scale")}
         pool = self.pool
-        planes = {"tok_k": pool.tok_q[0], "tok_v": pool.tok_q[1],
-                  "tok_sk": pool.tok_scale[0], "tok_sv": pool.tok_scale[1]}
+        tok_q, tok_s = pool.plane("tok_q"), pool.plane("tok_scale")
+        planes = {"tok_k": tok_q[0], "tok_v": tok_q[1],
+                  "tok_sk": tok_s[0], "tok_sv": tok_s[1]}
         device_append(planes, new_kv, self.claim_append_targets(slot_rids))
         for slot, rid in enumerate(slot_rids):
             if rid is None:
@@ -1822,12 +2084,20 @@ class PagedKVCache:
         self.note_appended(slot_rids)
 
     # ------------------------------------------- device-resident states
+    def _state_row(self, slot: int):
+        """The device state store that holds ``slot`` and its row there:
+        under a mesh, its data shard's store."""
+        if self.mesh is None:
+            return self.dev_states, slot
+        sh, row = divmod(slot, self.slots_per_shard)
+        return self.dev_states[sh], row
+
     def read_state_slot(self, slot: int) -> dict:
         """One slot's recurrent states from the device store
         (``read_state_slot`` :2304), copied: a preemption boundary, never
         the steady-state step."""
-        return {layer: {f: x[slot].clone()
-                        for f, x in self.dev_states[layer].items()}
+        store, row = self._state_row(slot)
+        return {layer: {f: x[row].clone() for f, x in store[layer].items()}
                 for layer in self.state_layers}
 
     def write_state_slot(self, slot: int, rid: int) -> None:
@@ -1839,8 +2109,9 @@ class PagedKVCache:
                 raise RuntimeError(
                     f"request {rid} has no state for layer {layer} "
                     "(prefill not ingested?)")
+            store, row = self._state_row(slot)
             for f, v in st.items():
-                self.dev_states[layer][f][slot] = v
+                store[layer][f][row] = v
 
     def _pull_states(self, slot_rids: list) -> None:
         """Bring the device store's states of the active slots into
@@ -1980,7 +2251,8 @@ class PagedKVCache:
         restored, to_pack = [], []
         if recs:
             pids = self.pool.adopt([(r.state, r.fill, r.payload)
-                                    for r in recs], self._put)
+                                    for r in recs], self._put,
+                                   shard=self.request_shard.get(rid, 0))
             for (layer, i, handle), rec, pid in zip(todo, recs, pids):
                 self.page_tables[rid][layer][i] = pid
                 self.page_gen[pid] = rec.gen
@@ -2030,6 +2302,46 @@ class PagedKVCache:
         the kernel's ``kmeta`` [A, B, P, 2] = (state, t0), ``t0`` counting
         from the layer's ``page_base``.  One upload per step; also accrues
         the read traffic."""
+        return self._meta_put(*self._meta_host(slot_rids, max_len), self._put)
+
+    def step_meta_sharded(self, slot_rids: list, max_len: int) -> list[dict]:
+        """``step_meta`` under a mesh: one meta dict a data shard, on its
+        lead device, holding its slots' rows with their page ids in its
+        own range (``_localize_meta`` :688: a masked entry's id, which may
+        name any page, clipped into the range; its FREE state masks it).
+        The page-slot count is the whole batch's bucket, as the
+        reference's one sharded array has; one upload a shard."""
+        arrays = self._meta_host(slot_rids, max_len)
+        spb = len(slot_rids) // self.n_shards
+        pps = self.pool.pages_per_shard
+        out = []
+        for sh in range(self.n_shards):
+            pid, tid, kmeta, qw = (a[:, sh * spb:(sh + 1) * spb]
+                                   for a in arrays)
+            pid = np.clip(pid - sh * pps, 0, pps - 1).astype(np.int32)
+            out.append(self._meta_put(
+                pid, tid, kmeta, qw,
+                lambda a, _sh=sh: self._put_to(a, self.pool.lead(_sh))))
+        return out
+
+    def _meta_put(self, pid, tid, kmeta, qw, put) -> dict:
+        """Upload host meta arrays as one flat buffer (``put``) and view
+        them as the kernel's fields."""
+        na, b, pn = pid.shape
+        flat = put(np.concatenate([pid.ravel(), tid.ravel(), kmeta.ravel(),
+                                   qw.ravel()]))
+        n1 = pid.size
+        out = {"pid": flat[:n1].view(na, b, pn),
+               "tid": flat[n1:2 * n1].view(na, b, pn),
+               "kmeta": flat[2 * n1:4 * n1].view(na, b, pn, 2),
+               "qw": flat[4 * n1:].view(na, b, 2)}
+        out["state"] = out["kmeta"][..., 0]
+        out["t0"] = out["kmeta"][..., 1]
+        return out
+
+    def _meta_host(self, slot_rids: list, max_len: int):
+        """The host arrays of ``step_meta`` (pid, tid, kmeta, qw), with the
+        step's read traffic accrued."""
         b = len(slot_rids)
         pn = self.meta_pages(max_len, slot_rids)
         na, ps = len(self.attn_layers), self.page_size
@@ -2059,16 +2371,7 @@ class PagedKVCache:
                 if self.layer_kinds[layer] == "local":
                     qw[i, slot, 1] = ring
         self._accrue_read_traffic(slot_rids, max_len)
-        flat = self._put(np.concatenate([pid.ravel(), tid.ravel(),
-                                         kmeta.ravel(), qw.ravel()]))
-        n1 = pid.size
-        out = {"pid": flat[:n1].view(na, b, pn),
-               "tid": flat[n1:2 * n1].view(na, b, pn),
-               "kmeta": flat[2 * n1:4 * n1].view(na, b, pn, 2),
-               "qw": flat[4 * n1:].view(na, b, 2)}
-        out["state"] = out["kmeta"][..., 0]
-        out["t0"] = out["kmeta"][..., 1]
-        return out
+        return pid, tid, kmeta, qw
 
     def _check_resident(self, rid: int, layer: int, pids) -> None:
         """A SPILLED page on the read path fails its request: readahead
@@ -2257,11 +2560,13 @@ class PagedKVCache:
             layer, slot, posn_, pid, o, job = idx[:, lo:hi]
             lo = hi
             if st == m.PAGE_HOT:
-                q, sc = pool.tok_q[:, pid, o], pool.tok_scale[:, pid, o]
+                q = pool.plane("tok_q")[:, pid, o]
+                sc = pool.plane("tok_scale")[:, pid, o]
             elif st == m.PAGE_COLD:
-                q, sc = pool.cold_q[:, pid, o], pool.page_scale[:, pid]
+                q = pool.plane("cold_q")[:, pid, o]
+                sc = pool.plane("page_scale")[:, pid]
             else:
-                q, sc = dec[:, job, o], pool.page_scale[:, pid]
+                q, sc = dec[:, job, o], pool.plane("page_scale")[:, pid]
             kq[:, layer, slot, posn_] = q
             ks[:, layer, slot, posn_] = sc
 
@@ -2283,8 +2588,9 @@ class PagedKVCache:
         out = []
         for kind in (0, 1):
             self._count_put(ids[[0, 1 + kind]])     # the wrapper's upload
-            out.append(decode(pool.sym[kind], pool.ofs[kind],
-                              pool.stored[kind], ids[0], vm, ol, cm,
+            out.append(decode(pool.plane("sym")[kind],
+                              pool.plane("ofs")[kind],
+                              pool.plane("stored")[kind], ids[0], vm, ol, cm,
                               n_steps=pool.elems_per_stream,
                               table_idx=ids[1 + kind])[:n])
         return quant.from_unsigned(torch.stack(out)).reshape(

@@ -3,10 +3,12 @@ dicts of tensors, plus the KV page pool.
 
 Port of the parts of ``repro/models/modules.py`` that serving runs:
 ``rms_norm`` :25, ``rope`` :31, ``_kv_quantize``/``_kv_dequantize``
-:44/:54, ``PackedWeight`` :69, ``packed_proj`` :100 (single device),
+:44/:54, ``PackedWeight`` :69, ``packed_proj`` :100 (with its K-split
+over a mesh's model shards, ``ShardedPackedWeight``),
 ``proj`` :139, ``_mask`` :166 (causal or bidirectional), ``attention_full``
 :175 and ``attention_step`` :267 (global and rolling layers),
-``paged_attention_step`` :326 (single device), ``init_attention_cache``
+``paged_attention_step`` :326 (with KV heads over a mesh's model
+shards), ``init_attention_cache``
 :436, ``init_mlp`` :449 and ``mlp`` :461 (swiglu, geglu, gelu, relu2),
 ``MOE_GROUP`` :480, ``init_moe`` :483 and ``moe`` :500 (with its
 training aux losses), the RG-LRU recurrent block ``init_recurrent``
@@ -20,8 +22,9 @@ the backward pass: ``remat``), the page lifecycle
 ``PAGE_*``/``PAGE_TRANSITIONS`` :916-950, the integrity and spill tier
 types ``PageIntegrityError`` :953, ``TransferDropped`` :969,
 ``SpillRecord`` :978, ``payload_crc`` :996 and ``HostSpillTier`` :1006,
-and ``KVPagePool`` :1077 with ``evict`` :1208, ``spill``/``adopt``
-:1221/:1251 and ``repack`` :1356 (one shard).
+and ``KVPagePool`` :1077 with per-shard page ranges and free lists
+(``n_shards``, a mesh's data axis), ``evict`` :1208, ``spill``/``adopt``
+:1221/:1251 and ``repack`` :1356.
 
 dtype placement follows the JAX package exactly, since it decides the KV
 bytes: activations and projections in bf16 (each weight cast to bf16 before
@@ -36,6 +39,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.core import quant
 from repro_torch.device import resolve
 from repro_torch.kernels import decompress_matmul as dm
 from repro_torch.kernels.fused_page_attention import fused_page_attention
@@ -116,6 +120,11 @@ class PackedWeight:
     n_contract: int
     dtype: str
 
+    @property
+    def device(self) -> torch.device:
+        """The device that holds the planes."""
+        return self.cw.scale.device
+
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """f32 [M, K] @ the packed [K, N] weight -> f32 [M, N], through the
         fused decompress-matmul.  A subclass may compute the same product
@@ -123,10 +132,37 @@ class PackedWeight:
         return dm.compressed_matmul(x, self.cw)
 
 
+@dataclasses.dataclass
+class ShardedPackedWeight(PackedWeight):
+    """A packed weight K-split over a mesh's model shards (``packed_proj``
+    :113-135, row parallelism): ``parts`` are ``dm.split_k``'s contiguous
+    K-tile ranges, each on its model shard's device; ``cw`` is the whole
+    weight's ``dm.Layout`` (K, N, tile, coded size), no tensors, so each
+    device holds only its K range.  ``matmul`` runs kernel 5 once a shard
+    on its columns of x and sums the partial products in shard order
+    (``sharding.psum``) onto x's device.  The sum is not the single-device
+    kernel's kt-order sum bit for bit."""
+
+    parts: list = dataclasses.field(default_factory=list)
+
+    @property
+    def device(self) -> torch.device:
+        """Model shard 0's device (the data shard's lead)."""
+        return self.parts[0].scale.device
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        from .sharding import psum
+        k = self.parts[0].k
+        ys = [dm.compressed_matmul(x[:, j * k:(j + 1) * k].to(
+            cw.scale.device), cw) for j, cw in enumerate(self.parts)]
+        return psum(ys, x.device)
+
+
 def packed_proj(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
-    """Packed projection (``packed_proj`` :100, single device): flatten x's
-    trailing contraction axes into K, run the fused decompress-matmul in
-    f32, restore the output axes and cast back to x's dtype."""
+    """Packed projection (``packed_proj`` :100): flatten x's trailing
+    contraction axes into K, run the fused decompress-matmul in f32 (over
+    the model shards' K ranges for a ``ShardedPackedWeight``), restore the
+    output axes and cast back to x's dtype."""
     nc = pw.n_contract
     lead = x.shape[:x.dim() - nc]
     kdim = 1
@@ -307,17 +343,27 @@ def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def paged_attention_step(p: dict, x: torch.Tensor, planes: dict,
+def paged_attention_step(p: dict, x: torch.Tensor, planes,
                          meta: dict, pos: torch.Tensor, cfg: ModelConfig):
     """Single-token decode step of one global layer against the paged APack
-    KV pool (``paged_attention_step`` :326, single device).
+    KV pool (``paged_attention_step`` :326).
 
     The fused kernel reads the layer's pages (``meta``: ``pid``/``tid``
     int32 [B, P], ``kmeta`` int32 [B, P, 2] of (state, t0), ``qw`` int32
     [B, 2] of (qpos, window)) and returns the unnormalized online-softmax
     state; the current token's self term is merged here, then normalized.
     Returns ``(y [B, 1, D], {k, v, k_scale, v_scale})``: the new token's
-    quantized K/V for the on-device append."""
+    quantized K/V for the on-device append.
+
+    ``planes`` may be a data shard's list of model shards' planes
+    (``model.DevicePoolPlanes.shards[d]``), each holding a block of the KV
+    heads: the kernel then runs once a model shard on its heads' queries,
+    with ``h0`` in its jobmeta, and the shards' ``(acc, m, l)`` are
+    gathered in head order (``sharding.all_gather``) before the merge.
+    The projections run once, here, as the reference runs them on every
+    model shard alike."""
+    if isinstance(planes, list) and len(planes) == 1:
+        planes = planes[0]
     b = x.shape[0]
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
@@ -326,13 +372,19 @@ def paged_attention_step(p: dict, x: torch.Tensor, planes: dict,
     qv, sv = kv_quantize(v[:, 0])
     kd = kv_dequantize(qk, sk)                                 # [B, Hkv, dh]
     vd = kv_dequantize(qv, sv)
-    ps_sz = planes["tok_k"].shape[1]
-    n_streams = planes["sym_k"].shape[2]
+    first = planes[0] if isinstance(planes, list) else planes
+    ps_sz = first["tok_k"].shape[1]
+    n_streams = first["sym_k"].shape[2]
+    # a PACKED page decodes every head, also where the planes hold a block
     n_steps = (ps_sz * hkv * dh) // max(n_streams, 1)
-    acc, m_run, l_run = fused_page_attention(
-        q[:, 0].to(F32).contiguous(), meta["pid"], meta["tid"],
-        meta["kmeta"], meta["qw"], planes, n_steps=n_steps,
-        softcap=float(cfg.logit_softcap))
+    if isinstance(planes, list):
+        acc, m_run, l_run = _head_parallel_attention(
+            q[:, 0].to(F32), meta, planes, n_steps, cfg)
+    else:
+        acc, m_run, l_run = fused_page_attention(
+            q[:, 0].to(F32).contiguous(), meta["pid"], meta["tid"],
+            meta["kmeta"], meta["qw"], planes, n_steps=n_steps,
+            softcap=float(cfg.logit_softcap))
     q3 = q[:, 0].reshape(b, hkv, g, dh).to(F32)
     s_self = torch.einsum("bkgd,bkd->bkg", q3, kd) * (dh ** -0.5)
     if cfg.logit_softcap > 0:
@@ -348,6 +400,33 @@ def paged_attention_step(p: dict, x: torch.Tensor, planes: dict,
         / l_tot[..., None]
     y = proj(out.reshape(b, h, dh).to(x.dtype), p["wo"], 2)[:, None, :]
     return y, {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+
+
+def _head_parallel_attention(q: torch.Tensor, meta: dict, shards: list,
+                             n_steps: int, cfg: ModelConfig):
+    """Kernel 3 once a model shard (``paged_attention_step`` :360-389):
+    shard ``j`` holds KV heads ``[j H/n, (j+1) H/n)`` of the dense planes
+    and takes their query heads and ``h0 = j H/n``; the shards' unnormalized
+    ``(acc, m, l)`` are gathered along heads, in shard order, onto q's
+    device."""
+    from .sharding import all_gather
+    b, hq, dh = q.shape
+    n = len(shards)
+    hl = cfg.num_kv_heads // n
+    ql = hq // n
+    outs = []
+    for j, pl in enumerate(shards):
+        dev = pl["tok_k"].device
+        mj = {k: meta[k].to(dev) for k in ("pid", "tid", "kmeta", "qw")}
+        jm = torch.cat([mj["qw"], torch.full((b, 1), j * hl,
+                                             dtype=mj["qw"].dtype,
+                                             device=dev)], dim=1)
+        outs.append(fused_page_attention(
+            q[:, j * ql:(j + 1) * ql].to(dev).contiguous(), mj["pid"],
+            mj["tid"], mj["kmeta"], jm, pl, n_steps=n_steps,
+            softcap=float(cfg.logit_softcap), h_full=cfg.num_kv_heads))
+    return tuple(all_gather([o[i] for o in outs], 1, q.device)
+                 for i in range(3))
 
 
 # --------------------------------------------------------------------- mlp
@@ -1091,23 +1170,73 @@ def payload_of(state: int, host: dict, j: int, prefix: str = "") -> dict:
     return out
 
 
+def _requantize(tok_q: torch.Tensor, tok_scale: torch.Tensor):
+    """A full page's per-token int8 [2, n, ps, H, dh] and scales [2, n, ps,
+    H] requantized to one scale per (page, head): ``(q2, scale2)``.  Each
+    head on its own, so a model shard requantizes its heads alone."""
+    f = tok_q.to(F32) * tok_scale[..., None]
+    # the reference divides on the host (numpy): a true division
+    sc = quant.true_divide(torch.clamp_min(f.abs().amax(dim=(2, 4)), 1e-8),
+                           127.0)
+    q2 = torch.clamp(torch.round(f / sc[:, :, None, :, None]),
+                     -127, 127).to(torch.int8)
+    return q2, sc
+
+
 class KVPagePool:
     """Block pool of fixed-size KV token pages: payload planes on
     ``device`` (the card unless the caller asks for the CPU), lifecycle
-    metadata and the free list on the host.
+    metadata and the free lists on the host.
 
     Kind axis: index 0 = K, 1 = V.  Unlike the JAX package, whose host
     numpy pool is mirrored onto the device at page events, the payload
     tensors here *are* the device store: the on-device append, the seal
     requantization and the encode kernel write them in place, and the
     fused attention kernel reads them.  The host keeps what the scheduler
-    needs without touching the device: state, fill, free list, and each
-    PACKED page's coded bit count (``packed_bits``, pulled once per pack)."""
+    needs without touching the device: state, fill, free lists, and each
+    PACKED page's coded bit count (``packed_bits``, pulled once per pack).
+
+    ``n_shards`` splits the page ids into contiguous ranges, shard ``s``
+    owning ``[s * pages_per_shard, (s + 1) * pages_per_shard)`` with a free
+    list of its own, each popping its lowest id first (``KVPagePool``
+    :1083-1206; one shard is the single free list).  With a serving
+    ``mesh`` (``launch.mesh``, its data axis of ``n_shards``) each page
+    range lives on its data shard's devices, split as
+    ``sharding.pool_spec`` says: the dense HOT/COLD payloads and the page
+    scales' KV heads over the model shards, the PACKED planes whole on
+    every model shard.  ``read``/``write`` move whole-head pages in and out
+    of the shards; ``plane`` is an unsharded pool's whole tensor of a
+    field, which the paths a mesh refuses (the materialize oracle, the
+    dense-cache append, the fault injector) index by page id."""
+
+    FIELDS = ("tok_q", "tok_scale", "cold_q", "page_scale", "sym", "ofs",
+              "sym_bits", "ofs_bits", "stored")
 
     def __init__(self, num_pages: int, page_size: int, kv_heads: int,
                  head_dim: int, elems_per_stream: int = 128,
-                 device=None):
-        self.device = resolve(device)
+                 device=None, n_shards: int = 1, mesh=None):
+        import types
+        from repro_torch.launch.mesh import device_grid
+        from . import sharding as shd
+        if n_shards < 1 or num_pages % n_shards:
+            raise ValueError(
+                f"num_pages={num_pages} must split evenly over "
+                f"n_shards={n_shards} contiguous page ranges")
+        if mesh is None:
+            self.device = resolve(device)
+            self.devices = [[self.device]] * n_shards
+        else:
+            self.devices = device_grid(mesh)
+            self.device = self.devices[0][0]
+            if len(self.devices) != n_shards:
+                raise ValueError(f"n_shards={n_shards} on a mesh of "
+                                 f"{len(self.devices)} data shards")
+        self.n_shards = n_shards
+        self.n_model = len(self.devices[0])
+        if kv_heads % self.n_model:
+            raise ValueError(f"kv_heads={kv_heads} must divide over the "
+                             f"{self.n_model}-way model axis")
+        self.pages_per_shard = num_pages // n_shards
         self.num_pages = num_pages
         self.page_size = page_size
         self.kv_heads = kv_heads
@@ -1122,24 +1251,37 @@ class KVPagePool:
         self.ofs_words = ofs_capacity_words(e, 8)
         p, ps, h, dh, s = num_pages, page_size, kv_heads, head_dim, \
             self.n_streams
-
-        def z(*shape, dtype):
-            return torch.zeros(*shape, dtype=dtype, device=self.device)
-
-        self.tok_q = z(2, p, ps, h, dh, dtype=torch.int8)
-        self.tok_scale = z(2, p, ps, h, dtype=F32)
-        self.cold_q = z(2, p, ps, h, dh, dtype=torch.int8)
-        self.page_scale = z(2, p, h, dtype=F32)
+        i8, i32 = torch.int8, torch.int32
         # u32 words held in int32 tensors (the kernels read uint32_t)
-        self.sym = z(2, p, self.sym_words, s, dtype=torch.int32)
-        self.ofs = z(2, p, self.ofs_words, s, dtype=torch.int32)
-        self.sym_bits = z(2, p, s, dtype=torch.int32)
-        self.ofs_bits = z(2, p, s, dtype=torch.int32)
-        self.stored = z(2, p, s, dtype=torch.int32)
+        shapes = {"tok_q": ((2, p, ps, h, dh), i8),
+                  "tok_scale": ((2, p, ps, h), F32),
+                  "cold_q": ((2, p, ps, h, dh), i8),
+                  "page_scale": ((2, p, h), F32),
+                  "sym": ((2, p, self.sym_words, s), i32),
+                  "ofs": ((2, p, self.ofs_words, s), i32),
+                  "sym_bits": ((2, p, s), i32),
+                  "ofs_bits": ((2, p, s), i32),
+                  "stored": ((2, p, s), i32)}
+        grid = types.SimpleNamespace(shape={"data": n_shards,
+                                            "model": self.n_model})
+        # the head axis of each field that splits over the model axis
+        self._head_axis = {f: (shd.pool_spec(f).index("model")
+                               if "model" in shd.pool_spec(f) else None)
+                           for f in self.FIELDS}
+        self._shapes = shapes
+        self.parts = [[{f: torch.zeros(shd.local_shape(shd.pool_spec(f),
+                                                       shape, grid),
+                                       dtype=dt, device=dev)
+                        for f, (shape, dt) in shapes.items()}
+                       for dev in self.devices[sh]]
+                      for sh in range(n_shards)]
         self.fill = np.zeros(p, np.int32)
         self.state = np.full(p, PAGE_FREE, np.uint8)
         self.packed_bits = np.zeros(p, np.int64)     # sum of sym+ofs bits
-        self.free_list: list[int] = list(range(p - 1, -1, -1))
+        pps = self.pages_per_shard
+        self.free_lists: list[list[int]] = [
+            list(range((sh + 1) * pps - 1, sh * pps - 1, -1))
+            for sh in range(n_shards)]
         self.alloc_count = 0
         self.high_water = 0
         self.evict_count = 0                         # rolling-window evictions
@@ -1163,19 +1305,37 @@ class KVPagePool:
                 f"transition ({self._page_state(pid)})")
         return src
 
+    # ------------------------------------------------------------ free lists
+    @property
+    def free_list(self) -> list[int]:
+        """The single free list of an unsharded pool."""
+        return self.free_lists[0]
+
     @property
     def free_count(self) -> int:
-        return len(self.free_list)
+        return sum(len(fl) for fl in self.free_lists)
+
+    def free_count_shard(self, shard: int) -> int:
+        return len(self.free_lists[shard])
+
+    def shard_of(self, pid: int) -> int:
+        """The data shard that owns page ``pid``."""
+        return pid // self.pages_per_shard
+
+    def lead(self, shard: int) -> torch.device:
+        """A data shard's lead device (its model shard 0)."""
+        return self.devices[shard][0]
 
     def _idx(self, pids) -> torch.Tensor:
         """Page ids as a device index tensor, uploaded without a stream
         wait (``to_device``)."""
         return to_device(np.asarray(pids, np.int64), self.device)
 
-    def alloc(self) -> int | None:
-        if not self.free_list:
+    def alloc(self, shard: int = 0) -> int | None:
+        fl = self.free_lists[shard]
+        if not fl:
             return None
-        pid = self.free_list.pop()
+        pid = fl.pop()
         self._require_transition(pid, "alloc", PAGE_HOT, exc=RuntimeError,
                                  detail="alloc from corrupt free list")
         self.state[pid] = PAGE_HOT
@@ -1185,25 +1345,97 @@ class KVPagePool:
                               self.num_pages - self.free_count)
         return pid
 
+    # ------------------------------------------------ payload by page id
+    def index(self, pids) -> list:
+        """The device index of pages ``pids`` for ``read``/``write``: per
+        data shard holding some of them, ``(shard, rows, local ids on each
+        model shard's device)``, ``rows`` their places in ``pids`` (None:
+        all, in order).  One upload a device."""
+        pids = np.asarray(pids, np.int64).reshape(-1)
+        sh = pids // self.pages_per_shard
+        shards = np.unique(sh)
+        out = []
+        for s in shards:
+            rows = None if len(shards) == 1 else np.flatnonzero(sh == s)
+            loc = pids - s * self.pages_per_shard if rows is None \
+                else pids[rows] - s * self.pages_per_shard
+            on: dict = {}
+            out.append((int(s), rows, [on.setdefault(d, to_device(loc, d))
+                                       for d in self.devices[s]]))
+        return out
+
+    def plane(self, field: str) -> torch.Tensor:
+        """``field``'s whole tensor [2, num_pages, ...] of an unsharded
+        pool (one data shard on one device), indexed by global page id; a
+        sharded pool's pages go through ``index``/``read``/``write``."""
+        if self.n_shards > 1 or self.n_model > 1:
+            raise ValueError(
+                f"a pool of {self.n_shards} data x {self.n_model} model "
+                "shards has no whole plane; read its pages by id")
+        return self.parts[0][0][field]
+
+    def _models(self, field: str):
+        """The model shards that hold ``field``'s values: each its head
+        block of a split field, the first of a whole one (every model
+        shard holds the same)."""
+        return range(self.n_model) if self._head_axis[field] is not None \
+            else range(1)
+
+    def read(self, field: str, ix, device=None) -> torch.Tensor:
+        """``field``'s pages at ``ix`` (``index``), every head, [2, n, ...]
+        on ``device`` (the pool's first device when None)."""
+        from .sharding import all_gather
+        dev = self.device if device is None else device
+        ax = self._head_axis[field]
+        blocks = [(rows, all_gather([self.parts[s][j][field][:, loc[j]]
+                                     for j in self._models(field)], ax,
+                                    self.lead(s)))
+                  for s, rows, loc in ix]
+        if len(blocks) == 1:
+            return blocks[0][1].to(dev)
+        n = sum(len(r) for r, _ in blocks)
+        shape, dt = self._shapes[field]
+        out = torch.empty(2, n, *shape[2:], dtype=dt, device=dev)
+        for rows, blk in blocks:
+            out.index_copy_(1, to_device(rows, dev), blk.to(dev))
+        return out
+
+    def write(self, field: str, ix, value) -> None:
+        """Write ``value`` (every head, [2, n, ...], or a number) into
+        ``field``'s pages at ``ix``: each data shard its pages, each model
+        shard its head block of a split field and all of a whole one."""
+        ax = self._head_axis[field]
+        hl = self.kv_heads // self.n_model
+        for s, rows, loc in ix:
+            v = value
+            if torch.is_tensor(v) and rows is not None:
+                v = v.index_select(1, to_device(rows, v.device))
+            for j in range(self.n_model):
+                dev = self.devices[s][j]
+                vj = v
+                if torch.is_tensor(v):
+                    if ax is not None and self.n_model > 1:
+                        vj = v.narrow(ax, j * hl, hl)
+                    vj = vj.to(dev)
+                self.parts[s][j][field][:, loc[j]] = vj
+
     def free(self, pids) -> None:
-        """Return pages to the free list and scrub their payload, so a
-        stale read of a recycled page is loud, not subtle."""
+        """Return pages to their shards' free lists and scrub their payload,
+        so a stale read of a recycled page is loud, not subtle."""
         pids = [int(p) for p in pids]
         for pid in pids:
             self._require_transition(pid, "free", PAGE_FREE,
                                      detail="double free of page")
         if not pids:
             return
-        idx = self._idx(pids)
-        for t in (self.tok_q, self.tok_scale, self.cold_q, self.page_scale,
-                  self.sym, self.ofs, self.sym_bits, self.ofs_bits,
-                  self.stored):
-            t[:, idx] = 0
+        ix = self.index(pids)
+        for f in self.FIELDS:
+            self.write(f, ix, 0)
         for pid in pids:
             self.state[pid] = PAGE_FREE
             self.fill[pid] = 0
             self.packed_bits[pid] = 0
-            self.free_list.append(pid)
+            self.free_lists[self.shard_of(pid)].append(pid)
 
     def evict(self, pids) -> None:
         """Rolling-window eviction (``evict`` :1208): return sealed pages
@@ -1228,7 +1460,7 @@ class KVPagePool:
         fill, payload, comp_bytes)`` per page, in order: a HOT page's
         per-token planes, a COLD page's requantized payload, a PACKED
         page's APack planes and page scales, in the JAX package's dtypes.
-        The slots return to the free list in the order given."""
+        The slots return to their free lists in the order given."""
         pids = [int(p) for p in pids]
         states = [self._require_transition(pid, "spill", PAGE_FREE,
                                            detail="spill of FREE page")
@@ -1238,9 +1470,9 @@ class KVPagePool:
             where.setdefault(st, []).append(i)
         tree = {}
         for st, rows in where.items():
-            idx = self._idx([pids[i] for i in rows])
+            ix = self.index([pids[i] for i in rows])
             for key, attr, _ in SPILL_FIELDS[st]:
-                tree[f"{st}/{key}"] = getattr(self, attr)[:, idx]
+                tree[f"{st}/{key}"] = self.read(attr, ix)
         host = fetch(tree)
         comp = self.page_bytes(np.asarray(pids, np.int64))
         out = [(st, int(self.fill[pid]),
@@ -1251,22 +1483,22 @@ class KVPagePool:
         self.spill_count += len(pids)
         return out
 
-    def adopt(self, items: list, put) -> list[int]:
-        """Inverse of ``spill`` (``adopt`` :1251): allocate a fresh slot for
-        each ``(state, fill, payload)`` in order and restore the payload
-        there, all pages in one upload (``put`` takes a dict of host arrays
-        and returns it on the device in one transfer).  The slots generally
-        differ from the ones the pages were spilled out of; owners rewrite
-        their page-table entries.  Raises, adopting nothing, when the pool
-        has too few free pages."""
+    def adopt(self, items: list, put, shard: int = 0) -> list[int]:
+        """Inverse of ``spill`` (``adopt`` :1251): allocate a fresh slot of
+        ``shard`` for each ``(state, fill, payload)`` in order and restore
+        the payload there, all pages in one upload (``put`` takes a dict of
+        host arrays and returns it on the device in one transfer).  The
+        slots generally differ from the ones the pages were spilled out
+        of; owners rewrite their page-table entries.  Raises, adopting
+        nothing, when the shard has too few free pages."""
         for st, _, _ in items:
             if st not in SPILL_FIELDS:
                 raise ValueError(f"adopt of invalid spilled state {st}")
-        if len(items) > self.free_count:
+        if len(items) > self.free_count_shard(shard):
             raise RuntimeError(
                 "no free page to unspill into — admission must re-reserve "
                 "before readahead")
-        pids = [self.alloc() for _ in items]
+        pids = [self.alloc(shard) for _ in items]
         where: dict[int, list[int]] = {}
         for i, (st, fill, payload) in enumerate(items):
             pid = pids[i]
@@ -1288,9 +1520,9 @@ class KVPagePool:
                                        if dt is np.uint32 else a)
         dev = put(tree)
         for st, rows in where.items():
-            idx = self._idx([pids[i] for i in rows])
+            ix = self.index([pids[i] for i in rows])
             for key, attr, _ in SPILL_FIELDS[st]:
-                getattr(self, attr)[:, idx] = dev[f"{st}/{key}"]
+                self.write(attr, ix, dev[f"{st}/{key}"])
         self.unspill_count += len(items)
         return pids
 
@@ -1298,11 +1530,49 @@ class KVPagePool:
         """Append one token's [H, dh] int8 K/V and [H] scales (host append
         path).  Returns the in-page offset written."""
         off = self.note_device_write(pid)
-        self.tok_q[0, pid, off] = torch.as_tensor(kq, device=self.device)
-        self.tok_q[1, pid, off] = torch.as_tensor(vq, device=self.device)
-        self.tok_scale[0, pid, off] = torch.as_tensor(ks, device=self.device)
-        self.tok_scale[1, pid, off] = torch.as_tensor(vs, device=self.device)
+        s, loc = divmod(pid, self.pages_per_shard)
+        hl = self.kv_heads // self.n_model
+        for j, dev in enumerate(self.devices[s]):
+            part, hs = self.parts[s][j], slice(j * hl, (j + 1) * hl)
+            for kind, (q, sc) in enumerate(((kq, ks), (vq, vs))):
+                part["tok_q"][kind, loc, off] = torch.as_tensor(
+                    q, device=dev)[hs]
+                part["tok_scale"][kind, loc, off] = torch.as_tensor(
+                    sc, device=dev)[hs]
         return off
+
+    def write_tokens(self, shard: int, dst, src, dead, stacked) -> None:
+        """Prefill ingest into shard ``shard``'s HOT planes: token rows
+        ``src`` of ``stacked`` (K, V int8 [N, H, dh], their scales [N, H],
+        on one device) to the flat (page, offset) slots ``dst`` (global
+        ``pid * page_size + offset``), zeros to the slots ``dead``; each
+        model shard takes its heads.  One index upload a device."""
+        ps = self.page_size
+        base = shard * self.pages_per_shard * ps
+        hl = self.kv_heads // self.n_model
+        on: dict = {}
+        for j, dev in enumerate(self.devices[shard]):
+            if dev not in on:
+                on[dev] = to_device(np.concatenate(
+                    [dst - base, src, dead - base]), dev)
+            idx = on[dev]
+            ld_t, ls_t = idx[:len(dst)], idx[len(dst):len(dst) + len(src)]
+            dd_t = idx[len(dst) + len(src):]
+            part = self.parts[shard][j]
+            for kind in (0, 1):
+                q, sc = stacked[kind], stacked[2 + kind]
+                if self.n_model > 1:
+                    q = q[:, j * hl:(j + 1) * hl]
+                    sc = sc[:, j * hl:(j + 1) * hl]
+                q, sc = q.to(dev), sc.to(dev)
+                qf = part["tok_q"][kind].view(-1, *part["tok_q"].shape[3:])
+                sf = part["tok_scale"][kind].view(-1,
+                                                  part["tok_scale"].shape[3])
+                qf.index_copy_(0, ld_t, q.index_select(0, ls_t))
+                sf.index_copy_(0, ld_t, sc.index_select(0, ls_t))
+                if len(dead):
+                    qf.index_fill_(0, dd_t, 0)
+                    sf.index_fill_(0, dd_t, 0)
 
     def note_device_write(self, pid: int) -> int:
         """Metadata half of a token append whose payload was written into
@@ -1317,10 +1587,7 @@ class KVPagePool:
         self.fill[pid] = off + 1
         return off
 
-    def seal(self, pids: list, q2: torch.Tensor, scale2: torch.Tensor) -> None:
-        """HOT -> COLD for full pages: store the page-requantized payload
-        (``q2`` int8 [2, n, ps, H, dh], ``scale2`` f32 [2, n, H]) and drop
-        the per-token copy."""
+    def _check_seal(self, pids: list) -> None:
         for pid in pids:
             self._require_transition(pid, "seal", PAGE_COLD,
                                      detail="seal of non-full or non-HOT "
@@ -1328,30 +1595,54 @@ class KVPagePool:
             if self.fill[pid] != self.page_size:
                 raise ValueError(f"seal of non-full or non-HOT page "
                                  f"({self._page_state(pid)})")
-        idx = self._idx(pids)
-        self.cold_q[:, idx] = q2
-        self.page_scale[:, idx] = scale2
-        self.tok_q[:, idx] = 0
-        self.tok_scale[:, idx] = 0
+
+    def seal(self, pids: list) -> torch.Tensor:
+        """HOT -> COLD for full pages, requantized where they lie: each
+        model shard requantizes its own heads' tokens to one scale per
+        (page, head), keeps the COLD payload and drops the per-token copy.
+        Returns the requantized int8 payload, every head, [2, n, ps, H, dh]
+        on the pool's first device (for the calibration histograms)."""
+        from .sharding import all_gather
+        self._check_seal(pids)
+        blocks = []
+        for s, rows, loc in self.index(pids):
+            parts = []
+            for j, part in enumerate(self.parts[s]):
+                qj, scj = _requantize(part["tok_q"][:, loc[j]],
+                                      part["tok_scale"][:, loc[j]])
+                part["cold_q"][:, loc[j]] = qj
+                part["page_scale"][:, loc[j]] = scj
+                part["tok_q"][:, loc[j]] = 0
+                part["tok_scale"][:, loc[j]] = 0
+                parts.append(qj)
+            blocks.append((rows, all_gather(parts, 3, self.device)))
         self.state[pids] = PAGE_COLD
+        if len(blocks) == 1:
+            return blocks[0][1]
+        q2 = torch.empty(2, len(pids), *blocks[0][1].shape[2:],
+                         dtype=torch.int8, device=self.device)
+        for rows, blk in blocks:
+            q2.index_copy_(1, to_device(rows, self.device), blk)
+        return q2
 
     def pack(self, pids: list, planes: tuple, bits_per_page) -> None:
         """COLD -> PACKED: store both kinds' planes (``planes`` = (sym [2,
         n, Ws, S], ofs [2, n, Wo, S], sym_bits [2, n, S], ofs_bits [2, n,
-        S], stored [2, n, S])) and scrub the raw payload so a read that
-        bypasses the decoder is visibly wrong.  ``bits_per_page``: each
-        page's coded bits over both kinds (host ints)."""
+        S], stored [2, n, S])) on every model shard of their data shard and
+        scrub the raw payload so a read that bypasses the decoder is
+        visibly wrong.  ``bits_per_page``: each page's coded bits over both
+        kinds (host ints)."""
         for pid in pids:
             self._require_transition(pid, "pack", PAGE_PACKED,
                                      detail="pack of non-COLD page")
-        idx = self._idx(pids)
+        ix = self.index(pids)
         sym, ofs, sb, ob, st = planes
-        self.sym[:, idx] = sym
-        self.ofs[:, idx] = ofs
-        self.sym_bits[:, idx] = sb
-        self.ofs_bits[:, idx] = ob
-        self.stored[:, idx] = st.to(torch.int32)
-        self.cold_q[:, idx] = 0
+        self.write("sym", ix, sym)
+        self.write("ofs", ix, ofs)
+        self.write("sym_bits", ix, sb)
+        self.write("ofs_bits", ix, ob)
+        self.write("stored", ix, st.to(torch.int32))
+        self.write("cold_q", ix, 0)
         self.state[pids] = PAGE_PACKED
         self.packed_bits[pids] = bits_per_page
 
@@ -1366,11 +1657,12 @@ class KVPagePool:
         for pid in pids:
             self._require_transition(pid, "repack", PAGE_PACKED,
                                      detail="repack of non-PACKED page")
-        idx = self._idx(pids)
-        for t, new in zip((self.sym, self.ofs, self.sym_bits, self.ofs_bits,
-                           self.stored), planes):
+        ix = self.index(pids)
+        for f, new in zip(("sym", "ofs", "sym_bits", "ofs_bits", "stored"),
+                          planes):
             m = swap.reshape(1, -1, *([1] * (new.dim() - 2)))
-            t[:, idx] = torch.where(m, new.to(t.dtype), t[:, idx])
+            old = self.read(f, ix, new.device)
+            self.write(f, ix, torch.where(m, new.to(old.dtype), old))
 
     # -------------------------------------------------------- accounting
     def dense_bytes(self, n_tokens: int) -> int:

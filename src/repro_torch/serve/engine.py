@@ -25,8 +25,11 @@ table refresh hook), the async event loop ``_step_async`` :1011,
 are any mix of global and rolling attention layers and RG-LRU recurrent,
 mLSTM and sLSTM layers, prefix or cycled, with dense or top-k MoE FFNs or
 none, sequential or parallel blocks, tied or untied heads (every decoder
-of the registry).  An encoder has no decode path and is refused.  Not ported:
-meshes, refused with their ROADMAP item.
+of the registry).  An encoder has no decode path and is refused.  Serving
+on a mesh (``mesh=``, ``launch.mesh``; the validation :300-325, per-shard
+reservations and admission :434-600, the sharded step in
+``_step_decode`` :929-951 and the ``kv_shard_*`` stats :1352-1357) is
+ported for the fused paged KV on the sync scheduler.
 
 Continuous batching over ``max_batch`` decode slots: finished sequences
 retire, waiting requests reserve their worst-case pages and are admitted
@@ -60,6 +63,17 @@ that fails an integrity check fails only its request.  ``kv_refresh``
 re-fits a layer's activation tables to drifting traffic and re-packs its
 pages under them, a budget a step.
 
+With ``mesh=`` (a serving mesh, axes ``("data", "model")``) one controller
+drives every shard: the slots split into contiguous blocks over the data
+shards, each request binds to its slot's data shard, whose page range and
+free list it allocates from, and admission reserves per shard; each step
+runs ``model.build_sharded_step``: each data shard decodes its slots on
+its lead device, kernel 3 runs once a model shard on its KV-head block and
+kernel 5 once a model shard on its K range, and every shard's tokens come
+back in the step's one pull.  Table refresh, pressure preemption,
+``kv_verify_on_repack`` and fault injection are refused on a mesh
+(ROADMAP 1.10b).
+
 ``scheduler="async"`` (fused paged KV only) runs each step as: the host
 work of the sync step (refresh and re-pack launches, chunked prefill
 ingest, spill readahead) while the previous decode step is still on the
@@ -87,6 +101,7 @@ from repro_torch.core.tables import find_table
 from repro_torch.device import resolve
 from repro_torch.kernels import fastpath
 from repro_torch.kernels.decompress_matmul import DEFAULT_WEIGHT_MIN_SIZE
+from repro_torch.launch.mesh import device_grid
 from repro_torch.models import model as M
 from repro_torch.models import modules as m
 from repro_torch.models.config import ModelConfig
@@ -373,9 +388,41 @@ class ServeEngine:
                  weights: str | None = None,
                  weight_min_size: int | None = None,
                  weight_tile_k: int | None = None, device=None):
+        # mesh-sharded serving (``__init__`` :300-328): decode jobs
+        # data-parallel over the mesh's "data" axis, KV heads
+        # tensor-parallel over "model" in the fused kernel
+        self.mesh = mesh
+        self._n_data = self._n_model = 1
+        self._step_mesh = None
         if mesh is not None:
-            _refuse("mesh= (multi-device serving)",
-                    "open item 1.10, multi-device serving")
+            if not (cfg.kv_cache_dtype == "apack-int8"
+                    and kv_fused is not False):
+                raise ValueError(
+                    "mesh= requires the fused paged apack-int8 KV (the "
+                    "sharded step is the combined decode+append program)")
+            if scheduler != "sync":
+                raise ValueError(
+                    "mesh= requires scheduler='sync' (the async overlap "
+                    "window is not shard-aware yet)")
+            if "data" not in dict(mesh.shape):
+                raise ValueError("serving mesh must name a 'data' axis")
+            self._n_data, self._n_model = M.mesh_axis_sizes(mesh)
+            if max_batch % self._n_data:
+                raise ValueError(
+                    f"max_batch={max_batch} must divide over the "
+                    f"{self._n_data}-way data axis (whole slots per shard)")
+            if self._n_model > 1 and cfg.num_kv_heads % self._n_model:
+                raise ValueError(
+                    f"num_kv_heads={cfg.num_kv_heads} must divide over "
+                    f"the {self._n_model}-way model axis")
+            for what, on in (("kv_refresh", kv_refresh),
+                             ("kv_pressure", kv_pressure),
+                             ("kv_verify_on_repack", kv_verify_on_repack),
+                             ("faults", faults is not None)):
+                if on:
+                    _refuse(f"mesh= with {what}",
+                            "open item 1.10b, sharded training and the "
+                            "mesh's robustness options")
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if scheduler == "async" and not (cfg.kv_cache_dtype == "apack-int8"
@@ -390,7 +437,8 @@ class ServeEngine:
             raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r};"
                              f" expected one of {KV_CACHE_DTYPES}")
         M.check_decoder(cfg)
-        self.device = resolve(device)
+        self.device = (resolve(device) if mesh is None
+                       else device_grid(mesh)[0][0])
         self.cfg = cfg
         for t in (params["embed"], params["final_norm"]):
             if t.device != self.device:
@@ -456,6 +504,10 @@ class ServeEngine:
                 # every slot at full context
                 kv_pages = max_batch * M.PagedKVCache.pages_for_config(
                     cfg, max_len, kv_page_size)
+            if kv_pages % self._n_data:
+                # whole pages a shard: round the pool up so that every data
+                # shard owns an equal contiguous range
+                kv_pages += self._n_data - kv_pages % self._n_data
             self.kv = M.PagedKVCache(
                 cfg, kv_pages, page_size=kv_page_size,
                 calib_pages=kv_calib_pages,
@@ -463,17 +515,27 @@ class ServeEngine:
                 refresh_threshold=kv_refresh_threshold,
                 refresh_min_pages=kv_refresh_min_pages,
                 verify_on_repack=kv_verify_on_repack,
-                drift_sketch=kv_refresh, device=self.device)
+                drift_sketch=kv_refresh, device=self.device, mesh=mesh)
             self.kv.faults = faults
             # both paged modes read the device pool (the oracle uses its
             # table stack for the gather decode); the fused step also
             # carries the recurrent layers' device state store
             self.kv.enable_device_pool(max_batch if self.fused else None)
+            if mesh is not None:
+                self._step_mesh = M.build_sharded_step(cfg, mesh,
+                                                       params=self.params)
+                # data shard 0's tree: the dense leaves are the same
+                # tensors, the split sites K-split
+                self.params = self._step_mesh.params[0]
         else:
             self.cache = M.init_cache(cfg, max_batch, max_len,
                                       device=self.device)
+        # per-shard reservations (``_reserve`` :458): shard s owns pages
+        # [s*pps, (s+1)*pps) and the slot block [s*spb, (s+1)*spb); each
+        # shard's admission checks its own counter
         self._reserved: dict[int, int] = {}
-        self._reserved_total = 0
+        self._rshard: dict[int, int] = {}
+        self._shard_reserved: list[int] = [0] * self._n_data
         # rid -> (state snapshot, position, last token) of a preempted
         # request, which resumes without a new prefill
         self._preempted: dict[int, tuple] = {}
@@ -499,11 +561,14 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         if self.paged:
             need = self._pages_for(req)
-            if need > self.kv.pool.num_pages:
+            if need > self._shard_pages():
+                # a request lives within one data shard's page range
                 raise ValueError(
                     f"request {req.rid} needs {need} pages worst-case but "
-                    f"the pool only has {self.kv.pool.num_pages}; shorten "
-                    "the request or grow kv_pages")
+                    + (f"the pool only has {self.kv.pool.num_pages}"
+                       if self._n_data == 1 else
+                       f"each pool shard only has {self._shard_pages()}")
+                    + "; shorten the request or grow kv_pages")
         req.t_submit = time.perf_counter()
         self.queue.append(req)
 
@@ -529,43 +594,68 @@ class ServeEngine:
 
         return [r for _, r in sorted(enumerate(self.queue), key=key)]
 
-    def _reserve(self, rid: int, need: int) -> None:
+    @property
+    def _reserved_total(self) -> int:
+        return sum(self._shard_reserved)
+
+    @_reserved_total.setter
+    def _reserved_total(self, v: int) -> None:
+        # the reference's hook (a check that fills the pool sets it): the
+        # whole total on shard 0, exact on one shard
+        self._shard_reserved = [int(v)] + [0] * (self._n_data - 1)
+
+    def _slot_shard(self, slot: int) -> int:
+        """The data shard of ``slot`` (``_slot_shard`` :451)."""
+        return slot // (self.max_batch // self._n_data)
+
+    def _shard_pages(self) -> int:
+        """Pages of one data shard, the whole pool on one (``_shard_pages``
+        :454)."""
+        return self.kv.pool.num_pages // self._n_data
+
+    def _reserve(self, rid: int, need: int, shard: int = 0) -> None:
         self._reserved[rid] = need
-        self._reserved_total += need
+        self._rshard[rid] = shard
+        self._shard_reserved[shard] += need
 
     def _unreserve(self, rid: int) -> int:
         need = self._reserved.pop(rid)
-        self._reserved_total -= need
+        self._shard_reserved[self._rshard.pop(rid, 0)] -= need
         return need
 
-    def _try_reserve(self, req: Request, *, allow_relief: bool) -> int | None:
-        """Pages to reserve for an admission candidate (0 while it still
-        holds its reservation), or None while it stays blocked
-        (``_try_reserve`` :468).  Only the head may trigger pressure relief
-        (``allow_relief``); the need is taken again after relief, which can
-        change the head's own standing."""
+    def _try_reserve(self, req: Request, shard: int = 0, *,
+                     allow_relief: bool) -> int | None:
+        """Pages to reserve for an admission candidate against data shard
+        ``shard``'s pages (0 while it still holds its reservation), or None
+        while it stays blocked (``_try_reserve`` :468).  Only the head may
+        trigger pressure relief (``allow_relief``); the need is taken again
+        after relief, which can change the head's own standing."""
         need = 0 if req.rid in self._reserved else self._pages_for(req)
-        if self._reserved_total + need <= self.kv.pool.num_pages:
+        if self._shard_reserved[shard] + need <= self._shard_pages():
             if allow_relief:
                 self._pressure_backoff = 1    # clean head admission
             return need
         if not allow_relief:
             return None
         self.stats["kv_admission_blocked"] += 1
-        if not self._relieve_pressure(req, need):
+        if not self._relieve_pressure(req, need, shard):
             return None                       # the request waits
         need = 0 if req.rid in self._reserved else self._pages_for(req)
-        if self._reserved_total + need > self.kv.pool.num_pages:
+        if self._shard_reserved[shard] + need > self._shard_pages():
             return None                       # partial relief; retry later
         self.stats["admission_retries"] += 1
         return need
 
-    def _resume_request(self, slot: int, req: Request, need: int) -> None:
+    def _resume_request(self, slot: int, req: Request, need: int,
+                        shard: int = 0) -> None:
         """Resume a preempted request (``_resume_request`` :499): take its
         reservation again where it gave it up, and fail only it if its
-        spilled pages come back corrupted."""
+        spilled pages come back corrupted.  It binds to ``shard``: a
+        spilled request re-adopts its pages there, a resident one only
+        reaches here with its own shard."""
         if need:
-            self._reserve(req.rid, need)
+            self._reserve(req.rid, need, shard)
+        self.kv.request_shard[req.rid] = shard
         try:
             self._resume_into_slot(slot, req)
         except PageIntegrityError as e:
@@ -574,7 +664,11 @@ class ServeEngine:
     def _admit(self) -> None:
         """Fill idle slots from the head of ``_admission_order`` (``_admit``
         :514); with the pool short, the head may trigger pressure relief
-        and the rest wait behind it."""
+        and the rest wait behind it.  Each slot admits the first request
+        eligible for its data shard: a preempted request whose pages are
+        still in the pool resumes only into its own shard's slots (a
+        spilled one re-adopts into any); on a mesh a blocked shard leaves
+        the others admitting."""
         for slot in range(self.max_batch):
             if self.active[slot] is not None or not self.queue:
                 continue
@@ -582,17 +676,27 @@ class ServeEngine:
                 self._prefill_into_slot(slot, self.queue.popleft(), 0)
                 continue
             self._admit_clock += 1
-            head = self._admission_order()[0]
-            need = self._try_reserve(head, allow_relief=True)
+            shard = self._slot_shard(slot)
+            head = next((r for r in self._admission_order()
+                         if not (r.rid in self._preempted
+                                 and r.rid not in self._spilled
+                                 and self.kv.request_shard.get(r.rid, shard)
+                                 != shard)), None)
+            if head is None:
+                continue                       # nothing for this shard
+            need = self._try_reserve(head, shard, allow_relief=True)
             if need is None:
+                if self._n_data > 1:
+                    continue                   # shards admit on their own
                 break                          # the head waits (FIFO)
             self.queue.remove(head)
             if head.rid in self._preempted:
-                self._resume_request(slot, head, need)
+                self._resume_request(slot, head, need, shard)
                 continue
             self._prefill_into_slot(slot, head, need)
 
-    def _relieve_pressure(self, head: Request, need: int) -> bool:
+    def _relieve_pressure(self, head: Request, need: int,
+                          shard: int = 0) -> bool:
         """Bounded spill -> retry -> preempt escalation under pool
         exhaustion (``_relieve_pressure`` :549).  Returns True when
         reservation headroom was freed.  Level 1: spill the coldest
@@ -602,7 +706,7 @@ class ServeEngine:
         and nothing to spill, ``AdmissionImpossible``."""
         parked = [rid for rid in self._preempted
                   if rid in self._reserved and rid not in self._spilled
-                  and rid != head.rid]
+                  and rid != head.rid and self._rshard.get(rid, 0) == shard]
         if parked:
             self._spill_reserved(min(parked, key=self.kv.request_last_read))
             return True
@@ -610,14 +714,17 @@ class ServeEngine:
             return False
         if self._admit_clock < self._next_pressure_admit:
             return False                       # backing off
-        victims = [s for s, r in enumerate(self.active) if r is not None]
+        victims = [s for s, r in enumerate(self.active)
+                   if r is not None and self._slot_shard(s) == shard]
         if not victims:
             if self._pump:
                 # pumped prefills hold reservations and will bind, serve
                 # and retire: admission is delayed, not impossible
                 return False
+            if self._n_data > 1 and any(r is not None for r in self.active):
+                return False          # other shards serve; this one waits
             raise AdmissionImpossible(
-                head, need, self.kv.pool.num_pages,
+                head, need, self._shard_pages(),
                 "no active slots to retire and no spillable reservations")
         slot = max(victims, key=lambda s: int(self._slot_steps[s]))
         self.preempt(slot, spill=True, requeue="tail")
@@ -718,25 +825,33 @@ class ServeEngine:
         self._slot_steps[slot] = 0
         self.stats["resumed"] += 1
 
-    def _prefill_forward(self, prompt):
+    def _prefill_forward(self, prompt, shard: int = 0):
         """Single-request prefill at the prompt's power-of-two bucket; a
         prompt shorter than its bucket is zero-padded and its logits are
-        taken at the true last position."""
+        taken at the true last position.  On a mesh it runs on data shard
+        ``shard``'s lead device with its params."""
         s = len(prompt)
         bucket = prefill_bucket(s, self.max_len)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :s] = np.asarray(prompt)
-        tokens = m.to_device(toks, self.device)
-        return M.forward(self.cfg, self.params, tokens, last_only=True,
+        params, dev = self.params, self.device
+        if self._step_mesh is not None:
+            params = self._step_mesh.params[shard]
+            dev = self.kv.pool.lead(shard)
+        tokens = m.to_device(toks, dev)
+        return M.forward(self.cfg, params, tokens, last_only=True,
                          true_len=None if s == bucket else s)
 
     def _prefill_into_slot(self, slot: int, req: Request, need: int) -> None:
         s = len(req.prompt)
         req.t_admit = time.perf_counter()
-        logits, caches = self._prefill_forward(req.prompt)
+        shard = self._slot_shard(slot)
+        logits, caches = self._prefill_forward(req.prompt, shard)
         if self.paged:
-            self.kv.add_request(req.rid)
-            self._reserve(req.rid, need)
+            # the request binds to its slot's data shard: its pages come
+            # from that shard's free list from here on
+            self.kv.add_request(req.rid, shard)
+            self._reserve(req.rid, need, shard)
             self.kv.ingest_prefill(req.rid, caches, s)
             if self.fused and self.kv.state_layers:
                 self.kv.write_state_slot(slot, req.rid)
@@ -894,9 +1009,31 @@ class ServeEngine:
                         kv.claim_append_targets(slot_rids))
         return logits
 
+    def _launch_mesh(self, slot_rids: list):
+        """Enqueue one sharded step (``_step_decode`` :929-951): the append
+        targets claimed first, as the reference claims them, then each data
+        shard's meta, tokens and positions up to its lead device and the
+        sharded program.  Returns the gathered greedy tokens [B] and the
+        logits [B, 1, V] on data shard 0's lead device."""
+        kv, spb = self.kv, self.max_batch // self._n_data
+        targets = kv.claim_append_targets_sharded(slot_rids)
+        metas = kv.step_meta_sharded(slot_rids, self.max_len)
+        leads = [kv.pool.lead(d) for d in range(self._n_data)]
+        tokens = [m.to_device(self.last_tokens[d * spb:(d + 1) * spb], dev)
+                  for d, dev in enumerate(leads)]
+        pos = [m.to_device(self.positions[d * spb:(d + 1) * spb], dev)
+               for d, dev in enumerate(leads)]
+        toks, logits, _, kv.dev_states = self._step_mesh(
+            kv.dev.shards, kv.dev_states, metas, tokens, pos, targets)
+        return toks, torch.cat([lg.to(self.device) for lg in logits])
+
     def _step_decode(self, slot_rids: list, n_active: int) -> int:
         kv = self.kv
-        if self.fused:
+        toks_dev = None
+        if self._step_mesh is not None:
+            toks_dev, logits = self._launch_mesh(slot_rids)
+            kv.note_appended(slot_rids)
+        elif self.fused:
             logits = self._launch_fused(slot_rids)
             kv.note_appended(slot_rids)
         else:
@@ -914,7 +1051,8 @@ class ServeEngine:
             else:
                 logits, self.cache = M.decode_step(
                     self.cfg, self.params, self.cache, tokens, positions)
-        toks_dev = logits[:, 0].argmax(dim=-1)
+        if toks_dev is None:
+            toks_dev = logits[:, 0].argmax(dim=-1)
         rs = None
         if self.paged and self.kv_refresh:
             # drift check and budgeted re-pack after the step's seals
@@ -1266,6 +1404,12 @@ class ServeEngine:
         out["kv_pages_evicted"] = self.kv.pool.evict_count
         out["kv_fused"] = self.fused
         out["transfers"] = dict(self.kv.transfers)
+        if self._n_data > 1:
+            # per data shard (``kv_stats`` :1352-1357): free-list depth and
+            # live reservations
+            out["kv_shard_free"] = [self.kv.pool.free_count_shard(s)
+                                    for s in range(self._n_data)]
+            out["kv_shard_reserved"] = list(self._shard_reserved)
         out["kv_repack"] = out["kv_streams"]["repack"]
         out["kv_spill"] = out["kv_streams"]["spill"]
         out["kv_pages_spilled"] = self.kv.pool.spill_count

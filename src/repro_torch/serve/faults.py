@@ -82,7 +82,7 @@ class FaultInjector:
         lies (on the card, or on the CPU)."""
         # the same bit as the JAX package's flip of byte bit // 8 of the
         # little-endian u32 words
-        word = kv.pool.sym[0, pid].reshape(-1)
+        word = kv.pool.plane("sym")[0, pid].reshape(-1)
         word[bit // 32] ^= int(np.uint32(1 << (bit % 32)).view(np.int32))
         self.stats["bits_flipped"] += 1
 

@@ -1,7 +1,8 @@
 """Port ServeEngine vs the JAX ServeEngine (``kv_backend="ref"``) on
 qwen3-1.7b SMOKE with the same params and prompts; preemption and resume;
-the steady-state step's device-to-host reads; the device default; the
-refusal of meshes, and the scheduler options the engine serves."""
+the steady-state step's device-to-host reads; the device default; a
+mesh that does not fit the batch, and the scheduler options the engine
+serves."""
 import dataclasses
 
 import numpy as np
@@ -230,19 +231,30 @@ def test_page_pool_defaults_to_cuda():
         pytest.skip("checks the behaviour on a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA requested"):
         pm.KVPagePool(4, 2, 2, 4)
-    assert pm.KVPagePool(4, 2, 2, 4, device="cpu").sym.device.type == "cpu"
+    pool = pm.KVPagePool(4, 2, 2, 4, device="cpu")
+    assert pool.plane("sym").device.type == "cpu"
+
+
+class FakeMesh:
+    """Axis sizes only: what the engine's mesh validation reads."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
 
 
 @pytest.mark.parametrize("kw", [{"prefill_chunk_tokens": 8},
-                                {"mesh": object()},
+                                {"mesh": FakeMesh(data=3, model=1)},
                                 {"scheduler": "async"},
                                 {"weights": "int4"},
                                 {"scheduler": "async",
                                  "prefill_chunk_tokens": 8}])
 def test_unported_features_are_refused(kw):
-    """Meshes, the one feature not ported, raise NotImplementedError naming
-    their ROADMAP item; an unknown weights mode (packed ``apack-int8`` is
-    served) raises ValueError naming the one that exists.  The async
+    """A mesh whose data axis does not divide ``max_batch`` raises the
+    reference's ValueError (meshes are served: ``test_torch_mesh_serving
+    .py``; the other refusals, ``test_torch_sharding.py``); an unknown
+    weights mode (packed ``apack-int8`` is served) raises ValueError naming
+    the one that exists.  The async
     scheduler, its chunk size and SLO admission are served: the engine
     takes them, defaults the chunk to four pages as the reference does,
     orders a request with ``slo_ms`` first, and raises the reference's
@@ -253,7 +265,8 @@ def test_unported_features_are_refused(kw):
     params = PM.init_params(cfg, torch.Generator(), "cpu")
     if "mesh" in kw or "weights" in kw:
         exc, match = ((ValueError, "apack-int8") if "weights" in kw
-                      else (NotImplementedError, "ROADMAP"))
+                      else (ValueError, "max_batch=2 must divide over the "
+                                        "3-way data axis"))
         with pytest.raises(exc, match=match):
             ServeEngine(cfg, params, device="cpu", **KW, **kw)
         return

@@ -22,6 +22,7 @@ import torch
 from repro import configs as jconfigs
 from repro.models import model as JM
 from repro.models import modules as jm
+from repro.serve import FaultInjector as JFaultInjector
 from repro.serve import Request as JRequest, ServeEngine as JEngine
 from repro_torch import configs as pconfigs
 from repro_torch.models import model as PM
@@ -73,7 +74,7 @@ def _pair(n_tokens=16, num_pages=64, calib_pages=1, packed=True, **kw):
 
 
 def _port_page(pool, pid) -> dict:
-    return {k: getattr(pool, k)[:, pid].clone() for k in
+    return {k: pool.plane(k)[:, pid].clone() for k in
             ("sym", "ofs", "sym_bits", "ofs_bits", "stored", "page_scale")}
 
 
@@ -176,8 +177,8 @@ def test_verify_on_repack_catches_in_place_corruption():
     assert list(pk._repack_queue) == list(jk._repack_queue)
     layer, pid = pk._repack_queue[0]
     FaultInjector().corrupt_packed_page(pk, pid, bit=5)
-    FaultInjector().corrupt_packed_page(jk, pid, bit=5)
-    assert torch.equal(pk.pool.sym[0, pid].view(torch.int32),
+    JFaultInjector().corrupt_packed_page(jk, pid, bit=5)
+    assert torch.equal(pk.pool.plane("sym")[0, pid].view(torch.int32),
                        torch.from_numpy(jk.pool.sym[0, pid].view(np.int32)))
     for kv, err in ((jk, jm.PageIntegrityError), (pk, PageIntegrityError)):
         with pytest.raises(err, match="re-pack") as ei:

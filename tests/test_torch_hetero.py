@@ -181,7 +181,7 @@ def _same_pool(jp, pp):
     assert np.array_equal(jp.fill, pp.fill)
     for f in POOL_PLANES:
         a = np.asarray(getattr(jp, f))
-        b = getattr(pp, f).numpy()
+        b = pp.plane(f).numpy()
         assert np.array_equal(a.astype(b.dtype), b), f
 
 

@@ -357,6 +357,90 @@ def test_cuda_fused_page_attention_head_blocks(shape, slots, softcap):
     assert (got[2][-1] == 0).all() and (got[2][:-1] > 0).all()
 
 
+def _head_shard(planes: dict, j: int, n: int) -> dict:
+    """Model shard ``j`` of ``n``'s planes of a pool: its KV-head block of
+    the dense HOT/COLD planes and page scales (contiguous copies), the
+    PACKED planes and tables whole (``sharding.plane_pspecs``)."""
+    out = dict(planes)
+    for key, ax in (("tok_k", 2), ("tok_v", 2), ("cold_k", 2),
+                    ("cold_v", 2), ("tok_sk", 2), ("tok_sv", 2),
+                    ("pscale_k", 1), ("pscale_v", 1)):
+        hl = planes[key].shape[ax] // n
+        out[key] = planes[key].narrow(ax, j * hl, hl).contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 8, 128, 16, 128),
+                                   (16, 8, 128, 48, 128),
+                                   (4, 2, 16, 4, 4)])
+@pytest.mark.parametrize("slots,softcap", [(7, 0.0), (16, 30.0)])
+def test_cuda_fused_page_attention_head_shards(shape, slots, softcap):
+    """Head tensor-parallelism: two launches, each over one model shard's
+    half of the KV heads (jobmeta ``(qpos, window, h0)``, dense planes of
+    its heads, PACKED planes whole, ``h_full`` the page's heads), each
+    against the plain version at f32 rtol 1e-5 / atol 1e-6, and side by
+    side bit-equal to one launch over every head; at qwen3-1.7b's page
+    [16, 8, 128], at dbrx-132b's (Hq 48: head blocks inside a shard) and
+    at SMOKE's [4, 2, 16]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import fused_page_attention as fpa
+    ps, h, dh, hq, _ = shape
+    rng = np.random.default_rng(slots + hq + 1)
+    q, args, planes, e = _mixed_jobs(rng, shape, slots, torch.device("cuda"))
+    kw = dict(n_steps=e, softcap=softcap)
+    full = fpa.fused_page_attention(q, *args, planes, **kw)
+    parts = []
+    for j in range(2):
+        shard = _head_shard(planes, j, 2)
+        jm = torch.cat([args[3], torch.full_like(args[3][:, :1], j * h // 2)],
+                       dim=1)
+        qj = q[:, j * hq // 2:(j + 1) * hq // 2].contiguous()
+        sargs = [*args[:3], jm]
+        got = fpa.fused_page_attention(qj, *sargs, shard, h_full=h, **kw)
+        want = fpa.fused_page_attention_plain(qj, *sargs, shard, h_full=h,
+                                              **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        parts.append(got)
+    for i in range(3):
+        assert torch.equal(torch.cat([p[i] for p in parts], dim=1), full[i])
+
+
+@pytest.mark.cuda
+def test_cuda_decompress_matmul_k_split():
+    """Kernel 5 on a K range (``dm.split_k``): qwen3-1.7b's w_down shape
+    cut to K 2048 (4 K tiles of 512) over N 384, split in two K halves;
+    each half against its plain version within the K-term f32 bound, and
+    the halves' sum against the whole launch within twice that bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(5)
+    w = torch.from_numpy((rs.standard_normal((2048, 384)) * 0.05)
+                         .astype(np.float32)).cuda()
+    q, qp = quant.quantize_symmetric(w, axis=-1)
+    cw = dm.compress_quantized(q, qp.scale.reshape(-1), 512)
+    x = torch.from_numpy(rs.standard_normal((4, 2048))
+                         .astype(np.float32)).cuda()
+    wf = (q.float() * qp.scale.reshape(1, -1)).double()
+    halves = dm.split_k(cw, 2)
+    ys = []
+    for j, part in enumerate(halves):
+        xj = x[:, j * 1024:(j + 1) * 1024]
+        got = dm.compressed_matmul(xj, part).double()
+        want = dm.compressed_matmul_plain(xj, part).double()
+        bound = 1024 * 2.0 ** -24 * (xj.double().abs()
+                                     @ wf[j * 1024:(j + 1) * 1024].abs())
+        assert bool(((got - want).abs() <= bound).all())
+        ys.append(got)
+    full = dm.compressed_matmul(x, cw).double()
+    bound = 2 * 2048 * 2.0 ** -24 * (x.double().abs() @ wf.abs())
+    assert bool(((ys[0] + ys[1] - full).abs() <= bound).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("slots,softcap", [(1, 0.0), (7, 0.0), (16, 30.0)])
 def test_cuda_fused_page_attention_full_head_block(slots, softcap):
@@ -525,10 +609,12 @@ def test_cuda_quantizers_divide_as_the_cpu():
                        quant.true_divide(y, 127))
 
 
-def _synth_caches(verify=False):
+def _synth_caches(verify=False, device_pool=False):
     """Two port caches, one on the card and one on the CPU, fed the same
     synthetic tokens: a peaked lattice, then a shifted one (the drift of
-    ``tests/test_table_refresh.py``), then refreshed."""
+    ``tests/test_table_refresh.py``), then refreshed; with
+    ``device_pool``, each with its device pool (the fused path's planes
+    and table stack)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import PagedKVCache
     cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
@@ -539,6 +625,8 @@ def _synth_caches(verify=False):
               for d in ("cuda", "cpu")]
     rng = np.random.default_rng(5)
     for kv in caches:
+        if device_pool:
+            kv.enable_device_pool()
         kv.add_request(0)
     h, dh, n = caches[0].pool.kv_heads, caches[0].pool.head_dim, 2
     for step in (64, 32):
@@ -555,8 +643,8 @@ def _synth_caches(verify=False):
 def _assert_pools_equal(a, b):
     for name in ("sym", "ofs", "sym_bits", "ofs_bits", "stored",
                  "page_scale", "cold_q"):
-        assert torch.equal(getattr(a.pool, name).cpu(),
-                           getattr(b.pool, name)), name
+        assert torch.equal(a.pool.plane(name).cpu(), b.pool.plane(name)), \
+            name
     for name in ("page_gen", "page_crc"):
         assert np.array_equal(getattr(a, name), getattr(b, name)), name
     assert a.traffic == b.traffic and a.gen_rows == b.gen_rows
@@ -607,3 +695,102 @@ def test_cuda_spill_and_readahead_match_cpu():
     assert gpu.transfers["h2d_calls"] >= h2d + 1
     _assert_pools_equal(gpu, cpu)
     assert gpu.page_tables == cpu.page_tables
+
+
+@pytest.mark.cuda
+def test_cuda_refresh_grows_the_tables_on_the_default_device():
+    """A cache built on ``device="cuda"`` (no index; its tensors report
+    ``cuda:0``) with its device pool: the refresh's new generation block
+    does not fit the device table stack, which grows, and every view then
+    reads the same rows as the CPU cache's after the same refresh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gpu, cpu = _synth_caches(device_pool=True)
+    cap = gpu.dev.n_tables
+    for kv in (gpu, cpu):
+        kv._flush_tables()
+    n = gpu.n_table_rows
+    assert n > cap and gpu.dev.n_tables >= n
+    for name in ("vm", "ol", "cum"):
+        got = gpu.dev.planes[name]
+        assert got.shape[0] == gpu.dev.n_tables
+        assert torch.equal(got[:n].cpu(), cpu.dev.planes[name][:n]), name
+
+
+@pytest.mark.cuda
+def test_cuda_cli_refresh_on_the_default_device(capsys):
+    """The CLI on its default device (no ``--device``) with
+    ``--kv-refresh``: the refresh grows the device table stack, and every
+    request is served."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import serve
+    serve.main(["--arch", "qwen3-1.7b", "--smoke", "--kv", "apack-int8",
+                "--no-compress", "--requests", "6", "--prompt-len", "8",
+                "--max-new", "8", "--max-batch", "3", "--kv-page-size", "4",
+                "--kv-refresh", "--kv-refresh-every", "4",
+                "--kv-refresh-threshold", "0.2", "--kv-repack-budget", "8"])
+    lines = capsys.readouterr().out.splitlines()
+    assert any("'completed': 6" in ln for ln in lines), lines
+    line = [ln for ln in lines if ln.startswith("table refresh: on;")]
+    assert len(line) == 1, lines
+    assert int(line[0].split("generation=")[1].split()[0]) >= 1
+
+
+def _mesh_devices(n_cards: int):
+    """A 2 x 2 serving mesh's device rows: every shard on ``cuda:0``, or
+    each on its own card."""
+    devs = [torch.device("cuda", i if n_cards == 4 else 0) for i in range(4)]
+    return [devs[:2], devs[2:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cards", [1, 4])
+@pytest.mark.parametrize("weights", [None, "apack-int8"])
+def test_cuda_mesh_serve_matches_one_device(n_cards, weights):
+    """The engine on a 2 x 2 serving mesh (``launch.mesh.Mesh``), its
+    shards on one card or on four, against the single-device engine on
+    qwen3-1.7b SMOKE with random weights, 8 requests of 9 tokens, 8 new:
+    dense weights give equal tokens; packed weights at tile 32 (every
+    site K-split over the model axis) give teacher-forced logits within
+    0.05 with the same argmax.  Every shard's free list is whole after
+    the drain."""
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} CUDA devices")
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, ServeEngine
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              kv_cache_dtype="apack-int8")
+    dev = torch.device("cuda", 0)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    kw = dict(max_batch=8, max_len=32)
+    if weights:
+        kw.update(weights=weights, weight_min_size=1024, weight_tile_k=32)
+
+    def serve(eng):
+        rng = np.random.default_rng(0)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, 9)
+                        .astype(np.int64), max_new_tokens=8)
+                for i in range(8)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+        return [list(r.tokens) for r in reqs]
+    single = ServeEngine(cfg, params, device=dev, **kw)
+    mesh = ServeEngine(cfg, params, mesh=Mesh(_mesh_devices(n_cards)), **kw)
+    want, got = serve(single), serve(mesh)
+    pool = mesh.kv.pool
+    assert [pool.free_count_shard(s) for s in range(2)] == \
+        [pool.pages_per_shard] * 2
+    if not weights:
+        assert got == want
+        return
+    for toks in got:
+        seq = torch.as_tensor([toks], device=dev)
+        a = M.forward(cfg, mesh.params, seq)[0].float()
+        b = M.forward(cfg, single.params, seq)[0].float()
+        assert float((a - b).abs().max()) <= 0.05
+        assert torch.equal(a.argmax(-1), b.argmax(-1))

@@ -2,8 +2,8 @@
 the default weight path (the checkpoint-style round trip) and a
 packed-weight run, both on the paged APack KV cache, print the JAX CLI's
 summary lines; the materialize oracle and a dense int8 cache serve;
-``--mesh``, the one flag the port does not serve yet, raises
-``NotImplementedError`` naming its ROADMAP item; ``--scheduler async``,
+``--mesh`` serves on a one-device mesh of the shape asked; ``--scheduler
+async``,
 ``--prefill-chunk``, ``--slo-ms``, ``--kv-refresh`` and ``--kv-pressure``
 serve and print their report lines; and without ``--device cpu`` the CLI
 asks for the card and raises where there is none, instead of falling
@@ -66,14 +66,22 @@ def test_cli_serves_the_oracle_and_dense_cache(extra, path, capsys):
 
 @pytest.mark.parametrize("extra", [
     ["--no-compress", "--mesh", "2x1"],
-    ["--weights", "apack-int8", "--mesh", "1x1"],
+    ["--weights", "apack-int8", "--weight-min-size", "1024", "--mesh",
+     "1x1"],
 ])
-def test_cli_refuses_unported_flags(extra):
-    """Meshes are refused naming their ROADMAP item (the async scheduler,
-    chunked prefill, SLO admission, refresh, pressure and packed weights
-    on heterogeneous stacks are served: the tests below)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(BASE + extra)
+def test_cli_refuses_unported_flags(extra, capsys):
+    """``--mesh`` is served (every flag of the JAX CLI is now): the CLI
+    prints the mesh with its devices and serves every request, from dense
+    and from packed weights."""
+    serve.main(BASE + extra + ["--requests", "3", "--prompt-len", "8",
+                               "--max-new", "3", "--max-batch", "2",
+                               "--kv-page-size", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    shape = extra[-1].split("x")
+    assert any(ln.startswith(f"serving mesh: {{'data': {shape[0]}, 'model': "
+                             f"{shape[1]}}} over ") for ln in lines), lines
+    assert any("'completed': 3" in ln and "tok/s on cpu" in ln
+               for ln in lines), lines
 
 
 @pytest.mark.parametrize("extra,want", [

@@ -25,8 +25,7 @@ def test_pool_transitions_raise_on_illegal_edges():
     pool = pm.KVPagePool(4, 2, 2, 4, device="cpu")
     pid = pool.alloc()
     with pytest.raises(ValueError, match="seal of non-full"):
-        pool.seal([pid], torch.zeros(2, 1, 2, 2, 4, dtype=torch.int8),
-                  torch.zeros(2, 1, 2))
+        pool.seal([pid])
     with pytest.raises(ValueError, match="pack of non-COLD"):
         pool.pack([pid], (None,) * 5, [0])
     pool.free([pid])
@@ -81,8 +80,8 @@ def test_pool_planes_and_traffic_match_reference():
         want = np.asarray(getattr(jp, f))
         if want.dtype == np.uint32:
             want = want.view(np.int32)
-        assert np.array_equal(getattr(pp, f).numpy(),
-                              want.astype(getattr(pp, f).numpy().dtype)), f
+        got = pp.plane(f).numpy()
+        assert np.array_equal(got, want.astype(got.dtype)), f
     for layer in range(layers):
         for kind in (0, 1):
             a, b = jkv.tables[layer][kind], pkv.tables[layer][kind]
@@ -99,7 +98,7 @@ def test_pool_planes_and_traffic_match_reference():
     for rid in (0, 1, 2):
         pkv.release(rid)
     assert pp.free_count == pp.num_pages
-    assert not pp.sym.any() and not pp.tok_q.any()
+    assert not pp.plane("sym").any() and not pp.plane("tok_q").any()
 
 
 def test_unported_layer_kinds_are_refused():

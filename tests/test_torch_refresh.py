@@ -73,7 +73,7 @@ def add(pair, rid):
 
 def port_planes(kv, pid) -> dict:
     p = kv.pool
-    out = {k: getattr(p, k)[:, pid].numpy() for k in PLANES}
+    out = {k: p.plane(k)[:, pid].numpy() for k in PLANES}
     out["sym"], out["ofs"] = out["sym"].view(np.uint32), \
         out["ofs"].view(np.uint32)
     out["stored"] = out["stored"].astype(bool)
@@ -129,11 +129,11 @@ def page_tensor(kv, layer, kind, pid) -> pfmt.CompressedTensor:
         table=kv._table_at(int(kv.page_gen[pid]), layer, kind),
         elems_per_stream=p.elems_per_stream,
         n_valid=p.n_streams * p.elems_per_stream,
-        sym_plane=p.sym[kind, pid].numpy().view(np.uint32).copy(),
-        ofs_plane=p.ofs[kind, pid].numpy().view(np.uint32).copy(),
-        sym_bits=p.sym_bits[kind, pid].numpy().copy(),
-        ofs_bits=p.ofs_bits[kind, pid].numpy().copy(),
-        stored=p.stored[kind, pid].numpy().astype(bool))
+        sym_plane=p.plane("sym")[kind, pid].numpy().view(np.uint32).copy(),
+        ofs_plane=p.plane("ofs")[kind, pid].numpy().view(np.uint32).copy(),
+        sym_bits=p.plane("sym_bits")[kind, pid].numpy().copy(),
+        ofs_bits=p.plane("ofs_bits")[kind, pid].numpy().copy(),
+        stored=p.plane("stored")[kind, pid].numpy().astype(bool))
 
 
 # ---------------------------------------------------------- drift monitor

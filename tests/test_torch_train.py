@@ -24,7 +24,9 @@
 - the port's loss and gradients finite on every architecture;
 - grad accumulation 4 against 1 on xlstm SMOKE at the reference's rel
   1e-3 and 2e-2; the loss falling over 30 steps on qwen3 SMOKE;
-- ``compress_grads``' round trip and error feedback; the data pipeline's
+- ``compress_grads``' round trip and error feedback, and
+  ``compressed_psum_mean`` on one replica bit-equal to the JAX package's;
+  the data pipeline's
   batches bit-equal to the JAX package's, its resume, and disjoint hosts.
 """
 import dataclasses
@@ -306,8 +308,14 @@ def test_quantize_roundtrip_and_error_feedback():
         e = (g + e) - deq
         acc = acc + deq
     assert float((acc / 50 - g).abs().max()) < float(g.abs().max()) * 0.05
-    with pytest.raises(NotImplementedError, match="1.10"):
-        cg.compressed_psum_mean({"g": g}, None, ("data",))
+    # the int8 mean-all-reduce, served on a mesh: on one replica it equals
+    # the JAX package's on a one-device mesh, bit for bit
+    mesh = jax.make_mesh((1,), ("data",))
+    jo, je = jcg.compressed_psum_mean({"g": jnp.asarray(g.numpy())}, mesh,
+                                      ("data",), {"g": jnp.asarray(e.numpy())})
+    po, pe = cg.compressed_psum_mean([{"g": g}], mesh, ("data",), [{"g": e}])
+    assert np.array_equal(po[0]["g"].numpy(), np.asarray(jo["g"]))
+    assert np.array_equal(pe[0]["g"].numpy(), np.asarray(je["g"]))
 
 
 # ------------------------------------------------------------------ data
