@@ -7,7 +7,8 @@ table refresh, a host spill tier and pressure handling, and, with
 ``weights="apack-int8"``, from APack-packed weights
 (``serve.ServeEngine``, ``launch/serve.py``); it trains them with 8-bit
 AdamW and APack-compressed checkpoints (``train``, ``ckpt``,
-``runtime.Supervisor``, ``launch/train.py``), with
+``runtime.Supervisor``, ``launch/train.py``), on one device or a mesh
+(FSDP and tensor parallelism, ``models.sharding``), with
 five hand-written CUDA kernels for sm_90a: APack decode, APack encode,
 the fused paged gather-decode attention, the fused decompress-matmul and
 the gather decode (``kernels/``).  The JAX package ``repro`` is the reference it is held

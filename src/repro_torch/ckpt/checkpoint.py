@@ -21,7 +21,11 @@ uint16 bits: the reference's bf16 arrays (``ml_dtypes``) are not of kind
 "f", so its rule never compresses them either.  The tree's
 structure (nested dicts, lists, tuples and ``Q8`` moments) goes into the
 manifest (``repro_torch.tree``) where the reference pickles its treedef.
-``restore`` puts every leaf on the device it is given.
+``restore`` puts every leaf on the device it is given, or with
+``shardings`` places it on a mesh (``restore(shardings=)`` :134-151, the
+elastic path: a checkpoint restores onto any mesh shape).  A tree of
+``sharding.Sharded`` leaves saves its global leaves, so its files and
+manifest are those of the unsharded tree's save.
 
 A save fits the byte planes' tables (the host's table search, one per
 coded plane, each a pure function of the plane's sampled histogram) for
@@ -53,6 +57,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core import byteplane
 from repro_torch.device import resolve
+from repro_torch.models.sharding import Sharded, place_tree
 
 _BF16 = "bfloat16"
 MIN_COMPRESS = 4096          # elements (``_save_leaf`` :45)
@@ -76,6 +81,8 @@ def _host_copies(tree, timings: dict | None = None):
     leaves, spec = T.flatten(tree)
     out, cuda = [], False
     for x in leaves:
+        if isinstance(x, Sharded):
+            x = x.gather()
         if isinstance(x, torch.Tensor):
             x = x.detach()
             if x.device.type == "cuda":
@@ -194,9 +201,10 @@ def _load_leaf(path: Path, info: dict, device,
 def save(ckpt_dir, step: int, tree, extra: dict | None = None,
          compress: bool = False, keep: int = 3, device=None,
          timings: dict | None = None) -> Path:
-    """Atomic checkpoint write of ``tree`` (tensors or numpy arrays in
-    nested dicts, lists, tuples and ``Q8``s).  ``device``: where the codec
-    runs (the card unless the caller asks for the CPU)."""
+    """Atomic checkpoint write of ``tree`` (tensors, numpy arrays or
+    ``Sharded`` tensors, each written whole, in nested dicts, lists, tuples
+    and ``Q8``s).  ``device``: where the codec runs (the card unless the
+    caller asks for the CPU)."""
     t_all = time.perf_counter()
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
@@ -206,6 +214,7 @@ def save(ckpt_dir, step: int, tree, extra: dict | None = None,
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     leaves, spec = T.flatten(tree)
+    leaves = [x.gather() if isinstance(x, Sharded) else x for x in leaves]
     tables = _fit_tables([x if compress and _compressible(x) else None
                           for x in leaves], timings)
     manifest = {"step": step, "tree": spec, "leaves": []}
@@ -250,10 +259,16 @@ def latest_step(ckpt_dir) -> int | None:
 
 
 def restore(ckpt_dir, step: int | None = None, device=None,
-            timings: dict | None = None):
+            timings: dict | None = None, shardings=None):
     """Load a checkpoint (the latest unless ``step``), every leaf a tensor
-    on ``device.resolve(device)``.  Returns ``(tree, extra, step)``."""
+    on ``device.resolve(device)``, or, with ``shardings`` (a tree of
+    ``sharding.NamedSharding`` of the checkpoint's structure, as
+    ``param_shardings`` gives), a ``Sharded`` placed by its sharding: a
+    coded leaf decodes on its mesh's first device, then each device takes
+    its block.  Returns ``(tree, extra, step)``."""
     t_all = time.perf_counter()
+    if shardings is not None and device is None:
+        device = T.leaves(shardings)[0].mesh.devices.flat[0]
     dev = resolve(device)
     ckpt_dir = Path(ckpt_dir)
     if step is None:
@@ -267,10 +282,13 @@ def restore(ckpt_dir, step: int | None = None, device=None,
               for info in manifest["leaves"]]
     with open(d / "extra.json") as f:
         extra = json.load(f)
+    tree = T.unflatten(manifest["tree"], leaves)
+    if shardings is not None:
+        tree = place_tree(tree, shardings)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     _add(timings, "total", t_all)
-    return T.unflatten(manifest["tree"], leaves), extra, step
+    return tree, extra, step
 
 
 class AsyncCheckpointer:

@@ -1,4 +1,4 @@
-"""Serving meshes: a named grid of ``torch.device``s.
+"""Meshes: a named grid of ``torch.device``s.
 
 Port of ``repro/launch/mesh.py``.  A JAX mesh is a grid of devices with
 named axes that ``shard_map`` partitions over; the port's mesh is the same
@@ -7,8 +7,10 @@ its device, and the collectives (``models.sharding``) are explicit
 functions over the per-shard tensors.  ``make_debug_mesh`` puts every
 shard on one device (the one-card mesh the tests and ``chip_smoke.py``
 use); ``Mesh`` over a device list is a mesh of several cards.  The
-engine reads ``.shape`` (axis sizes by name) and ``.axis_names`` only,
-plus ``device_grid`` where it places tensors.
+serving engine reads ``.shape`` (axis sizes by name) and ``.axis_names``
+only, plus ``device_grid`` where it places tensors; a training mesh has
+axes ``("data", "model")`` or ``("pod", "data", "model")``, and the
+sharded train step reads it through ``train_grid``.
 """
 from __future__ import annotations
 
@@ -66,12 +68,39 @@ def device_grid(mesh) -> list[list[torch.device]]:
     return [list(row) for row in grid]
 
 
+def train_grid(mesh) -> list[list[tuple]]:
+    """A training mesh's coordinates as ``[dp shard][model shard]``: the
+    dp shards over the ``pod`` and ``data`` axes the mesh names, pod-major
+    (the row order of a batch split over ``("pod", "data")``), the model
+    shards over ``model`` (one where the mesh has no model axis)."""
+    names = mesh.axis_names
+    if set(names) - {"pod", "data", "model"}:
+        raise ValueError(f"a training mesh has axes ('pod', 'data', "
+                         f"'model'), not {tuple(names)}")
+    dp = [a for a in ("pod", "data") if a in names]
+    sizes = [mesh.shape[a] for a in dp]
+    n_model = mesh.shape.get("model", 1)
+    grid = []
+    for k in np.ndindex(*sizes):
+        row = []
+        for j in range(n_model):
+            coord = dict(zip(dp, k), model=j)
+            row.append(tuple(coord.get(a, 0) for a in names))
+        grid.append(row)
+    return grid
+
+
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
-                    device=None) -> Mesh:
-    """A ``(n_data, n_model)`` mesh with every shard on one device
-    (``device``, the card unless the caller asks for the CPU; without a
-    card, CUDA raises).  It runs the sharded program, its collectives
-    included, on one device, as the JAX package's forced host devices do."""
+                    multi_pod: bool = False, device=None) -> Mesh:
+    """A ``(n_data, n_model)`` mesh (``(2, n_data, n_model)`` over
+    ``("pod", "data", "model")`` with ``multi_pod``) with every shard on
+    one device (``device``, the card unless the caller asks for the CPU;
+    without a card, CUDA raises).  It runs the sharded program, its
+    collectives included, on one device, as the JAX package's forced host
+    devices do."""
+    if multi_pod:
+        return Mesh(np.full((2, n_data, n_model), resolve(device),
+                            dtype=object), ("pod", "data", "model"))
     return Mesh(np.full((n_data, n_model), resolve(device), dtype=object))
 
 

@@ -42,10 +42,16 @@ losses and ``remat`` per cycle) runs the same layers (``_layers``), and
 ``claim_append_targets_sharded``), ``_state_specs`` :739 (the state
 store split by batch, ``enable_device_pool``), ``build_sharded_step`` :750, ``device_append``'s head blocks :527-532 and
 ``PagedKVCache(mesh=)``'s per-shard pool and requests (``request_shard``
-:1030); one controller drives every shard's tensors.
+:1030); one controller drives every shard's tensors.  Training on a mesh
+(``sharded_loss``, the reference's ``forward`` + ``loss_fn`` under
+``jax.jit(..., in_shardings=...)``): each data group's rows, each layer's
+weights gathered over fsdp where it runs (no remat), the TP sites over
+the model axis (``_layer_view``), the vocabulary-parallel head and loss
+(``vocab_parallel_sums``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 
@@ -287,9 +293,9 @@ def pack_weights(cfg: ModelConfig, params: dict, *,
 def _ffn(cfg: ModelConfig, p: dict, x):
     """The block's FFN (``_ffn`` :123) and its aux losses: the routed MoE
     where the layer has a router, else the dense MLP (no aux)."""
-    if "router" in p["ffn"]:
+    if isinstance(p["ffn"], dict) and "router" in p["ffn"]:
         return m.moe(p["ffn"], x, cfg)
-    return m.mlp(p["ffn"], x, cfg), {}
+    return m.tp_site(m.mlp, p["ffn"], x, cfg), {}
 
 
 def _ffn_tail(cfg: ModelConfig, p: dict, h, inner, hn):
@@ -342,12 +348,11 @@ def block_full(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor, *,
     recurrent, mLSTM and sLSTM states stop at the true end."""
     hn = _norm1(cfg, p, h, hx)
     if kind in ATTN_KINDS:
-        inner, cache = m.attention_full(p["inner"], hn, cfg,
-                                        local=kind == "local",
-                                        true_len=true_len)
+        inner, cache = m.tp_site(m.attention_full, p["inner"], hn, cfg,
+                                 local=kind == "local", true_len=true_len)
     elif kind == "recurrent":
-        inner, cache = m.recurrent_full(p["inner"], hn, cfg,
-                                        pad_mask=pad_mask, true_len=true_len)
+        inner, cache = m.tp_site(m.recurrent_full, p["inner"], hn, cfg,
+                                 pad_mask=pad_mask, true_len=true_len)
     elif kind == "mlstm":
         inner, cache = m.mlstm_full(p["inner"], hn, cfg, pad_mask=pad_mask)
     else:
@@ -397,7 +402,7 @@ def embed_inputs(cfg: ModelConfig, params: dict, tokens=None, *,
 
 def _layers(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
             collect_cache: bool = True, pad_mask=None,
-            true_len: int | None = None):
+            true_len: int | None = None, remat: bool = True):
     """The layer stack over [B, S, D] hiddens, shared by the serving and
     the training forward: the prefix layers, then the cycles (the JAX
     package's ``_scan_blocks`` :244).  Returns ``(h, caches, aux)``: one
@@ -405,7 +410,7 @@ def _layers(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
     none), and the MoE aux losses summed layer by layer in the
     reference's carry order.  Under autograd each cycle is recomputed in
     the backward pass (``modules.remat``: ``jax.checkpoint`` with
-    ``nothing_saveable``).
+    ``nothing_saveable``) unless ``remat`` is False.
 
     The reference wraps each cycle's input in ``_residual_barrier``, an
     XLA scheduling barrier with an identity gradient; it needs no
@@ -430,7 +435,8 @@ def _layers(cfg: ModelConfig, params: dict, h: torch.Tensor, *,
     h, caches, _, _ = run(0, n_prefix, h, 0.0, 0.0)
     lb = rz = 0.0
     for lo in range(n_prefix, len(kinds), n_cycle):
-        h, more, lb, rz = m.remat(run, lo, lo + n_cycle, h, lb, rz)
+        h, more, lb, rz = (m.remat(run, lo, lo + n_cycle, h, lb, rz)
+                           if remat else run(lo, lo + n_cycle, h, lb, rz))
         caches += more
     return h, caches, {"load_balance": lb, "router_z": rz}
 
@@ -475,6 +481,26 @@ def forward_train(cfg: ModelConfig, params: dict, tokens=None, *,
     return _head(params, h), aux
 
 
+def _scored(cfg: ModelConfig, logits: torch.Tensor, batch: dict):
+    """``(logits, targets, mask)`` of ``loss_fn`` :322: a causal LM's
+    logits at every position but the last (after a vision config's image
+    prefix, which predicts nothing), each scored against the next token
+    under ``loss_mask``; an encoder's every frame against its ``labels``.
+    ``logits`` may be a vocabulary block of the whole."""
+    if cfg.is_encoder:
+        targets = batch["labels"]
+        mask = torch.ones(targets.shape, dtype=F32, device=logits.device)
+        return logits, targets, mask
+    tok = batch["tokens"]
+    lm = batch.get("loss_mask")
+    mask = (torch.ones(tok.shape, dtype=F32, device=logits.device)
+            if lm is None else lm.to(F32))[:, 1:]
+    n_img = logits.shape[1] - tok.shape[1]
+    if n_img > 0:
+        logits = logits[:, n_img:]
+    return logits[:, :-1], tok[:, 1:], mask
+
+
 def loss_fn(cfg: ModelConfig, logits: torch.Tensor, batch: dict,
             aux: dict | None = None) -> torch.Tensor:
     """Masked cross entropy in f32 (``loss_fn`` :322): next-token for a
@@ -484,29 +510,202 @@ def loss_fn(cfg: ModelConfig, logits: torch.Tensor, batch: dict,
     MoE losses at 0.01 (load balance) and 0.001 (router z).  The target
     logit is a gather where the reference contracts a one-hot: for a
     finite row both give the same value."""
-    if cfg.is_encoder:
-        targets = batch["labels"]
-        mask = torch.ones(targets.shape, dtype=F32, device=logits.device)
-    else:
-        tok = batch["tokens"]
-        targets = tok[:, 1:]
-        lm = batch.get("loss_mask")
-        mask = (torch.ones(tok.shape, dtype=F32, device=logits.device)
-                if lm is None else lm.to(F32))[:, 1:]
-        n_img = logits.shape[1] - tok.shape[1]
-        if n_img > 0:                 # the image prefix predicts nothing
-            logits = logits[:, n_img:]
-        logits = logits[:, :-1]
+    logits, targets, mask = _scored(cfg, logits, batch)
     lse = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, targets[..., None].long())[..., 0]
     denom = torch.clamp_min(mask.sum(), 1.0)
     nll = ((lse - ll) * mask).sum() / denom
     z_loss = 1e-4 * torch.square(lse * mask).sum() / denom
-    total = nll + z_loss
+    return _with_aux(nll + z_loss, aux)
+
+
+def _with_aux(total, aux: dict | None):
     if aux:
         total = total + 0.01 * aux.get("load_balance", 0.0) \
             + 0.001 * aux.get("router_z", 0.0)
     return total
+
+
+def vocab_parallel_sums(cfg: ModelConfig, parts: list, batch: dict,
+                        lead) -> tuple:
+    """``loss_fn``'s sums over one data shard's rows from its logits split
+    over the model shards' vocabulary blocks (``parts``, contiguous, in
+    order, each on its own device): ``pmax`` of the blocks' row maxima,
+    ``psum`` of their exponentials (``lse = max + log sum``) and of the
+    target logit, which lies in one block.  Returns ``(sum of masked nll,
+    sum of masked lse^2, sum of the mask)`` on ``lead``."""
+    from .sharding import pmax, psum
+    scored = [_scored(cfg, lg, batch) for lg in parts]
+    targets, mask = scored[0][1].to(lead), scored[0][2].to(lead)
+    mx = pmax([lg.detach().amax(-1) for lg, _, _ in scored], lead)
+    sums, tls, off = [], [], 0
+    for lg, _, _ in scored:
+        dev, w = lg.device, lg.shape[-1]
+        sums.append(torch.exp(lg - mx.to(dev)[..., None]).sum(-1))
+        t = targets.to(dev).long() - off
+        inside = (t >= 0) & (t < w)
+        got = lg.gather(-1, t.clamp(0, w - 1)[..., None])[..., 0]
+        tls.append(torch.where(inside, got, torch.zeros_like(got)))
+        off += w
+    lse = mx + torch.log(psum(sums, lead))
+    ll = psum(tls, lead)
+    return (((lse - ll) * mask).sum(), torch.square(lse * mask).sum(),
+            mask.sum())
+
+
+# ------------------------------------------------- sharded training
+def _model_split(leaf, dim: int, n: int) -> bool:
+    """Whether ``leaf``'s storage splits dimension ``dim`` over the model
+    axis of ``n`` shards (``n > 1``; ``fit_spec`` kept the split)."""
+    return n > 1 and leaf.spec[dim % leaf.ndim] == "model"
+
+
+def _take(leaf, device, dim: int | None = None, j: int = 0, n: int = 1):
+    """A ``sharding.Sharded`` leaf on ``device``, whole, or its ``j``-th of
+    ``n`` equal blocks along ``dim``: where its storage splits ``dim``
+    over ``model`` that is model shard ``j``'s blocks gathered over the
+    other split dimensions (``all_gather`` over fsdp), else a slice of the
+    whole."""
+    if dim is None or n == 1:
+        return leaf.gather(device)
+    dim %= leaf.ndim
+    if _model_split(leaf, dim, n):
+        k = leaf.mesh.axis_names.index("model")
+        return leaf.assemble(device, [i for i in leaf.owners if i[k] == j])
+    size = leaf.shape[dim] // n
+    return leaf.gather(device).narrow(dim, j * size, size)
+
+
+# Each TP site: the leaves whose storage must split over the model axis
+# for the site to split (``fit_spec`` keeps it), and the dimension each
+# leaf's model-shard block splits along (a leaf not listed is whole on
+# every model shard).
+_TP_SITES = {
+    "attention": (("wq", "wk"), {"wq": 1, "wk": 1, "wv": 1, "wo": 0}),
+    "recurrent": (("w_x",), {"w_x": -1, "w_gate": -1, "conv_w": -1,
+                             "a_param": 0, "w_input_gate": 0,
+                             "w_a_gate": 0, "w_out": 0}),
+    "mlp": (("w_up",), {"w_up": -1, "w_gate": -1, "w_down": 0}),
+}
+
+
+def _whole(tree, device):
+    if isinstance(tree, dict):
+        return {k: _whole(v, device) for k, v in tree.items()}
+    return tree.gather(device)
+
+
+def _site(cfg: ModelConfig, site: str, p: dict, devs: list, lead):
+    """A TP site's ``ModelShards`` over ``devs`` (its model shards), or its
+    whole params on ``lead`` where the storage does not split it over the
+    model axis (``fit_spec`` dropped the split: e.g. 2 KV heads on a
+    4-way model axis)."""
+    n = len(devs)
+    keys, dims = _TP_SITES[site]
+    if not all(_model_split(p[k], dims[k], n) for k in keys):
+        return _whole(p, lead)
+    sub = cfg
+    if site == "attention":
+        sub = dataclasses.replace(cfg, num_heads=cfg.num_heads // n,
+                                  num_kv_heads=cfg.num_kv_heads // n)
+    parts = [{k: _take(v, devs[j], dims.get(k), j, n) for k, v in p.items()}
+             for j in range(n)]
+    return m.ModelShards(parts, [sub] * n, devs, lead)
+
+
+def _layer_view(cfg: ModelConfig, kind: str, blk: dict, devs: list, lead):
+    """One layer's params for a data shard: the TP sites (attention heads,
+    RG-LRU width, dense FFN hidden) as ``ModelShards`` where the storage
+    splits them over the model axis; the norms, the MoE, mLSTM and sLSTM
+    layers whole on the data shard's lead device (item 1.10c)."""
+    out = {}
+    for key, sub in blk.items():
+        site = ("attention" if key == "inner" and kind in ATTN_KINDS else
+                "recurrent" if key == "inner" and kind == "recurrent" else
+                "mlp" if key == "ffn" and "router" not in sub else None)
+        out[key] = (_whole(sub, lead) if site is None
+                    else _site(cfg, site, sub, devs, lead))
+    return out
+
+
+class _LayerViews:
+    """``params["blocks"]`` of a data shard's view, each layer gathered
+    when ``_layers`` reads it (the reference's per-layer FSDP
+    all-gather)."""
+
+    def __init__(self, cfg: ModelConfig, blocks: list, devs: list, lead):
+        self.cfg, self.blocks, self.devs, self.lead = cfg, blocks, devs, \
+            lead
+        self.kinds = layer_kinds(cfg)
+
+    def __len__(self):
+        return len(self.blocks)
+
+    def __getitem__(self, layer: int) -> dict:
+        return _layer_view(self.cfg, self.kinds[layer], self.blocks[layer],
+                           self.devs, self.lead)
+
+
+def _head_parts(params: dict, h: torch.Tensor, devs: list) -> list:
+    """The LM head (``_head`` :310) vocabulary-parallel (``constrain(...,
+    "logits")``): model shard ``j`` multiplies by its block of the
+    vocabulary, the tied ``embed``'s rows or the untied ``unembed``'s
+    columns, gathered over fsdp; f32 logits [B, S, V / n] each on its
+    device.  One block, whole, where the vocabulary does not divide."""
+    n = len(devs)
+    w = params.get("unembed", params["embed"])
+    vdim = 1 if "unembed" in params else 0
+    if w.shape[vdim] % n:
+        devs, n = devs[:1], 1
+    out = []
+    for j, dev in enumerate(devs):
+        wj = _take(w, dev, vdim, j, n)
+        hj = h.to(dev)
+        out.append((m.proj(hj, wj) if vdim else m.matmul(hj, wj.t()))
+                   .to(F32))
+    return out
+
+
+def sharded_loss(cfg: ModelConfig, params: dict, rows: list,
+                 grid: list) -> torch.Tensor:
+    """The training loss of ``forward_train`` + ``loss_fn`` on a mesh
+    (the reference's ``jax.jit(step, in_shardings=...)`` under
+    ``mesh_context``), one controller driving every shard.
+
+    ``params`` is a tree of ``sharding.Sharded`` leaves (placed by
+    ``param_shardings``; autograd leaves as owner blocks); ``rows[k]`` the
+    batch rows of data group ``k`` on its lead device; ``grid[k]`` that
+    group's devices by model shard.  Each group embeds its rows (the
+    embedding gathered whole), runs the layers with each layer's weights
+    gathered over fsdp where it uses them, the TP sites once a model
+    shard and the partial outputs summed (``psum``), so the residual is
+    whole on the group's lead device, then the vocabulary-parallel head
+    and loss.  The cycles are not recomputed in the backward pass: each
+    layer's gathered weights (in their bf16 casts) stay for it.  The masked sums of every group add in group order on group
+    0's lead device, over the global mask count: the mean over all rows.
+    An MoE config runs one group (``train_step``), so that its dispatch
+    groups, capacity and aux losses are the reference's."""
+    lead0 = grid[0][0]
+    terms, aux = [], None
+    for devs, batch in zip(grid, rows):
+        lead = devs[0]
+        h = embed_inputs(cfg, {"embed": params["embed"].gather(lead)},
+                         batch.get("tokens"),
+                         patch_embeds=batch.get("patch_embeds"),
+                         frame_embeds=batch.get("frame_embeds"))
+        view = {"blocks": _LayerViews(cfg, params["blocks"], devs, lead)}
+        # no remat of the cycles: autograd runs each card's backward on a
+        # thread of its own, and a checkpointed cycle spanning cards
+        # recomputed out of order on four (its saved tensors mismatched)
+        h, _, aux = _layers(cfg, view, h, collect_cache=False, remat=False)
+        h = m.rms_norm(h, params["final_norm"].gather(lead), cfg.norm_eps)
+        terms.append(vocab_parallel_sums(
+            cfg, _head_parts(params, h, devs), batch, lead))
+    from .sharding import psum
+    nll, z, count = (psum([t[i] for t in terms], lead0) for i in range(3))
+    denom = torch.clamp_min(count, 1.0)
+    total = nll / denom + 1e-4 * z / denom
+    return _with_aux(total, aux)
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -1537,7 +1736,8 @@ class PagedKVCache:
                           for layer, _ in items] for kind in (0, 1)])
         vm_r, ol_r, cm_r = self._table_rows(rows)
         packs, bits_at, bad_at = [], [], []
-        for group in pool.index(pids):
+        groups = pool.index(pids)
+        for group in groups:
             shard, at, _ = group
             g_pids = pids if at is None else [pids[i] for i in at]
             dev = pool.lead(shard)
@@ -1562,8 +1762,10 @@ class PagedKVCache:
             counts.append(extra.reshape(-1))
         tree = {"counts": torch.cat(counts)}
         if self.verify_on_repack:
-            tree.update(_plane_tree(packs[0][3],
-                                    pool.read("page_scale", packs[0][2])))
+            tree.update(_plane_tree(
+                self._planes_in_order([(at, pl) for at, _, _, pl in packs],
+                                      n),
+                pool.read("page_scale", groups)))
         pulled = self._fetch(tree)
         c = pulled["counts"]
         bits, bad = c[:n], c[n:2 * n]
@@ -1584,16 +1786,26 @@ class PagedKVCache:
             return None
         return c[2 * n:].reshape(extra.shape)
 
-    def _in_order(self, parts: list, n: int) -> torch.Tensor:
-        """Per-shard results ``(places, tensor [m])`` (``KVPagePool.index``'s
-        groups) as one tensor [n] in the pages' order, on the controller's
-        device."""
+    def _in_order(self, parts: list, n: int, dim: int = 0) -> torch.Tensor:
+        """Per-shard results ``(places, tensor)`` (``KVPagePool.index``'s
+        groups), each with its pages along ``dim``, as one tensor with
+        ``n`` pages in their order, on the controller's device."""
         if len(parts) == 1 and parts[0][0] is None:
             return parts[0][1].to(self.device)
-        out = torch.empty(n, dtype=parts[0][1].dtype, device=self.device)
+        t0 = parts[0][1]
+        shape = list(t0.shape)
+        shape[dim] = n
+        out = torch.empty(shape, dtype=t0.dtype, device=self.device)
         for at, t in parts:
-            out.index_copy_(0, self.pool._idx(at), t.to(self.device))
+            out.index_copy_(dim, self.pool._idx(at), t.to(self.device))
         return out
+
+    def _planes_in_order(self, parts: list, n: int) -> tuple:
+        """Per-shard planes ``(places, (sym, ofs, sym_bits, ofs_bits,
+        stored))``, each [2, m, ...], as the batch's planes in page
+        order."""
+        return tuple(self._in_order([(at, pl[k]) for at, pl in parts], n, 1)
+                     for k in range(5))
 
     def _plane_crc(self, pids: list) -> list[int]:
         """Checksums of PACKED pages' planes and page scales as they lie in
@@ -1855,33 +2067,51 @@ class PagedKVCache:
             "be failed", rid=self._owner_of(pid), layer=layer, pid=pid)
 
     def _launch_repack(self, items: list, force: bool) -> dict:
+        """Queue a re-pack batch on the device: under a mesh, each data
+        shard re-packs its own pages on its lead device, one decode and one
+        encode launch a shard (their planes read from the shard, the new
+        ones written to every model shard of it), and the verdicts of all
+        shards come back in page order in the one pull."""
         pool = self.pool
         pids = [pid for _, pid in items]
-        ix = pool.index(pids)
-        e = pool.elems_per_stream
+        n, e = len(pids), pool.elems_per_stream
         old = [int(self.page_gen[pid]) for pid in pids]
         new = [int(self.table_gen[layer]) for layer, _ in items]
         rows = np.array([[[self._row(g, layer, kind)
                            for g, (layer, _) in zip(gens, items)]
                           for kind in (0, 1)] for gens in (old, new)])
-        vm, ol, cm = self._table_rows(rows)            # [2 old|new, 2, n]
-        sym, ofs, st = (pool.read(f, ix) for f in ("sym", "ofs", "stored"))
-        vals = apack_decode.decode(sym, ofs, st, vm[0], ol[0], cm[0],
-                                   n_steps=e, bits=8)
-        planes = apack_encode.encode(vals, vm[1], ol[1], cm[1], n_steps=e,
-                                     bits=8)
-        old_bits = (pool.read("sym_bits", ix).sum(dim=(0, 2),
-                                                  dtype=torch.int64)
-                    + pool.read("ofs_bits", ix).sum(dim=(0, 2),
-                                                    dtype=torch.int64))
-        new_bits = (planes[2].sum(dim=(0, 2), dtype=torch.int64)
-                    + planes[3].sum(dim=(0, 2), dtype=torch.int64))
-        swap = (torch.ones_like(new_bits, dtype=torch.bool) if force
-                else new_bits < old_bits)
-        pool.repack(pids, planes, swap)
-        pull = {"repack": torch.stack([new_bits, swap.long()])}
+        tabs = self._table_rows(rows)                  # [2 old|new, 2, n]
+        bits_at, swap_at, planes_at = [], [], []
+        groups = pool.index(pids)
+        for group in groups:
+            shard, at, _ = group
+            dev, ix = pool.lead(shard), [group]
+            vm, ol, cm = ((t if at is None else t[:, :, pool._idx(at)])
+                          .to(dev) for t in tabs)
+            sym, ofs, st = (pool.read(f, ix, dev)
+                            for f in ("sym", "ofs", "stored"))
+            vals = apack_decode.decode(sym, ofs, st, vm[0], ol[0], cm[0],
+                                       n_steps=e, bits=8)
+            planes = apack_encode.encode(vals, vm[1], ol[1], cm[1],
+                                         n_steps=e, bits=8)
+            old_bits = (pool.read("sym_bits", ix, dev).sum(
+                dim=(0, 2), dtype=torch.int64)
+                + pool.read("ofs_bits", ix, dev).sum(dim=(0, 2),
+                                                     dtype=torch.int64))
+            new_bits = (planes[2].sum(dim=(0, 2), dtype=torch.int64)
+                        + planes[3].sum(dim=(0, 2), dtype=torch.int64))
+            swap = (torch.ones_like(new_bits, dtype=torch.bool) if force
+                    else new_bits < old_bits)
+            pool.repack(pids if at is None else [pids[i] for i in at],
+                        planes, swap)
+            bits_at.append((at, new_bits))
+            swap_at.append((at, swap.long()))
+            planes_at.append((at, planes))
+        pull = {"repack": torch.stack([self._in_order(bits_at, n),
+                                       self._in_order(swap_at, n)])}
         if self.verify_on_repack:
-            pull.update(_plane_tree(planes, pool.read("page_scale", ix)))
+            pull.update(_plane_tree(self._planes_in_order(planes_at, n),
+                                    pool.read("page_scale", groups)))
         return {"items": items, "gens": new, "pull": pull,
                 "old_bytes": pool.page_bytes(np.asarray(pids, np.int64))}
 

@@ -24,7 +24,10 @@ types ``PageIntegrityError`` :953, ``TransferDropped`` :969,
 ``SpillRecord`` :978, ``payload_crc`` :996 and ``HostSpillTier`` :1006,
 and ``KVPagePool`` :1077 with per-shard page ranges and free lists
 (``n_shards``, a mesh's data axis), ``evict`` :1208, ``spill``/``adopt``
-:1221/:1251 and ``repack`` :1356.
+:1221/:1251 and ``repack`` :1356.  ``ModelShards``/``tp_site`` run a training site
+split over a mesh's model axis, where the reference constrains it:
+attention heads (``constrain(..., "heads")`` :193-195, 228), the FFN
+hidden (``mlp`` :463-475) and the RG-LRU width (:593-595).
 
 dtype placement follows the JAX package exactly, since it decides the KV
 bytes: activations and projections in bf16 (each weight cast to bf16 before
@@ -172,12 +175,14 @@ def packed_proj(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     return y.reshape(*lead, *pw.shape[nc:]).to(x.dtype)
 
 
-def proj(x: torch.Tensor, w, n_contract: int = 1) -> torch.Tensor:
+def proj(x: torch.Tensor, w, n_contract: int = 1,
+         out_dtype=None) -> torch.Tensor:
     """Projection contracting x's last ``n_contract`` axes with w's leading
     ones (``proj`` :139): the fused APack path when the param tree holds a
-    ``PackedWeight`` at this site, else a dense product in x's dtype (the
-    weight is cast first, as the JAX package's ``proj`` does; a weight
-    already in x's dtype is not copied)."""
+    ``PackedWeight`` at this site, else a dense product in x's dtype, or
+    in ``out_dtype`` (see ``matmul``; the weight is cast first, as the JAX
+    package's ``proj`` does; a weight already in x's dtype is not
+    copied)."""
     if isinstance(w, PackedWeight):
         if w.n_contract != n_contract:
             raise ValueError(f"packed weight contracts {w.n_contract} axes, "
@@ -188,21 +193,83 @@ def proj(x: torch.Tensor, w, n_contract: int = 1) -> torch.Tensor:
         k *= s
     out = w.shape[n_contract:]
     y = matmul(x.reshape(*x.shape[:x.dim() - n_contract], k),
-               w.reshape(k, -1))
+               w.reshape(k, -1), out_dtype)
     return y.reshape(*y.shape[:-1], *out)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """``a @ b`` in a's dtype with f32 accumulation, b cast to a's dtype
     first as the reference casts each weight at its use.  On the card this is
     cuBLAS in bf16.  On the CPU the product runs in f32 and rounds once,
     which is how XLA's CPU backend evaluates the JAX package's bf16 dots;
     PyTorch's CPU bf16 GEMM rounds differently in the last bit, and that
-    bit changes int8 KV values downstream."""
+    bit changes int8 KV values downstream.  ``out_dtype=F32`` keeps the
+    f32 product unrounded (a row-parallel partial output, ``tp_site``)."""
     b = b.to(a.dtype)
+    if out_dtype == F32:
+        return _F32Product.apply(a, b)
     if a.device.type == "cpu":
         return torch.matmul(a.to(F32), b.to(F32)).to(a.dtype)
     return torch.matmul(a, b)
+
+
+class _F32Product(torch.autograd.Function):
+    """``a @ b`` [..., K] x [K, N] of bf16 operands as their unrounded f32
+    product, its gradients in f32 rounded once to the operands' dtype (as
+    autograd through the f32 casts gives them), saving the bf16 operands
+    where autograd would keep f32 copies of the activations and weights
+    (6.6 GB more peak at qwen3-1.7b's 28 layers on a one-card 2 x 2
+    mesh, NVIDIA H100 80GB HBM3)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.matmul(a.to(F32), b.to(F32))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.to(F32).t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.reshape(-1, a.shape[-1]).to(F32).t(),
+                              g.reshape(-1, g.shape[-1])).to(b.dtype)
+        return ga, gb
+
+
+# ------------------------------------------------------- model shards
+class ModelShards:
+    """A site's params split over a mesh's model axis, for the sharded
+    train step: ``parts[j]`` is model shard ``j``'s param dict on
+    ``devices[j]`` (its block of heads, FFN hidden or recurrent
+    channels: the column-parallel input projections' columns and the
+    row-parallel output projection's rows), ``cfgs[j]`` the config of
+    that block (its head counts); ``lead`` takes the summed output."""
+
+    def __init__(self, parts: list, cfgs: list, devices: list, lead):
+        self.parts, self.cfgs, self.devices, self.lead = \
+            parts, cfgs, devices, lead
+
+
+def tp_site(fn, p, x: torch.Tensor, cfg: ModelConfig, **kw):
+    """``fn(p, x, cfg, **kw)`` (``attention_full``, ``recurrent_full`` or
+    ``mlp``).  With ``ModelShards`` params it runs once a model shard on
+    its block, and the row-parallel partial outputs, kept in f32, are
+    summed in shard order on the lead device (``psum``) and rounded once
+    to x's dtype, as the single-device product rounds once, so the
+    residual is whole there; the layer's decode cache is dropped
+    (training keeps none).  Partials rounded to bf16 before the sum (as
+    a bf16 all-reduce would) move the residual by a bf16 ulp here and
+    there, enough to flip an MoE routing choice downstream."""
+    if not isinstance(p, ModelShards):
+        return fn(p, x, cfg, **kw)
+    from .sharding import psum
+    outs = [fn(pj, x.to(dev), cj, out_dtype=F32, **kw)
+            for pj, cj, dev in zip(p.parts, p.cfgs, p.devices)]
+    if isinstance(outs[0], tuple):
+        return psum([o[0] for o in outs], p.lead).to(x.dtype), None
+    return psum(outs, p.lead).to(x.dtype)
 
 
 # --------------------------------------------------------------- attention
@@ -230,7 +297,8 @@ def _ring_cache(arr: torch.Tensor, w: int, t: int) -> torch.Tensor:
 
 
 def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                   local: bool = False, true_len: int | None = None):
+                   local: bool = False, true_len: int | None = None,
+                   out_dtype=None):
     """Prefill attention of a global or rolling (``local``) layer, chunked
     over queries (``attention_full`` :175, mask ``_mask`` :166).  Returns
     ``(y [B, S, D], cache)``: every position for a global layer, the
@@ -263,7 +331,7 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         w = torch.softmax(scores, dim=-1)
         outs.append(torch.einsum("bkgcs,bskd->bckgd", w, vf).to(x.dtype))
     out = torch.cat(outs, dim=1).reshape(b, s, h, dh)
-    y = proj(out, p["wo"], 2)
+    y = proj(out, p["wo"], 2, out_dtype)
     if local:
         t = s if true_len is None else int(true_len)
         k = _ring_cache(k, cfg.window_size, t)
@@ -452,7 +520,8 @@ def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return gate * (1.0 / (1.0 + torch.exp(-gate))) * up
 
 
-def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+        out_dtype=None) -> torch.Tensor:
     """The FFN (``mlp`` :461): gated swiglu or geglu, or ungated ``gelu``
     (gelu of the up projection) or ``relu2`` (squared ReLU, op by op in
     the activations' bf16), then the down projection."""
@@ -467,7 +536,7 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         hid = torch.square(torch.relu(up))
     else:
         raise ValueError(cfg.mlp_variant)
-    return proj(hid, p["w_down"])
+    return proj(hid, p["w_down"], out_dtype=out_dtype)
 
 
 def init_mlp(cfg: ModelConfig, normal, d_ff: int | None = None) -> dict:
@@ -687,7 +756,7 @@ def _conv(hist: torch.Tensor, conv_w: torch.Tensor, s: int) -> torch.Tensor:
 
 def recurrent_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    pad_mask: torch.Tensor | None = None,
-                   true_len: int | None = None):
+                   true_len: int | None = None, out_dtype=None):
     """Griffin recurrent block over a full sequence (``recurrent_full``
     :582).  ``pad_mask`` ([S] bool, True past ``true_len``) makes pad steps
     inert (a = 1, input 0), so the final state is the unpadded one, and
@@ -703,7 +772,7 @@ def recurrent_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         a = torch.where(pad3, 1.0, a)
         bx = torch.where(pad3, 0.0, bx)
     _, h = linear_scan(a, bx)
-    y = matmul(h.to(x.dtype) * gate, p["w_out"])
+    y = matmul(h.to(x.dtype) * gate, p["w_out"], out_dtype)
     t = s if true_len is None else int(true_len)
     return y, {"h": h[:, -1].to(F32), "conv": xp[:, t:t + 3].to(F32)}
 
@@ -1207,7 +1276,7 @@ class KVPagePool:
     every model shard.  ``read``/``write`` move whole-head pages in and out
     of the shards; ``plane`` is an unsharded pool's whole tensor of a
     field, which the paths a mesh refuses (the materialize oracle, the
-    dense-cache append, the fault injector) index by page id."""
+    dense-cache append) index by page id."""
 
     FIELDS = ("tok_q", "tok_scale", "cold_q", "page_scale", "sym", "ofs",
               "sym_bits", "ofs_bits", "stored")

@@ -70,9 +70,11 @@ free list it allocates from, and admission reserves per shard; each step
 runs ``model.build_sharded_step``: each data shard decodes its slots on
 its lead device, kernel 3 runs once a model shard on its KV-head block and
 kernel 5 once a model shard on its K range, and every shard's tokens come
-back in the step's one pull.  Table refresh, pressure preemption,
-``kv_verify_on_repack`` and fault injection are refused on a mesh
-(ROADMAP 1.10b).
+back in the step's one pull.  Table refresh (the drift sketches and tables
+global, each data shard re-packing its own pages), pressure preemption
+(within the shard whose admission is short), ``kv_verify_on_repack``
+(each page read from its owning shard) and fault injection (on the
+owning shard's copies of a page) work on a mesh as on one device.
 
 ``scheduler="async"`` (fused paged KV only) runs each step as: the host
 work of the sync step (refresh and re-pack launches, chunked prefill
@@ -177,10 +179,6 @@ class _PendingPrefill:
     @property
     def ready(self) -> bool:
         return self.tok is not None
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 SCHEDULERS = ("sync", "async")
@@ -415,14 +413,6 @@ class ServeEngine:
                 raise ValueError(
                     f"num_kv_heads={cfg.num_kv_heads} must divide over "
                     f"the {self._n_model}-way model axis")
-            for what, on in (("kv_refresh", kv_refresh),
-                             ("kv_pressure", kv_pressure),
-                             ("kv_verify_on_repack", kv_verify_on_repack),
-                             ("faults", faults is not None)):
-                if on:
-                    _refuse(f"mesh= with {what}",
-                            "open item 1.10b, sharded training and the "
-                            "mesh's robustness options")
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if scheduler == "async" and not (cfg.kv_cache_dtype == "apack-int8"
@@ -1010,14 +1000,18 @@ class ServeEngine:
         return logits
 
     def _launch_mesh(self, slot_rids: list):
-        """Enqueue one sharded step (``_step_decode`` :929-951): the append
-        targets claimed first, as the reference claims them, then each data
-        shard's meta, tokens and positions up to its lead device and the
-        sharded program.  Returns the gathered greedy tokens [B] and the
-        logits [B, 1, V] on data shard 0's lead device."""
+        """Enqueue one sharded step (``_step_decode`` :929-951): each data
+        shard's meta, then the append targets, then its tokens and
+        positions up to its lead device and the sharded program.  The
+        reference claims the targets first; the meta goes first here, as
+        on one device, so that a poisoned generation (``step_meta``'s read
+        guard) raises before any page is claimed, and the step can be taken
+        again without its owner.  The tokens are the same either way (a
+        claimed page holds no key yet).  Returns the gathered greedy tokens
+        [B] and the logits [B, 1, V] on data shard 0's lead device."""
         kv, spb = self.kv, self.max_batch // self._n_data
-        targets = kv.claim_append_targets_sharded(slot_rids)
         metas = kv.step_meta_sharded(slot_rids, self.max_len)
+        targets = kv.claim_append_targets_sharded(slot_rids)
         leads = [kv.pool.lead(d) for d in range(self._n_data)]
         tokens = [m.to_device(self.last_tokens[d * spb:(d + 1) * spb], dev)
                   for d, dev in enumerate(leads)]
@@ -1053,17 +1047,24 @@ class ServeEngine:
                     self.cfg, self.params, self.cache, tokens, positions)
         if toks_dev is None:
             toks_dev = logits[:, 0].argmax(dim=-1)
-        rs = None
+        rs, failure = None, None
         if self.paged and self.kv_refresh:
             # drift check and budgeted re-pack after the step's seals
             # (``step`` :991-996); the re-pack's verdicts come back in the
             # tokens' pull
-            rs = kv.refresh_step(self.kv_repack_budget)
-            self.stats["kv_refreshes"] += len(rs["refreshed_layers"])
+            try:
+                rs = kv.refresh_step(self.kv_repack_budget)
+                self.stats["kv_refreshes"] += len(rs["refreshed_layers"])
+            except PageIntegrityError as e:
+                failure = e
         if rs is not None and rs["job"] is not None:
             pulled = kv._fetch({"toks": toks_dev, **rs["job"]["pull"]})
             toks = pulled["toks"]
-            self.stats["kv_pages_repacked"] += kv.finish_refresh(rs, pulled)
+            try:
+                self.stats["kv_pages_repacked"] += kv.finish_refresh(
+                    rs, pulled)
+            except PageIntegrityError as e:
+                failure = e
         else:
             # the step's one sanctioned pull: token ids for EOS/retire
             toks = toks_dev.cpu().numpy()
@@ -1077,6 +1078,13 @@ class ServeEngine:
             self._slot_steps[slot] += 1
             self.stats["generated"] += 1
         self.stats["steps"] += 1
+        if failure is not None:
+            # a page failed its checksum before its re-pack: the step's
+            # K/V is appended already, so every slot takes its token
+            # first, then the owner fails (``step``); the reference
+            # raises before the tokens land and the others repeat the
+            # step over K/V written twice (ROADMAP §3)
+            raise failure
         return n_active
 
     # ------------------------------------------- async event-loop core

@@ -32,8 +32,13 @@ class FaultInjector:
       payload (caught by its CRC at unspill, the record quarantined);
     * ``corrupt_packed_page(kv, pid)``: flip one bit of a resident PACKED
       page's K sym plane on its device (caught with ``verify_on_repack``);
+      on a mesh, on every model shard's copy of the page in its data
+      shard;
     * ``poison_generation(kv, pid)``: stamp a table generation outside the
       live pool (caught by the read guard of ``step_meta``);
+
+    A page id is global: on a mesh a fault acts on the data shard that
+    owns the page, at its index there.
     * ``delay_steps(seconds, n)`` / ``delay_spills(seconds, n)``: stall
       the engine's step or a spill (drives the watchdog);
     * ``delay_host_work(seconds, n)``: stalls the async scheduler's host
@@ -79,11 +84,17 @@ class FaultInjector:
 
     def corrupt_packed_page(self, kv, pid: int, *, bit: int = 0) -> None:
         """Flip one bit of a resident PACKED page's K sym plane where it
-        lies (on the card, or on the CPU)."""
+        lies (on the card, or on the CPU).  On a mesh the page is one
+        logical page whose PACKED planes every model shard of its data
+        shard holds whole, so each copy takes the flip."""
+        pool = kv.pool
+        shard, loc = divmod(int(pid), pool.pages_per_shard)
         # the same bit as the JAX package's flip of byte bit // 8 of the
         # little-endian u32 words
-        word = kv.pool.plane("sym")[0, pid].reshape(-1)
-        word[bit // 32] ^= int(np.uint32(1 << (bit % 32)).view(np.int32))
+        mask = int(np.uint32(1 << (bit % 32)).view(np.int32))
+        for part in pool.parts[shard]:
+            word = part["sym"][0, loc].reshape(-1)
+            word[bit // 32] ^= mask
         self.stats["bits_flipped"] += 1
 
     def poison_generation(self, kv, pid: int, *, offset: int = 7) -> None:

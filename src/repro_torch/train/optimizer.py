@@ -8,6 +8,15 @@ The moments of a parameter are a ``Q8`` of the parameter's own shape, int8
 with one f32 absmax scale per block of 32 along the last axis, so they
 equal the JAX package's once its layer stacks are unstacked.
 
+On a mesh (params of ``sharding.Sharded`` leaves, placed by
+``param_shardings``) the state is ZeRO-sharded as the reference's moments
+inherit the param shardings (:1-10): each moment lies as its param, and
+each device updates its own blocks.  A ``Q8`` block must not straddle
+two shards (``BLOCK`` :21): where a shard of the last axis is not a
+whole number of blocks, that leaf's scales are held whole over the last
+axis and its update runs on the gathered leaf, as GSPMD's resharding
+would.  The clipping norm sums each block's squares in a fixed order.
+
 The arithmetic follows the compiled reference (``jax.jit`` of the train
 step): XLA turns a division by a constant into a multiply by its f32
 reciprocal (``/ 127``, ``/ warmup``), and keeps a division by a computed
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.models.sharding import NamedSharding, Sharded, fit_spec
 
 F32 = torch.float32
 BLOCK = 32             # elements per quantization block (``BLOCK`` :21)
@@ -106,13 +116,21 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_state(cfg: AdamWConfig, params) -> dict:
     """Zero moments (``Q8`` of zeros with ``state_dtype="int8"``) and a
-    step counter, on the params' device."""
+    step counter, on the params' device; for params on a mesh, moments
+    laid out as their params and the counter replicated."""
     def zeros_like_state(p):
+        if isinstance(p, Sharded):
+            return _sharded_zeros(cfg, p)
         z = torch.zeros(p.shape, dtype=F32, device=p.device)
         return _q8_encode(z) if cfg.state_dtype == "int8" else z
 
-    dev = tree.leaves(params)[0].device
-    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+    first = tree.leaves(params)[0]
+    if isinstance(first, Sharded):
+        step = Sharded.place(torch.zeros((), dtype=torch.int32),
+                             NamedSharding(first.mesh, ()))
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
+    return {"step": step,
             "m": tree.map(zeros_like_state, params),
             "v": tree.map(zeros_like_state, params)}
 
@@ -120,16 +138,44 @@ def init_state(cfg: AdamWConfig, params) -> dict:
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, summed leaf by leaf in
     the tree's order (the reference sums its stacked leaves in its own
-    order, so the last bits can part)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree.leaves(grads)))
+    order, so the last bits can part); a ``Sharded`` leaf's blocks summed
+    in mesh order onto its mesh's first device (``psum``)."""
+    def sq(x):
+        if isinstance(x, Sharded):
+            lead = x.mesh.devices.flat[0]
+            return sum(torch.sum(torch.square(x.blocks[i].to(F32))).to(lead)
+                       for i in x.owners)
+        return torch.sum(torch.square(x.to(F32)))
+    return torch.sqrt(sum(sq(x) for x in tree.leaves(grads)))
+
+
+def _adamw(cfg: AdamWConfig, p, g, m, v, clip, lr, b1c, b2c):
+    """One leaf's (or block's) AdamW update; the step's scalars on its
+    device.  Returns ``(p, m, v)``, new tensors."""
+    q8 = cfg.state_dtype == "int8"
+    g = g.to(F32) * clip
+    mf = _q8_decode(m, p.shape) if q8 else m
+    vf = _q8_decode(v, p.shape) if q8 else v
+    # the compiled reference contracts these into FMAs (``_fma``)
+    mf = _fma(cfg.b1, mf, (1.0 - cfg.b1) * g)
+    vf = _fma(cfg.b2, vf, (1.0 - cfg.b2) * torch.square(g))
+    delta = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
+    if p.dim() >= 2:                      # decoupled decay, matrices only
+        delta = delta + cfg.weight_decay * p.to(F32)
+    new_p = _fma(-lr, delta, p.to(F32)).to(p.dtype)
+    if q8:
+        return new_p, _q8_encode(mf), _q8_encode(vf)
+    return new_p, mf, vf
 
 
 def apply_updates(cfg: AdamWConfig, params, grads, state: dict):
     """One AdamW step (decoupled weight decay on matrices only, the
     gradient clipped to ``grad_clip`` by its global norm).  Returns
-    ``(params, state, metrics)``, all new tensors."""
-    step = state["step"] + 1
+    ``(params, state, metrics)``, all new tensors; on a mesh, in the
+    params' and state's layout (``_apply_sharded``)."""
+    flat_p, spec = tree.flatten(params)
+    sharded = isinstance(flat_p[0], Sharded)
+    step = (state["step"].gather() if sharded else state["step"]) + 1
     gnorm = global_norm(grads)
     clip = torch.clamp_max(torch.full_like(gnorm, cfg.grad_clip)
                            / torch.clamp_min(gnorm, 1e-9), 1.0)
@@ -137,31 +183,93 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: dict):
     sf = step.to(F32)
     b1c = 1.0 - torch.pow(torch.full_like(sf, cfg.b1), sf)
     b2c = 1.0 - torch.pow(torch.full_like(sf, cfg.b2), sf)
-    q8 = cfg.state_dtype == "int8"
-
-    def upd(p, g, m, v):
-        g = g.to(F32) * clip
-        mf = _q8_decode(m, p.shape) if q8 else m
-        vf = _q8_decode(v, p.shape) if q8 else v
-        # the compiled reference contracts these into FMAs (``_fma``)
-        mf = _fma(cfg.b1, mf, (1.0 - cfg.b1) * g)
-        vf = _fma(cfg.b2, vf, (1.0 - cfg.b2) * torch.square(g))
-        delta = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
-        if p.dim() >= 2:                  # decoupled decay, matrices only
-            delta = delta + cfg.weight_decay * p.to(F32)
-        new_p = _fma(-lr, delta, p.to(F32)).to(p.dtype)
-        if q8:
-            return new_p, _q8_encode(mf), _q8_encode(vf)
-        return new_p, mf, vf
-
-    flat_p, spec = tree.flatten(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
+    scalars = (clip, lr, b1c, b2c)
+    one = _apply_sharded if sharded else _adamw
+    out = [one(cfg, p, g, m, v, *scalars) for p, g, m, v in zip(
         flat_p, tree.leaves(grads), _moments(state["m"]),
         _moments(state["v"]))]
     new_p, new_m, new_v = (tree.unflatten(spec, [o[i] for o in out])
                            for i in range(3))
+    if sharded:
+        step = Sharded.place(step, state["step"].sharding)
     return new_p, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def _q8_aligned(p: Sharded) -> bool:
+    """Whether every ``Q8`` block of ``p`` lies within one shard: the last
+    axis whole, or each shard of it a whole number of blocks."""
+    entry = p.spec[-1] if p.ndim else None
+    if entry in (None, ()):
+        return True
+    names = entry if isinstance(entry, tuple) else (entry,)
+    n = int(np.prod([p.mesh.shape[a] for a in names if a in p.mesh.shape]))
+    last = p.shape[-1]
+    return _block_of(last) == BLOCK and (last // n) % BLOCK == 0
+
+
+def _scale_sharding(p: Sharded, scale_shape: tuple) -> NamedSharding:
+    """The layout of ``p``'s ``Q8`` scales: ``p``'s spec on the scales'
+    shape, the last axis whole where blocks straddle shards."""
+    spec = p.spec if _q8_aligned(p) else p.spec[:-1] + (None,)
+    return NamedSharding(p.mesh, fit_spec(spec, scale_shape, p.mesh))
+
+
+def _sharded_zeros(cfg: AdamWConfig, p: Sharded):
+    """A zero moment of ``p`` in its layout (``_scale_sharding`` for the
+    ``Q8`` scales)."""
+    z = torch.zeros(p.shape, dtype=F32, device=p.mesh.devices.flat[0])
+    if cfg.state_dtype != "int8":
+        return Sharded.place(z, p.sharding)
+    e = _q8_encode(z)
+    return Q8(q=Sharded.place(e.q, p.sharding),
+              scale=Sharded.place(e.scale,
+                                  _scale_sharding(p, tuple(e.scale.shape))))
+
+
+def _q8_sharded(p: Sharded, q: dict, scale: dict) -> Q8:
+    """A ``Q8`` of per-block payloads and scales (by owner coordinate) in
+    ``p``'s layout."""
+    last = p.shape[-1] if p.ndim else 1
+    shape = (*p.shape[:-1], max(last // _block_of(last), 1))
+    return Q8(q=Sharded.from_owners(Sharded(p.sharding, p.shape, {}), q),
+              scale=Sharded.from_owners(
+                  Sharded(_scale_sharding(p, shape), shape, {}), scale))
+
+
+def _apply_sharded(cfg: AdamWConfig, p: Sharded, g: Sharded, m, v, *scalars):
+    """``_adamw`` on a leaf of a mesh: block by block on each block's
+    device, or on the gathered leaf where ``Q8`` blocks straddle shards
+    (the new leaf and moments placed back in their layout)."""
+    q8 = cfg.state_dtype == "int8"
+
+    def on(dev):
+        return [s.to(dev) for s in scalars]
+
+    if q8 and not _q8_aligned(p):
+        lead = p.mesh.devices.flat[0]
+        new_p, nm, nv = _adamw(
+            cfg, p.gather(lead), g.gather(lead),
+            Q8(m.q.gather(lead), m.scale.gather(lead)),
+            Q8(v.q.gather(lead), v.scale.gather(lead)), *on(lead))
+        return (Sharded.place(new_p, p.sharding),
+                *(Q8(Sharded.place(x.q, p.sharding),
+                     Sharded.place(x.scale, m.scale.sharding))
+                  for x in (nm, nv)))
+    out = {}
+    for i in p.owners:
+        blk = p.blocks[i]
+        mi = Q8(m.q.blocks[i], m.scale.blocks[i]) if q8 else m.blocks[i]
+        vi = Q8(v.q.blocks[i], v.scale.blocks[i]) if q8 else v.blocks[i]
+        out[i] = _adamw(cfg, blk, g.blocks[i], mi, vi, *on(blk.device))
+    new_p = Sharded.from_owners(p, {i: o[0] for i, o in out.items()})
+    if not q8:
+        return (new_p, *(Sharded.from_owners(p, {i: o[k] for i, o in
+                                                  out.items()})
+                         for k in (1, 2)))
+    return (new_p, *(_q8_sharded(p, {i: o[k].q for i, o in out.items()},
+                                 {i: o[k].scale for i, o in out.items()})
+                     for k in (1, 2)))
 
 
 def _moments(t) -> list:

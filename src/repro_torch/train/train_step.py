@@ -6,6 +6,17 @@ Port of ``repro/train/train_step.py``: ``make_loss_fn`` :23,
 ``torch.autograd`` through ``model.forward_train``, each layer cycle
 recomputed in the backward pass (``remat``), where the reference takes
 ``jax.value_and_grad`` of its scanned, ``jax.checkpoint``-ed forward.
+
+The step also takes sharded inputs, as the reference's ``jax.jit(step,
+in_shardings=...)`` does under ``mesh_context`` (``tests/
+test_distributed.py:45-56``): params and optimizer state of
+``sharding.Sharded`` leaves placed by ``param_shardings`` (``init_state``
+lays the moments out as their params), the batch placed by
+``batch_shardings``.  One controller drives every shard
+(``model.sharded_loss``): each owner block of each param is an autograd
+leaf, so a block's gradient arrives in the block itself, the data-
+parallel sum and the reduce-scatter included; AdamW then updates each
+device's blocks.  Params and state come back in the same layout.
 """
 from __future__ import annotations
 
@@ -14,7 +25,9 @@ from typing import Callable
 import torch
 
 from repro_torch import tree
+from repro_torch.launch.mesh import train_grid
 from repro_torch.models import model as M
+from repro_torch.models.sharding import Sharded
 from repro_torch.models.config import ModelConfig
 
 from . import optimizer as opt
@@ -48,37 +61,119 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return loss.detach(), tree.unflatten(spec, grads)
 
 
+def sharded_value_and_grad(cfg: ModelConfig, params, rows: list,
+                           grid: list):
+    """``(loss, grads)`` of ``model.sharded_loss`` over ``params`` (a tree
+    of ``Sharded``), ``rows[k]`` data group ``k``'s batch on its lead
+    device, ``grid[k]`` its devices by model shard.  The grads are a tree
+    of ``Sharded`` holding the owner blocks only (zeros where a block
+    took no part)."""
+    flat, spec = tree.flatten(params)
+    owned = [{i: x.blocks[i].detach().requires_grad_(True)
+              for i in x.owners} for x in flat]
+    diff = [Sharded.from_owners(x, o) for x, o in zip(flat, owned)]
+    loss = M.sharded_loss(cfg, tree.unflatten(spec, diff), rows, grid)
+    order = [(k, i) for k, o in enumerate(owned) for i in o]
+    gs = torch.autograd.grad(loss, [owned[k][i] for k, i in order],
+                             allow_unused=True)
+    grads = [{} for _ in flat]
+    for (k, i), g in zip(order, gs):
+        grads[k][i] = torch.zeros_like(owned[k][i]) if g is None else g
+    return loss.detach(), tree.unflatten(spec, [
+        Sharded(x.sharding, x.shape, g) for x, g in zip(flat, grads)])
+
+
+def _rows(batch: dict, grid: list) -> list:
+    """The batch's rows a data group of ``grid``, each on its lead device
+    (contiguous equal blocks in group order, as ``batch_shardings`` splits
+    them)."""
+    lead = grid[0][0]
+    whole = {k: v.gather(lead) if isinstance(v, Sharded) else v.to(lead)
+             for k, v in batch.items()}
+    n_rows = next(iter(whole.values())).shape[0]
+    groups = len(grid)
+    if n_rows % groups:
+        raise ValueError(f"{n_rows} rows do not split over {groups} data "
+                         "shards")
+    n = n_rows // groups
+    return [{k: v[g * n:(g + 1) * n].to(grid[g][0])
+             for k, v in whole.items()} for g in range(groups)]
+
+
+def grads(cfg: ModelConfig, params, batch: dict):
+    """``(loss, grads)`` of the training loss over one batch: on one
+    device, or on a mesh when ``params`` holds ``Sharded`` leaves, each
+    data group taking its rows (``batch_shardings``' split) and the grads
+    in the params' layout."""
+    first = tree.leaves(params)[0]
+    if not isinstance(first, Sharded):
+        return value_and_grad(make_loss_fn(cfg), params, batch)
+    grid = [[first.mesh.devices[i] for i in row]
+            for row in train_grid(first.mesh)]
+    if cfg.num_experts:
+        # every row in one data group: the reference's dispatch groups,
+        # capacity and aux losses (item 1.10c)
+        grid = grid[:1]
+    return sharded_value_and_grad(cfg, params, _rows(batch, grid), grid)
+
+
 def make_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig,
                     grad_accum: int = 1, accum_dtype=F32) -> Callable:
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
     ``grad_accum > 1`` takes the gradients of that many microbatches
     (slices of the batch's leading axis) one after another, summed in
-    ``accum_dtype`` (bf16 halves the accumulator), then their mean."""
-    loss_fn = make_loss_fn(cfg)
-
+    ``accum_dtype`` (bf16 halves the accumulator), then their mean.
+    Params on a mesh (``Sharded`` leaves) take the sharded path: each
+    microbatch is cut from the global batch in the reference's order and
+    split over the data shards."""
     def step(params, opt_state, batch):
         if grad_accum == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch)
+            loss, g_all = grads(cfg, params, batch)
         else:
+            first = tree.leaves(params)[0]
+            if isinstance(first, Sharded):
+                batch = {k: v.gather() if isinstance(v, Sharded) else v
+                         for k, v in batch.items()}
             n = next(iter(batch.values())).shape[0] // grad_accum
-            loss = 0.0
-            grads = tree.map(lambda p: torch.zeros(
-                p.shape, dtype=accum_dtype, device=p.device), params)
+            loss, g_all = 0.0, None
             for i in range(grad_accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                lval, g = value_and_grad(loss_fn, params, mb)
+                lval, g = grads(cfg, params, mb)
                 loss = loss + lval
-                grads = tree.map(lambda a, b: a + b.to(accum_dtype), grads,
-                                 g)
+                g_all = _accumulate(g_all, g, accum_dtype)
             inv = opt._recip(grad_accum)       # XLA's f32 reciprocal
             loss = loss * inv
-            grads = tree.map(lambda g: g * inv, grads)
-        params, opt_state, metrics = opt.apply_updates(ocfg, params, grads,
+            g_all = _scaled(g_all, inv)
+        params, opt_state, metrics = opt.apply_updates(ocfg, params, g_all,
                                                        opt_state)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return step
+
+
+def _blockwise(fn, *trees):
+    """``fn`` over the leaves of trees of one structure, a ``Sharded``
+    leaf block by block (its owner blocks)."""
+    def one(*xs):
+        if isinstance(xs[0], Sharded):
+            return Sharded(xs[0].sharding, xs[0].shape,
+                           {i: fn(*(x.blocks[i] for x in xs))
+                            for i in xs[0].blocks})
+        return fn(*xs)
+    return tree.map(one, *trees)
+
+
+def _accumulate(acc, g, accum_dtype):
+    """``acc + g`` in ``accum_dtype`` (``acc`` None: zeros)."""
+    if acc is None:
+        acc = _blockwise(lambda x: torch.zeros(x.shape, dtype=accum_dtype,
+                                               device=x.device), g)
+    return _blockwise(lambda a, b: a + b.to(accum_dtype), acc, g)
+
+
+def _scaled(grads, inv: float):
+    return _blockwise(lambda x: x * inv, grads)
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

@@ -794,3 +794,69 @@ def test_cuda_mesh_serve_matches_one_device(n_cards, weights):
         b = M.forward(cfg, single.params, seq)[0].float()
         assert float((a - b).abs().max()) <= 0.05
         assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("verify", [False, True])
+def test_cuda_repack_a_shard_matches_one_device(verify):
+    """Two requests on a one-card 2 x 2 mesh's cache, one a data shard, and
+    on a single-device cache, fed the same synthetic drift and refreshed:
+    the re-pack launches kernels 1 and 2 once a data shard a batch, each
+    on its shard's pages, and leaves every page's planes, bit counts,
+    generation and checksum bit-equal to the single-device re-pack of the
+    same page; PACKED planes equal on both model shards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import repro_torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.model import PagedKVCache
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                              kv_cache_dtype="apack-int8")
+    kw = dict(page_size=4, calib_pages=2, refresh_threshold=0.3,
+              refresh_min_pages=4, verify_on_repack=verify)
+    mesh = make_debug_mesh(2, 2, device="cuda")
+    caches = [PagedKVCache(cfg, 256, device="cuda", mesh=mesh, **kw),
+              PagedKVCache(cfg, 256, device="cuda", **kw)]
+    rng = np.random.default_rng(5)
+    caches[0].add_request(0, 0)
+    caches[0].add_request(1, 1)
+    caches[1].add_request(0)
+    caches[1].add_request(1)
+    h, dh, n = caches[0].pool.kv_heads, caches[0].pool.head_dim, 2
+    for step in (64, 32):
+        for _ in range(24):
+            for rid in (0, 1):
+                q = (step * rng.integers(-2, 3, (n, h, dh))).clip(
+                    -127, 127).astype(np.int8)
+                s = np.full((n, h), 0.01, np.float32)
+                for kv in caches:
+                    kv.append_token(rid, q, q.copy(), s, s.copy())
+    assert caches[0].maybe_refresh() == caches[1].maybe_refresh() != []
+    launches = []
+    for kv in caches:
+        repro_torch.reset_launch_counts()
+        groups = kv.pool.index([p for _, p in kv._repack_queue])
+        assert kv.repack_pending(None) > 0
+        c = repro_torch.launch_counts()
+        launches.append((len(groups), c["apack_decode"], c["apack_encode"]))
+    assert launches == [(2, 2, 2), (1, 1, 1)]
+    mk, sk = caches
+    pairs = [(a, b) for rid in (0, 1) for la, lb in
+             zip(mk.page_tables[rid], sk.page_tables[rid])
+             for a, b in zip(la, lb)]
+    assert {mk.pool.shard_of(a) for a, _ in pairs} == {0, 1}
+    for a, b in pairs:
+        assert mk.pool.state[a] == sk.pool.state[b]
+        assert mk.page_gen[a] == sk.page_gen[b]
+        assert mk.page_crc[a] == sk.page_crc[b]
+        assert mk.pool.packed_bits[a] == sk.pool.packed_bits[b]
+    ia = mk.pool.index([a for a, _ in pairs])
+    ib = sk.pool.index([b for _, b in pairs])
+    for f in ("sym", "ofs", "sym_bits", "ofs_bits", "stored", "page_scale",
+              "cold_q", "tok_q"):
+        assert torch.equal(mk.pool.read(f, ia), sk.pool.read(f, ib)), f
+    for s in (0, 1):
+        for f in ("sym", "ofs", "stored"):
+            assert torch.equal(mk.pool.parts[s][0][f], mk.pool.parts[s][1][f])
+    assert mk.traffic == sk.traffic and mk.gen_rows == sk.gen_rows
