@@ -65,15 +65,24 @@ Phases (any failure exits non-zero):
    window (while a step is in flight), the dispatch and the pump start
    under ``torch.cuda.set_sync_debug_mode("error")``, and every steady
    step one device-to-host call besides its seal batches'; both
-   schedulers' median and longest step and profiler idle shares printed,
-   and the sync serve's median once more after it; (l) then on a 2x2
+   schedulers' median and longest step printed; (l) then on a 2x2
    serving mesh (``make_debug_mesh(2, 2)``, every shard on the card,
    ``max_batch=8``: 4 rows a data shard, as phase 3 decodes): tokens equal
    to phase 3's, pages in their slot's data-shard range at steps 3 and
    30, every shard's free list whole after the drain, one ``.cpu()`` a
    step without seal pulls, kernel 3 launched 28 x 2 x 2 times a step;
-   both serves' ``kv_ratio``, median and longest step and profiler
-   windows printed; then start the CPU
+   both serves' ``kv_ratio``, median and longest step printed (phase
+   3's profiler window only: (l)'s and (e)'s, and (e)'s second sync
+   serve, were cut for the script's time); (q) before them, on phase 3's
+   engine: the static
+   analyzer (``python -m repro_torch.analysis`` over the checkout, exit
+   0, findings and suppressions by pass printed) and a window of
+   ``SYNC_STEPS`` steady decode steps of a fresh batch under
+   ``torch.cuda.set_sync_debug_mode("warn")``: the syncs a step, each
+   sync's site (the innermost frame in ``src/repro_torch``, file:line)
+   and the seals, re-packs and pulls in the window printed; every site
+   must be one the boundary pass sanctions (a finding its suppression
+   took); then start the CPU
    sides of phase 10 and (d) in a background process (``--cpu-twins``: at
    a quarter of the host's cores, no card visible to it, results to
    ``build/smoke_cpu_twins.pt``);
@@ -2469,6 +2478,121 @@ def teacher_forced(run, stores, layers=None):
     return rates
 
 
+SYNC_STEPS = 18      # (q): a window long enough to hold a seal batch
+
+
+def analyzer_run() -> dict:
+    """``python -m repro_torch.analysis --json`` over the checkout, in a
+    process of its own (the analyzer imports neither torch nor the code it
+    reads); raises unless it exits 0.  Returns its JSON report."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--json"], cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"analyzer exit {out.returncode}: "
+                             f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    rep = json.loads(out.stdout)
+    rep["seconds"] = time.perf_counter() - t0
+    return rep
+
+
+def sync_count_phase(eng, cfg, rng) -> dict:
+    """(q): the analyzer, then the syncs the card reports over a window of
+    ``SYNC_STEPS`` steady decode steps of a fresh batch of 4 (phase 3's
+    engine, tables calibrated; prompts of 80 tokens, so each request seals
+    its sixth page inside the window), under
+    ``torch.cuda.set_sync_debug_mode("warn")``.  Each warning's site is
+    the innermost frame of its stack in ``src/repro_torch``; every site
+    must lie on a finding the boundary pass sanctions (one its
+    suppression took).  Prints the counts and returns them."""
+    import traceback
+    import warnings
+    import torch
+    from repro_torch.serve import Request
+    rep = analyzer_run()
+    passes = list(rep["pass_seconds"])
+    sanctioned_by = dict.fromkeys(passes, 0)
+    for f in rep["sanctioned"]:
+        sanctioned_by[f["pass_id"]] += 1
+    print("analyzer (q): " + json.dumps({
+        "exit": 0, "findings": {p: rep["counts"].get(p, 0) for p in passes},
+        "new": len(rep["new"]), "suppressions": rep["suppressions"],
+        "sanctioned": sanctioned_by, "seconds": round(rep["seconds"], 2)}))
+    sanctioned = [(f["path"], f["line"], f["end_line"], f["code"])
+                  for f in rep["sanctioned"] if f["pass_id"] == "boundary"]
+    root = os.path.join(HERE, "src", "repro_torch") + os.sep
+    for i in range(4):
+        eng.submit(Request(200 + i, rng.integers(0, cfg.vocab_size, 80),
+                           max_new_tokens=SYNC_STEPS + 6))
+    for _ in range(3):                      # admit + warm
+        eng.step()
+    torch.cuda.synchronize()
+    kv = eng.kv
+    before = (dict(kv.traffic), dict(kv.transfers), dict(eng.stats))
+    sites: list = []
+    stacks: dict = {}           # each site's first stack, innermost last
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        site = None
+        stack = traceback.extract_stack()[:-1]
+        for fr in reversed(stack):
+            if fr.filename.startswith(root):
+                site = (fr.filename[len(root):].replace(os.sep, "/"),
+                        fr.lineno)
+                break
+        sites.append(site)
+        stacks.setdefault(site, [f"{os.path.basename(fr.filename)}:"
+                                 f"{fr.lineno} {fr.name}"
+                                 for fr in stack[-4:]])
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(SYNC_STEPS):
+                eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    after = (kv.traffic, kv.transfers, eng.stats)
+    events = {
+        "pages_sealed_and_packed": after[0]["kv_pages_packed"]
+        - before[0]["kv_pages_packed"],
+        "pages_repacked": after[0]["kv_repack_pages"]
+        - before[0]["kv_repack_pages"],
+        "d2h_calls": after[1]["d2h_calls"] - before[1]["d2h_calls"],
+        "steps": after[2]["steps"] - before[2]["steps"],
+        "completed": after[2]["completed"] - before[2]["completed"]}
+    def name(site):
+        return "outside src/repro_torch" if site is None \
+            else f"{site[0]}:{site[1]}"
+
+    def known(site):
+        return site is not None and any(p == site[0] and lo <= site[1] <= hi
+                                        for p, lo, hi, _ in sanctioned)
+    counts: dict = {}
+    for site in sites:
+        counts[name(site)] = counts.get(name(site), 0) + 1
+    unknown = sorted({name(x) for x in sites if not known(x)})
+    # from the code: the step's token pull, and one pull a seal batch
+    # (``_fetch``, the transfers' d2h calls)
+    out = {"steps": SYNC_STEPS, "syncs": len(sites),
+           "syncs_per_step": len(sites) / SYNC_STEPS,
+           "expected_syncs": SYNC_STEPS + events["d2h_calls"],
+           "sites": counts, "events": events, "unsanctioned": unknown,
+           "stacks": {name(k): v for k, v in stacks.items()}}
+    print("syncs (q): " + json.dumps(out))
+    eng.run_until_drained()
+    if unknown:
+        raise AssertionError(f"(q): the card reports syncs at sites the "
+                             f"boundary pass does not sanction: {unknown}")
+    return out
+
+
 def profile_steady_steps(eng, cfg, rng, tag, prompt_len=80, n=4,
                          drain=True):
     """Where a steady decode step's time goes: torch.profiler over ten
@@ -2689,8 +2813,7 @@ def mesh_hook(rec: dict):
     return hook
 
 
-def mesh_phase(device, fused_tokens: list, sync_run: dict,
-               sync_profile: dict) -> dict:
+def mesh_phase(device, fused_tokens: list, sync_run: dict) -> dict:
     """(l) the mesh serve: qwen3-1.7b at published widths and depth (28
     layers, phase 3's seed-0 weights) on ``make_debug_mesh(2, 2)``, every
     shard on the one card, ``max_batch=8`` (each data shard decodes 4
@@ -2700,8 +2823,8 @@ def mesh_phase(device, fused_tokens: list, sync_run: dict,
     data-shard range; after the drain every shard's free list whole; every
     step without a seal pull reads back one ``.cpu()`` (its tokens), as
     the single-device step; kernel 3 launched 28 x 2 x 2 times a step.
-    Printed: both serves' ``kv_ratio``, median and longest step, a
-    profiler window beside phase 3's."""
+    Printed: both serves' ``kv_ratio``, median and longest step (no
+    profiler window: the script's time, PERF.md §5 keeps the last)."""
     import torch
     from repro_torch.launch.mesh import make_debug_mesh
     mesh = make_debug_mesh(2, 2, device=device)
@@ -2743,8 +2866,6 @@ def mesh_phase(device, fused_tokens: list, sync_run: dict,
         raise AssertionError("mesh serve: a step without seals read back "
                              f"{sorted({s[0] for s in steady})} times "
                              f"({len(steady)} such steps)")
-    prof = profile_steady_steps(eng, cfg, run["rng"], "mesh 2x2", n=8,
-                                drain=False)
     summary = run["summary"]
     out = {"tokens_equal_phase_3": True, "free_lists_whole": free,
            "kernel_3_launches_per_step": want_k3,
@@ -2756,11 +2877,6 @@ def mesh_phase(device, fused_tokens: list, sync_run: dict,
            "max_step_ms": summary["max_step_ms"],
            "phase_3_median_step_ms": sync_run["median_step_ms"],
            "phase_3_max_step_ms": sync_run["max_step_ms"],
-           "profile": {k: prof[k] for k in ("wall_ms_per_step",
-                                             "busy_ms_per_step",
-                                             "idle_share")},
-           "phase_3_profile": {k: sync_profile[k] for k in (
-               "wall_ms_per_step", "busy_ms_per_step", "idle_share")},
            "launches_per_step": summary["launches_per_step"]}
     print("mesh serve (l) [qwen3-1.7b, 28 layers, 2x2] vs phase 3: "
           + json.dumps(out))
@@ -2824,16 +2940,16 @@ def packed_mesh_phase(device) -> dict:
     return out
 
 
-def async_qwen_phase(device, sync_run: dict, sync_profile: dict) -> dict:
+def async_qwen_phase(device, sync_run: dict) -> dict:
     """(e) qwen3-1.7b at 28 layers on the async scheduler: phase 3's 8
     requests at the default chunk (64 tokens), slot 0 preempted with spill
     after ten decode steps.  Gates: tokens equal to phase 3's sync fused
     serve; ``prefill_chunks`` >= 8 and ``staged_readahead`` >= 1; the
     window, dispatch and pump start never synchronize (``async_gates``);
     each steady step one device-to-host call besides its seal batches'.
-    Prints both schedulers' unprofiled median and longest step and the
-    idle share of a ``profile_steady_steps`` window beside phase 3's.
-    Returns the launches a step of each kernel."""
+    Prints both schedulers' median and longest step (no profiler window
+    and no second sync serve: the script's time).  Returns the launches
+    a step of each kernel."""
     rec: dict = {}
     alloc0 = host_alloc_stats()
     run = serve_full_width(device, layers=28, engine_kw=ASYNC_KW,
@@ -2849,15 +2965,8 @@ def async_qwen_phase(device, sync_run: dict, sync_profile: dict) -> dict:
             and st["preempted"] == 1 and st["resumed"] == 1):
         raise AssertionError(f"async serve (e): chunks, readahead or the "
                              f"preempt missing: {res}")
-    prof = profile_steady_steps(run["eng"], run["cfg"], run["rng"],
-                                "async fused")
     s = run["summary"]
     del run
-    # the sync serve once more, after the async one (sync, async, sync):
-    # how far step times drift within the call
-    again = serve_full_width(device, layers=28)
-    res["sync_median_step_ms_again"] = again["summary"]["median_step_ms"]
-    del again
     res.update({
         "median_step_ms": {"async": s["median_step_ms"],
                            "sync": sync_run["median_step_ms"]},
@@ -2865,7 +2974,6 @@ def async_qwen_phase(device, sync_run: dict, sync_profile: dict) -> dict:
                         "sync": sync_run["max_step_ms"]},
         "tokens_per_s": {"async": s["tokens_per_s"],
                          "sync": sync_run["tokens_per_s"]},
-        "profile": {"async": prof, "sync": sync_profile},
         "launches_per_step": s["launches_per_step"]})
     print("async serve (e) [qwen3-1.7b, 28 layers] vs phase 3's sync: "
           + json.dumps(res))
@@ -4862,21 +4970,24 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     frozen = drive(dense["eng"], hot_requests(dense["cfg"],
                                               np.random.default_rng(5)))
     frozen["a_median_step_ms"] = dense["summary"]["median_step_ms"]
-    sync_profile = profile_steady_steps(dense["eng"], dense["cfg"],
-                                        dense["rng"], "dense")
+    profile_steady_steps(dense["eng"], dense["cfg"], dense["rng"], "dense")
+    lap("3 fused serve, frozen phase B")
+    # (q) the static analyzer, and the syncs the card reports in steady
+    # decode steps of phase 3's engine against the boundary pass's sites
+    sync_count_phase(dense["eng"], dense["cfg"], dense["rng"])
+    lap("(q) analyzer, syncs")
     verify_packed(dense["snapshot"])
     sync_run = {"tokens": fused_tokens, **dense["summary"],
                 "host_parts": host_medians(sync_parts)}
     del dense
     torch.cuda.empty_cache()
-    lap("3 fused serve, frozen phase B")
     # (e) the same requests on the async scheduler, slot 0 preempted with
     # spill
-    async_per_step = async_qwen_phase(device, sync_run, sync_profile)
+    async_per_step = async_qwen_phase(device, sync_run)
     torch.cuda.empty_cache()
     lap("(e) async serve")
     # (l) the same requests on a 2x2 mesh, every shard on the card
-    mesh_run = mesh_phase(device, fused_tokens, sync_run, sync_profile)
+    mesh_run = mesh_phase(device, fused_tokens, sync_run)
     torch.cuda.empty_cache()
     lap("(l) mesh serve")
     # the CPU sides of phase 10 and (d) run from here on, in the

@@ -68,6 +68,9 @@ def _dtype_name(dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+# apack: allow-transfer(preempt event: a recurrent-state snapshot
+# (PagedKVCache.snapshot_state) pulls at most 2^20 bytes a plane to fit its
+# tables, once a preemption; never in a steady decode step)
 def plane_samples(x, table_mode: str = "activation") -> list:
     """The host bytes each byte plane's table is fitted to, per plane:
     the first 2^20 bytes of the plane (``"activation"``) or the whole
@@ -99,6 +102,9 @@ def fit_table(sample: np.ndarray, table_mode: str = "activation"):
     return table_for(sample, bits=8, is_activation=table_mode == "activation")
 
 
+# apack: allow-transfer(preempt event: the golden backend codes each plane of a
+# snapshot on the host, where the fastpath backend, the serving one, keeps them
+# on the card; a numpy input was never on the card)
 def compress_float(x, elems_per_stream: int = fmt.DEFAULT_ELEMS_PER_STREAM,
                    backend: str = "fastpath", table_mode: str = "activation",
                    device=None, timings: dict | None = None,
@@ -139,6 +145,8 @@ def compress_float(x, elems_per_stream: int = fmt.DEFAULT_ELEMS_PER_STREAM,
                             planes=planes)
 
 
+# apack: allow-transfer(preempt event: a stored plane's packed words come back
+# into the host container, once a snapshot)
 def _stored_plane(col: torch.Tensor,
                   elems_per_stream: int) -> fmt.CompressedTensor:
     """All-streams-stored container (verbatim bit-pack, no AC) of a uint8
@@ -160,6 +168,8 @@ def _stored_plane(col: torch.Tensor,
         stored=np.ones(s, bool))
 
 
+# apack: allow-transfer(resume event (PagedKVCache.restore_state): the golden
+# backend uploads the planes it decoded on the host)
 def decompress_float(cp: CompressedPlanes, backend: str = "fastpath",
                      device=None, timings: dict | None = None
                      ) -> torch.Tensor:

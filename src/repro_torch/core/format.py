@@ -79,6 +79,8 @@ class CompressedTensor:
         return self.original_bits / max(denom, 1)
 
 
+# apack: allow-transfer(preempt event: the golden coder reads its table's host
+# lists, a table that rides beside a snapshot's device planes)
 def _pad_value(table: ApackTable) -> int:
     """A value with maximal probability — cheapest legal padding."""
     counts = np.diff(np.asarray(table.cum))
@@ -146,6 +148,8 @@ def compress(values: np.ndarray, table: ApackTable | None = None,
                             sym_bits=sym_bits, ofs_bits=ofs_bits, stored=stored)
 
 
+# apack: allow-transfer(resume event (PagedKVCache.restore_state): the golden
+# backend's host decoder over a host container)
 def decompress(ct: CompressedTensor) -> np.ndarray:
     """Reference (golden-codec) decompressor."""
     S = ct.n_streams

@@ -308,6 +308,8 @@ def find_table(hist: np.ndarray, bits: int = 8, is_activation: bool = False,
                       mode="activation" if is_activation else "weight")
 
 
+# apack: allow-transfer(seal event: calibration statistics over host histograms
+# and tables, once a sealed batch; never in a steady decode step)
 def expected_bits_per_value(hist: np.ndarray, table: ApackTable) -> float:
     """Entropy-model estimate of coded bits/value for data distributed as
     ``hist`` when coded with ``table``.

@@ -34,6 +34,9 @@ from repro_torch.device import resolve
 from . import ops
 
 
+# apack: allow-transfer(only with timings= (the weight round trip's and a
+# checkpoint's part times): it waits for the card to time a part; the serving
+# path passes none)
 @contextlib.contextmanager
 def timed(timings: dict | None, part: str, device):
     """Add the wall seconds of the block to ``timings[part]``, waiting for
@@ -54,6 +57,8 @@ def timed(timings: dict | None, part: str, device):
         timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
 
 
+# apack: allow-transfer(preempt event and the weight round trip: one pull of
+# the trimmed plane widths, then the planes, into the host container)
 def compress_tensor(values: torch.Tensor, table: ApackTable,
                     bits: int = 8,
                     elems_per_stream: int = fmt.DEFAULT_ELEMS_PER_STREAM,
@@ -71,6 +76,8 @@ def compress_tensor(values: torch.Tensor, table: ApackTable,
             torch.where(ca.stored, 0, (ca.sym_bits + 31) // 32).amax(),
             ((ca.ofs_bits + 31) // 32).amax()]).tolist())
 
+        # apack: allow-transfer(the container's planes, pulled once they are
+        # trimmed: see compress_tensor)
         def host(t):
             return t.cpu().numpy()
         ct = fmt.CompressedTensor(

@@ -68,6 +68,8 @@ class CompressedArrays:
         """Upload a ``core.format.CompressedTensor`` to ``device``."""
         dev = resolve(device)
 
+        # apack: allow-transfer(resume event and the codec's host API: a host
+        # container's planes go up once, before its decode)
         def up(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
         v_min, ol, cum = _ref.table_tensors(ct.table, dev)
@@ -82,6 +84,9 @@ class CompressedArrays:
                    elems_per_stream=ct.elems_per_stream, n_valid=ct.n_valid)
 
 
+# apack: allow-transfer(host inputs only: a tensor returns above unchanged; a
+# numpy array handed to the ops codec's host API goes up once, never on the
+# serving path)
 def _as_tensor(values, device) -> torch.Tensor:
     if isinstance(values, torch.Tensor):
         return values

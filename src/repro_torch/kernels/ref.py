@@ -123,7 +123,7 @@ def read_bits(plane: torch.Tensor, pos: torch.Tensor,
     end).  Shifts: ``off`` < 32, and ``32 - off`` = 32 clears r1 through
     the 32-bit mask, as the reference's guarded shift does."""
     n_words = plane.shape[-2]
-    w = (pos >> 5).unsqueeze(-2) + torch.tensor([[0], [1]], device=pos.device)
+    w = (pos >> 5).unsqueeze(-2) + torch.arange(2, device=pos.device)[:, None]
     r = torch.gather(plane, -2, w.clamp(0, n_words - 1))
     r = torch.where(w < n_words, r, 0)
     off = pos & 31

@@ -658,11 +658,11 @@ def _head_parts(params: dict, h: torch.Tensor, devs: list) -> list:
     if w.shape[vdim] % n:
         devs, n = devs[:1], 1
     out = []
-    for j, dev in enumerate(devs):
+    for j, (dev, (hj, h32)) in enumerate(zip(devs,
+                                             m.column_inputs(h, devs))):
         wj = _take(w, dev, vdim, j, n)
-        hj = h.to(dev)
-        out.append((m.proj(hj, wj) if vdim else m.matmul(hj, wj.t()))
-                   .to(F32))
+        col = m.ColumnShard(wj if vdim else wj.t(), hj, h32)
+        out.append(m.matmul(hj, col).to(F32))
     return out
 
 
@@ -812,6 +812,7 @@ def block_step_paged(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor,
     return (*_ffn_tail(cfg, p, h, inner, hn)[:2], new_kv)
 
 
+# apack: hot-path-root(traced)
 def decode_step_paged(cfg: ModelConfig, params: dict, planes: dict,
                       meta: dict, states: list, tokens: torch.Tensor,
                       pos: torch.Tensor):
@@ -1383,6 +1384,10 @@ class PagedKVCache:
                 if attempt == self.transfer_retries:
                     raise
 
+    # apack: allow-transfer(sole accounted d2h funnel: every pull of the
+    # serving path (the async step's tokens, seal bit counts, re-pack verdicts,
+    # spills, prefill first tokens) rides this wrapper and counts in
+    # transfers['d2h_calls'])
     def _fetch(self, t):
         """Device -> host with accounting, one call: a tensor comes back as
         a numpy array, a dict of tensors as a dict of arrays, moved as one
@@ -2115,6 +2120,9 @@ class PagedKVCache:
         return {"items": items, "gens": new, "pull": pull,
                 "old_bytes": pool.page_bytes(np.asarray(pids, np.int64))}
 
+    # apack: allow-transfer(budgeted re-pack event: host bookkeeping once the
+    # step's pull is back; the job carries host arrays (items, generations, old
+    # bytes) beside the device pull already fetched)
     def finish_repack(self, job: dict, pulled: dict) -> int:
         """Host half of a re-pack batch, once its pull is back: stamp the
         swapped pages' generation, bit count and (with

@@ -183,6 +183,8 @@ def proj(x: torch.Tensor, w, n_contract: int = 1,
     in ``out_dtype`` (see ``matmul``; the weight is cast first, as the JAX
     package's ``proj`` does; a weight already in x's dtype is not
     copied)."""
+    if isinstance(w, ColumnShard):
+        return w.proj(x, n_contract, out_dtype)
     if isinstance(w, PackedWeight):
         if w.n_contract != n_contract:
             raise ValueError(f"packed weight contracts {w.n_contract} axes, "
@@ -205,37 +207,110 @@ def matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
     PyTorch's CPU bf16 GEMM rounds differently in the last bit, and that
     bit changes int8 KV values downstream.  ``out_dtype=F32`` keeps the
     f32 product unrounded (a row-parallel partial output, ``tp_site``)."""
+    if isinstance(b, ColumnShard):
+        return b.matmul(a, out_dtype)
     b = b.to(a.dtype)
     if out_dtype == F32:
-        return _F32Product.apply(a, b)
+        return _F32Product.apply(a, b, None)
     if a.device.type == "cpu":
         return torch.matmul(a.to(F32), b.to(F32)).to(a.dtype)
     return torch.matmul(a, b)
 
 
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D operands of one dtype as the unrounded f32
+    product: on the card a bf16 GEMM with an f32 output, on the CPU the
+    product of f32 casts (a bf16 product is exact in f32)."""
+    if a.device.type == "cpu" or a.dtype == F32:
+        return torch.mm(a.to(F32), b.to(F32))
+    return torch.mm(a, b, out_dtype=F32)
+
+
 class _F32Product(torch.autograd.Function):
-    """``a @ b`` [..., K] x [K, N] of bf16 operands as their unrounded f32
-    product, its gradients in f32 rounded once to the operands' dtype (as
-    autograd through the f32 casts gives them), saving the bf16 operands
-    where autograd would keep f32 copies of the activations and weights
-    (6.6 GB more peak at qwen3-1.7b's 28 layers on a one-card 2 x 2
-    mesh, NVIDIA H100 80GB HBM3)."""
+    """``a @ b`` [..., K] x [K, N] of bf16 operands with one side in f32,
+    unrounded, saving the bf16 operands where autograd would keep f32
+    copies of the activations and weights (6.6 GB more peak at
+    qwen3-1.7b's 28 layers on a one-card 2 x 2 mesh, NVIDIA H100 80GB
+    HBM3).  The weight's gradient rounds once to b's dtype.
+
+    ``a32`` None (a row-parallel partial output, ``tp_site``): the
+    product comes back in f32 and a's gradient rounds once to a's dtype.
+    ``a32`` the f32 copy of ``a`` (a column-parallel projection,
+    ``ColumnShard``): the product is ``matmul``'s in a's dtype, and a's
+    gradient ``dy W^T`` goes to ``a32`` unrounded, since one device
+    contracts the whole output width and rounds it once, where a shard's
+    partial rounded before the shard-order sum would round it once a
+    shard (and once more a sum)."""
 
     @staticmethod
-    def forward(ctx, a, b):
+    def forward(ctx, a, b, a32):
         ctx.save_for_backward(a, b)
+        ctx.column = a32 is not None
+        if ctx.column:
+            return matmul(a, b)
         return torch.matmul(a.to(F32), b.to(F32))
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
+        a2, g2 = a.reshape(-1, a.shape[-1]), g.reshape(-1, g.shape[-1])
         ga = gb = None
+        if ctx.column:
+            if ctx.needs_input_grad[2]:
+                ga = _mm32(g2, b.t()).reshape(*g.shape[:-1], b.shape[0])
+            if ctx.needs_input_grad[1]:
+                gb = matmul(a2.t(), g2)
+            return None, gb, ga
         if ctx.needs_input_grad[0]:
             ga = torch.matmul(g, b.to(F32).t()).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            gb = torch.matmul(a.reshape(-1, a.shape[-1]).to(F32).t(),
-                              g.reshape(-1, g.shape[-1])).to(b.dtype)
-        return ga, gb
+            gb = torch.matmul(a2.to(F32).t(), g2).to(b.dtype)
+        return ga, gb, None
+
+
+class ColumnShard:
+    """A column-parallel weight (q/k/v, the FFN's gate and up, the RG-LRU's
+    x and gate, the vocabulary-parallel head) of one model shard in the
+    sharded train step, bound to the shard's copy of the site input: ``x``
+    as the layer reads it and ``x32``, its f32 copy from
+    ``sharding.broadcast``.  ``proj``/``matmul`` of ``x`` by it run
+    ``_F32Product`` on ``x32``, so the input's gradient reaches the
+    shard-order sum in f32 and rounds once, as one device's does.  Any
+    other input, contraction or output dtype is refused: the weight
+    belongs to that one input."""
+
+    def __init__(self, w: torch.Tensor, x: torch.Tensor, x32: torch.Tensor):
+        self.w, self.x, self.x32 = w, x, x32
+
+    def _check(self, a, n_contract: int, out_dtype) -> None:
+        if a is not self.x or n_contract != 1 or out_dtype is not None:
+            raise ValueError("a column shard multiplies the site input it "
+                             "was bound to, contracting one axis, in its "
+                             "dtype")
+
+    def matmul(self, a: torch.Tensor, out_dtype=None) -> torch.Tensor:
+        return self.proj(a, 1, out_dtype)
+
+    def proj(self, x: torch.Tensor, n_contract: int = 1,
+             out_dtype=None) -> torch.Tensor:
+        self._check(x, n_contract, out_dtype)
+        w2 = self.w.reshape(self.w.shape[0], -1).to(x.dtype)
+        y = _F32Product.apply(x, w2, self.x32)
+        return y.reshape(*y.shape[:-1], *self.w.shape[1:])
+
+
+# the column-parallel weights of the TP sites (``tp_site``)
+COLUMN_KEYS = frozenset({"wq", "wk", "wv", "w_up", "w_gate", "w_x"})
+
+
+def column_inputs(x: torch.Tensor, devices: list) -> list:
+    """The shards' copies of a column-parallel site input ``x``: ``(xj,
+    xj32)`` a device, ``xj32`` from ``sharding.broadcast`` of x's f32
+    value (its gradient the shards' f32 sum in shard order, rounded once
+    to x's dtype) and ``xj`` its cast back, the bf16 the layer reads."""
+    from .sharding import broadcast
+    return [(x32.to(x.dtype), x32)
+            for x32 in broadcast(x.to(F32), devices)]
 
 
 # ------------------------------------------------------- model shards
@@ -259,14 +334,21 @@ def tp_site(fn, p, x: torch.Tensor, cfg: ModelConfig, **kw):
     summed in shard order on the lead device (``psum``) and rounded once
     to x's dtype, as the single-device product rounds once, so the
     residual is whole there; the layer's decode cache is dropped
-    (training keeps none).  Partials rounded to bf16 before the sum (as
+    (training keeps none).  x reaches the shards through
+    ``column_inputs``, its column-parallel projections through
+    ``ColumnShard``: its gradient, too, is the shards' f32 sum in shard
+    order, rounded once.  Partials rounded to bf16 before the sum (as
     a bf16 all-reduce would) move the residual by a bf16 ulp here and
     there, enough to flip an MoE routing choice downstream."""
     if not isinstance(p, ModelShards):
         return fn(p, x, cfg, **kw)
     from .sharding import psum
-    outs = [fn(pj, x.to(dev), cj, out_dtype=F32, **kw)
-            for pj, cj, dev in zip(p.parts, p.cfgs, p.devices)]
+    outs = []
+    for pj, cj, (xj, x32) in zip(p.parts, p.cfgs,
+                                 column_inputs(x, p.devices)):
+        pj = {k: ColumnShard(w, xj, x32) if k in COLUMN_KEYS else w
+              for k, w in pj.items()}
+        outs.append(fn(pj, xj, cj, out_dtype=F32, **kw))
     if isinstance(outs[0], tuple):
         return psum([o[0] for o in outs], p.lead).to(x.dtype), None
     return psum(outs, p.lead).to(x.dtype)
@@ -411,6 +493,7 @@ def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+# apack: hot-path-root(traced)
 def paged_attention_step(p: dict, x: torch.Tensor, planes,
                          meta: dict, pos: torch.Tensor, cfg: ModelConfig):
     """Single-token decode step of one global layer against the paged APack
@@ -1395,6 +1478,9 @@ class KVPagePool:
         """A data shard's lead device (its model shard 0)."""
         return self.devices[shard][0]
 
+    # apack: allow-transfer(seal and re-pack events: the ids are host rows
+    # that travel in index()'s groups beside their device ids; the upload
+    # is to_device's pinned copy, no wait)
     def _idx(self, pids) -> torch.Tensor:
         """Page ids as a device index tensor, uploaded without a stream
         wait (``to_device``)."""
@@ -1481,12 +1567,14 @@ class KVPagePool:
                 v = v.index_select(1, to_device(rows, v.device))
             for j in range(self.n_model):
                 dev = self.devices[s][j]
+                if not torch.is_tensor(v):
+                    # a scalar fills in place (no upload of it, no wait)
+                    self.parts[s][j][field].index_fill_(1, loc[j], v)
+                    continue
                 vj = v
-                if torch.is_tensor(v):
-                    if ax is not None and self.n_model > 1:
-                        vj = v.narrow(ax, j * hl, hl)
-                    vj = vj.to(dev)
-                self.parts[s][j][field][:, loc[j]] = vj
+                if ax is not None and self.n_model > 1:
+                    vj = v.narrow(ax, j * hl, hl)
+                self.parts[s][j][field][:, loc[j]] = vj.to(dev)
 
     def free(self, pids) -> None:
         """Return pages to their shards' free lists and scrub their payload,
@@ -1681,8 +1769,11 @@ class KVPagePool:
                                       part["tok_scale"][:, loc[j]])
                 part["cold_q"][:, loc[j]] = qj
                 part["page_scale"][:, loc[j]] = scj
-                part["tok_q"][:, loc[j]] = 0
-                part["tok_scale"][:, loc[j]] = 0
+                # index_fill_, not ``[:, loc] = 0``: a Python scalar stored
+                # through a tensor index is uploaded as a tensor from
+                # pageable memory, which waits for the stream
+                part["tok_q"].index_fill_(1, loc[j], 0)
+                part["tok_scale"].index_fill_(1, loc[j], 0)
                 parts.append(qj)
             blocks.append((rows, all_gather(parts, 3, self.device)))
         self.state[pids] = PAGE_COLD

@@ -148,6 +148,33 @@ def psum(parts: list, device) -> torch.Tensor:
     return out
 
 
+class _Broadcast(torch.autograd.Function):
+    """``x``'s copies on ``devices``, one output a consumer; the backward
+    gets every consumer's gradient in one call and sums them in shard
+    order (``psum``) on ``x``'s device.  Autograd's own accumulation of
+    several uses adds them as they arrive, and on several cards they
+    arrive in an order that varies from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, *devices):
+        ctx.device = x.device
+        return tuple(x.to(d, copy=True) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        got = [g for g in grads if g is not None]
+        return (psum(got, ctx.device) if got else None,
+                *([None] * len(grads)))
+
+
+def broadcast(x: torch.Tensor, devices: list) -> list:
+    """``x`` on each of ``devices`` (a copy each, also on ``x``'s own),
+    its gradient the shard-order sum of the copies' (``psum``)."""
+    if not x.requires_grad:
+        return [x.to(d) for d in devices]
+    return list(_Broadcast.apply(x, *devices))
+
+
 def pmax(parts: list, device) -> torch.Tensor:
     """The shards' tensors' elementwise maximum, on ``device``."""
     out = parts[0].to(device)

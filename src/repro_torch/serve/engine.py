@@ -745,6 +745,9 @@ class ServeEngine:
         self._pump.pop(rid, None)
         for s, r in enumerate(self.active):
             if r is req:
+                # apack: allow-phase(overlap-reachable only via readahead
+                # staging, which fails parked/spilled requests; a request bound
+                # to an in-flight slot never takes this path)
                 self.active[s] = None
         try:
             self.queue.remove(req)
@@ -752,6 +755,9 @@ class ServeEngine:
             pass
         if self.paged:
             if rid in self.kv.page_tables:
+                # apack: allow-phase(releases the pages of a parked request
+                # that readahead failed; the in-flight step holds no slot of it
+                # and reads none of them)
                 self.kv.release(rid)
             if rid in self._reserved:
                 self._unreserve(rid)
@@ -847,7 +853,10 @@ class ServeEngine:
                 self.kv.write_state_slot(slot, req.rid)
         else:
             self._write_prefill_cache(slot, caches)
-        next_tok = int(logits[0, -1].argmax())   # admission event
+        # apack: allow-transfer(admission event: the first token of a sync
+        # prefill, one pull when the request is admitted; not in the steady
+        # decode loop)
+        next_tok = int(logits[0, -1].argmax())
         req.tokens.append(next_tok)
         self.active[slot] = req
         self.positions[slot] = s
@@ -950,6 +959,7 @@ class ServeEngine:
         self._fail_request(req, e)
 
     # ------------------------------------------------------------- step
+    # apack: hot-path-root
     def step(self) -> int:
         """One engine iteration (``step`` :895): retire, deadlines, admit,
         decode (the async scheduler: ``_step_async``).  A page that fails
@@ -984,6 +994,7 @@ class ServeEngine:
                 self._on_hung(ev)
         return n_active
 
+    # apack: hot-path-root
     def _launch_fused(self, slot_rids: list) -> torch.Tensor:
         """Enqueue one fused decode step for ``slot_rids`` and its
         on-device append, without waiting for the card: the step meta,
@@ -1066,7 +1077,9 @@ class ServeEngine:
             except PageIntegrityError as e:
                 failure = e
         else:
-            # the step's one sanctioned pull: token ids for EOS/retire
+            # apack: allow-transfer(the step's one sanctioned pull: the greedy
+            # token ids for EOS/retire; a CUDA graph of the step leaves it
+            # outside the graph)
             toks = toks_dev.cpu().numpy()
         self.last_logits = logits
         for slot, req in enumerate(self.active):
@@ -1149,6 +1162,10 @@ class ServeEngine:
         if self.kv_refresh and self._inflight is not None:
             # drift check, refresh and the re-pack launch, once a step as
             # in the sync engine; ``_collect`` pulls the verdicts
+            # apack: allow-phase(refresh swaps only sealed PACKED pages, whole
+            # page and generation at once, and its re-pack launches on the
+            # stream after the step in flight, so that step never reads a
+            # half-swapped page)
             rs = self.kv.refresh_step(self.kv_repack_budget)
             self.stats["kv_refreshes"] += len(rs["refreshed_layers"])
             self._refresh_rs = rs
@@ -1170,6 +1187,9 @@ class ServeEngine:
             p.caches = None
         t1 = min(p.cursor + self.prefill_chunk_tokens, p.s)
         flying = self._inflight is not None
+        # apack: allow-phase(pending request's pages only: the rid has no slot
+        # until admission completes post-collect, so the in-flight step cannot
+        # reference these page tables)
         events = kv.ingest_prefill_chunk(p.req.rid, p.view, p.cursor, t1,
                                          p.s, seal=not flying)
         p.cursor = t1
@@ -1183,9 +1203,13 @@ class ServeEngine:
             self._chunk_seals += events
             self._finished.append(p)
             return
+        # apack: allow-phase(same pending-request argument as the chunk ingest
+        # above: no slot binding exists yet for this rid)
         kv.finish_prefill(p.req.rid, p.view, p.s)
         p.view = None
-        p.tok = int(p.tok_dev)            # nothing in flight to ride
+        # apack: allow-transfer(prefill-completion event with no step in
+        # flight, an idle engine's sync prefill: nothing to ride, one pull)
+        p.tok = int(p.tok_dev)
         p.tok_dev = None
 
     def _stage_readahead(self) -> None:
@@ -1201,6 +1225,9 @@ class ServeEngine:
                     return                 # no headroom this step
                 self._reserve(rid, need)
                 try:
+                    # apack: allow-phase(restores a parked spilled request into
+                    # fresh pool slots; the in-flight step was dispatched
+                    # without this rid and cannot read the new pages)
                     self.kv.unspill_request(rid)
                 except PageIntegrityError as e:
                     self._fail_request(req, e)
@@ -1288,6 +1315,7 @@ class ServeEngine:
                 self._bind_prefilled(free.pop(0), p)
             # a pump still ingesting binds on a later step
 
+    # apack: hot-path-root
     def _dispatch(self) -> None:
         """Enqueue the fused decode step for the current binding and
         return without waiting for it (``_dispatch`` :1230): the step, its
@@ -1300,6 +1328,7 @@ class ServeEngine:
                                    slot_rids=slot_rids, logits=logits,
                                    toks=logits[:, 0].argmax(dim=-1))
 
+    # apack: hot-path-root
     def _collect(self) -> None:
         """Land the step in flight (``_collect`` :1249): one pull brings
         its tokens, the re-pack verdicts of the window's refresh and the

@@ -13,10 +13,14 @@ test_distributed.py:45-56``): params and optimizer state of
 ``sharding.Sharded`` leaves placed by ``param_shardings`` (``init_state``
 lays the moments out as their params), the batch placed by
 ``batch_shardings``.  One controller drives every shard
-(``model.sharded_loss``): each owner block of each param is an autograd
-leaf, so a block's gradient arrives in the block itself, the data-
-parallel sum and the reduce-scatter included; AdamW then updates each
-device's blocks.  Params and state come back in the same layout.
+(``model.sharded_loss``): each read of an owner block (a data group's or
+a model shard's gather of it) is an autograd leaf of its own, and the
+block's gradient is the sum of its reads' gradients in read order
+(``sharding.psum``): the data-parallel sum and the reduce-scatter, in
+shard order as the reference's ``psum`` is, and never left to
+autograd's accumulation, which on several cards adds in the order the
+cards finish.  AdamW then updates each device's blocks.  Params and
+state come back in the same layout.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ import torch
 from repro_torch import tree
 from repro_torch.launch.mesh import train_grid
 from repro_torch.models import model as M
-from repro_torch.models.sharding import Sharded
+from repro_torch.models.sharding import Sharded, _assemble, psum
 from repro_torch.models.config import ModelConfig
 
 from . import optimizer as opt
@@ -61,24 +65,47 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return loss.detach(), tree.unflatten(spec, grads)
 
 
+class _Reads(Sharded):
+    """A param's owner blocks, read as autograd leaves: every ``assemble``
+    (and so every ``gather``) hands out a fresh leaf a block, the block
+    itself on its own device or its copy on the reader's, and keeps
+    ``(owner, leaf)`` in read order."""
+
+    def __init__(self, like: Sharded):
+        super().__init__(like.sharding, like.shape,
+                         {i: like.blocks[i].detach() for i in like.owners})
+        self.reads: list = []
+
+    def assemble(self, device, owners: list) -> torch.Tensor:
+        pieces = {}
+        for idx in owners:
+            leaf = self.blocks[idx].to(device).detach().requires_grad_(True)
+            self.reads.append((idx, leaf))
+            pieces[tuple(s for s, _ in self.slices(idx))] = leaf
+        return _assemble(pieces, device)
+
+
 def sharded_value_and_grad(cfg: ModelConfig, params, rows: list,
                            grid: list):
     """``(loss, grads)`` of ``model.sharded_loss`` over ``params`` (a tree
     of ``Sharded``), ``rows[k]`` data group ``k``'s batch on its lead
     device, ``grid[k]`` its devices by model shard.  The grads are a tree
     of ``Sharded`` holding the owner blocks only (zeros where a block
-    took no part)."""
+    took no part): each the shard-order sum (``psum``, on the block's
+    device) of its reads' gradients."""
     flat, spec = tree.flatten(params)
-    owned = [{i: x.blocks[i].detach().requires_grad_(True)
-              for i in x.owners} for x in flat]
-    diff = [Sharded.from_owners(x, o) for x, o in zip(flat, owned)]
-    loss = M.sharded_loss(cfg, tree.unflatten(spec, diff), rows, grid)
-    order = [(k, i) for k, o in enumerate(owned) for i in o]
-    gs = torch.autograd.grad(loss, [owned[k][i] for k, i in order],
+    taps = [_Reads(x) for x in flat]
+    loss = M.sharded_loss(cfg, tree.unflatten(spec, taps), rows, grid)
+    reads = [(k, i, leaf) for k, t in enumerate(taps) for i, leaf in t.reads]
+    gs = torch.autograd.grad(loss, [leaf for *_, leaf in reads],
                              allow_unused=True)
-    grads = [{} for _ in flat]
-    for (k, i), g in zip(order, gs):
-        grads[k][i] = torch.zeros_like(owned[k][i]) if g is None else g
+    parts = [{i: [] for i in t.blocks} for t in taps]
+    for (k, i, _), g in zip(reads, gs):
+        if g is not None:
+            parts[k][i].append(g)
+    grads = [{i: psum(ps, t.blocks[i].device) if ps
+              else torch.zeros_like(t.blocks[i]) for i, ps in p.items()}
+             for t, p in zip(taps, parts)]
     return loss.detach(), tree.unflatten(spec, [
         Sharded(x.sharding, x.shape, g) for x, g in zip(flat, grads)])
 

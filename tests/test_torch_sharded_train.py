@@ -53,7 +53,7 @@ from repro.train.train_step import make_train_step as jmake_step
 from repro_torch import configs as pconfigs
 from repro_torch import tree
 from repro_torch.ckpt import checkpoint as ckpt
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import make_debug_mesh, train_grid
 from repro_torch.models import model as PM
 from repro_torch.models import modules as pm
 from repro_torch.models import sharding as psh
@@ -70,9 +70,13 @@ NORM_REL = 3e-3
 # a gradient leaf's largest difference from the JAX step's over its
 # largest magnitude (``_grad_bounds``): the single-device step is held
 # to 2e-2 on qwen3, xlstm and dbrx (``test_torch_train.py``), and is
-# 0.0253 off on recurrentgemma's first ``conv_w`` at this batch; the
-# sharded steps measure 0.0139 (qwen3), 0.0103 (xlstm), 0.0131 (dbrx)
-# and 0.0248 (recurrentgemma, that ``conv_w``)
+# 0.0253 off on recurrentgemma's second ``conv_w`` at this batch (qwen3
+# 0.0149, xlstm 0.0124, dbrx 0.0117); the sharded steps, their gradients
+# summed in shard order and the column-parallel input gradients summed
+# in f32 before their one rounding (ROADMAP §3), measure 0.0122 (qwen3
+# 2 x 4), 0.0130 (qwen3 2 x 2 and 4 x 2), 0.0124 (xlstm), 0.0115 (dbrx)
+# and 0.0275 (recurrentgemma, that ``conv_w``; 0.0248 with bf16 partials
+# summed as autograd met them, ROADMAP §3)
 GRAD_SHARE = 3e-2
 CEILING = 5e-2
 
@@ -408,6 +412,106 @@ def test_q8_blocks_straddling_shards_update_gathered(monkeypatch):
     assert s1["m"]["embed"].scale.spec == ("model", None)
     assert float(m1["loss"]) == pytest.approx(jloss, rel=LOSS_REL)
     _param_bounds(psh.gather_tree(p1), jp1, lr, cp)
+
+
+def test_gradient_sums_run_in_shard_order():
+    """A block that several data groups and model shards read gets the
+    shard-order sum (``psum``, in read order) of its reads' gradients,
+    each taken alone by a backward pass of its own, never autograd's
+    accumulation across devices; a second run is bit-equal.
+    qwen3 SMOKE (tied embedding) on 2 x 2: each block of ``embed`` is
+    read by both data groups' embeddings and their vocabulary-parallel
+    heads."""
+    cj, cp, params, toks = _arch("qwen3-1.7b")
+    tp = params_from_numpy(cp, jax.tree.map(np.array, params), "cpu")
+    mesh = make_debug_mesh(2, 2, device="cpu")
+    ps, bs = _on_mesh(cp, tp, {"tokens": torch.from_numpy(toks)}, mesh)
+    grid = [[mesh.devices[i] for i in row] for row in train_grid(mesh)]
+    rows = ts._rows(bs, grid)
+    runs = []
+    for _ in range(2):
+        loss, g = ts.sharded_value_and_grad(cp, ps, rows, grid)
+        runs.append((loss, tree.leaves(g)))
+    (loss, grads), (loss2, grads2) = runs
+    assert torch.equal(loss, loss2)
+    for a, b in zip(grads, grads2):
+        assert all(torch.equal(a.blocks[i], b.blocks[i]) for i in a.blocks)
+    # every read of each block alone, in the forward's read order
+    flat, spec = tree.flatten(ps)
+    taps = [ts._Reads(x) for x in flat]
+    loss3 = PM.sharded_loss(cp, tree.unflatten(spec, taps), rows, grid)
+    assert torch.equal(loss3.detach(), loss)
+    checked = 0
+    for k, t in enumerate(taps):
+        by_owner: dict = {}
+        for i, leaf in t.reads:
+            by_owner.setdefault(i, []).append(leaf)
+        for i, leaves in by_owner.items():
+            if len(leaves) < 3:
+                continue
+            alone = [torch.autograd.grad(loss3, [leaf], retain_graph=True,
+                                         allow_unused=True)[0]
+                     for leaf in leaves]
+            want = psh.psum([a for a in alone if a is not None],
+                            t.blocks[i].device)
+            assert torch.equal(grads[k].blocks[i], want)
+            checked += 1
+    assert checked >= 4          # the four blocks of ``embed``
+
+
+def test_sharded_step_frees_its_trees_without_the_cycle_collector(
+        monkeypatch):
+    """A train step on 2 x 2 leaves no reference cycle behind, so its
+    trees (the reads' copies of every block among their leaves) are freed
+    as it returns.  ``tree.flatten``/``unflatten`` recursed through
+    nested functions, each a cycle with its closure cell that held the
+    leaves until the cyclic collector ran: on four cards the lead card
+    carried the previous step's gathered weights into the next step."""
+    import gc
+    import weakref
+    cj, cp, params, toks = _arch("qwen3-1.7b")
+    tp = params_from_numpy(cp, jax.tree.map(np.array, params), "cpu")
+    mesh = make_debug_mesh(2, 2, device="cpu")
+    ps, bs = _on_mesh(cp, tp, {"tokens": torch.from_numpy(toks)}, mesh)
+    ocfg = AdamWConfig(state_dtype="int8")
+    step = make_train_step(cp, ocfg)
+    st = init_state(ocfg, ps)
+    reads: list = []
+    assemble = ts._Reads.assemble
+
+    def spy(self, device, owners):
+        out = assemble(self, device, owners)
+        reads.extend(weakref.ref(leaf) for _, leaf in self.reads[-1:])
+        return out
+    monkeypatch.setattr(ts._Reads, "assemble", spy)
+    gc.collect()
+    gc.disable()
+    try:
+        with psh.mesh_context(mesh):
+            ps, st, _ = step(ps, st, bs)
+        assert reads and all(r() is None for r in reads)
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
+
+
+def test_column_parallel_input_gradients_round_once():
+    """The gradient of a column-parallel site's input (the
+    vocabulary-parallel head's here) is the model shards' f32 partials
+    summed in shard order and rounded once, as one device rounds its
+    whole product once.  qwen3 SMOKE on 1 x 2 against the port on one
+    device: ``final_norm``'s gradient, which the head's input gradient
+    alone feeds, within 2e-4 of its largest magnitude (4.3e-5 measured;
+    1.5e-3 with each shard's partial rounded to bf16 before the sum)."""
+    cj, cp, params, toks = _arch("qwen3-1.7b")
+    tp = params_from_numpy(cp, jax.tree.map(np.array, params), "cpu")
+    batch = {"tokens": torch.from_numpy(toks)}
+    _, one = ts.grads(cp, tp, batch)
+    ps, bs = _on_mesh(cp, tp, batch, make_debug_mesh(1, 2, device="cpu"))
+    _, got = ts.grads(cp, ps, bs)
+    a = got["final_norm"].gather()
+    b = one["final_norm"]
+    assert float((a - b).abs().max() / b.abs().max()) <= 2e-4
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m",
