@@ -175,7 +175,7 @@ Phases (any failure exits non-zero):
    (g) minitron-8b at published widths and depth (32 layers, d_model
    4096, GQA 32/8, squared-ReLU d_ff 16384, untied head, vocab 256000;
    7.7 G params, 30.9 GB f32 drawn from seed 0): the fused serve of phase
-   3's requests from a bf16 copy cut to ``MINITRON_FUSED_LAYERS`` (16)
+   3's requests from a bf16 copy cut to ``MINITRON_FUSED_LAYERS`` (8)
    layers, with a profiler window, then from packed weights at 32 layers
    (the head through kernel 5): layer 0's
    sites and the head against f32 and f64 products, ``weight_stats()``,
@@ -228,7 +228,15 @@ Phases (any failure exits non-zero):
    256: finite losses and grads, the step's ms; (o) xlstm-125m's params
    saved compressed from a 2x2 mesh and from one device (files byte-equal)
    and restored onto 1x4, 4x1 and one device, bit-equal, with the save
-   and restore seconds and kernels 2 and 1's launches;
+   and restore seconds and kernels 2 and 1's launches; (r) the dry run
+   on the card: qwen3-1.7b at published widths and depth, a decode cell
+   (32,768 positions, 8 rows) and a prefill cell (32,768 tokens, one row)
+   on a 1x1 mesh of the card, each built by ``launch.specs.build_cell``
+   twice, counted once with fake tensors and once run on the card under
+   the same ``launch.costs.CostCounter``: the counts equal op by op, the
+   argument bytes within ``ARG_REL`` of the allocator's after placement,
+   the counted peak within ``PEAK_BAND`` of ``max_memory_allocated``; the
+   median call's ms printed beside the estimate (``DRYRUN_CELLS``);
 10. check SMOKE-width engines (fused, packed, oracle, dense int8 and bf16
     caches, and the fused one on round-tripped weights, whose
     ``compress_params`` containers must match too; and fused, oracle and
@@ -304,7 +312,7 @@ XLSTM = "xlstm-125m"              # mLSTM/sLSTM layers: no KV pages
 # fused serve in (g), cut so that the script stays within its time with
 # the training phases
 RG_LAYERS = 14
-MINITRON_FUSED_LAYERS = 16
+MINITRON_FUSED_LAYERS = 8
 F64_ERR_RATIO = 4.0               # kernel vs f64 <= this x cuBLAS f32 vs f64
 RMS_DRIFT_RATIO = 1.5             # packed drift <= this x f32 oracle's drift
 # (bits, streams) of the codec at the weight round trip's shape: a stacked
@@ -4241,9 +4249,10 @@ TRAIN_MESH = (2, 2)
 # device, the batch in two microbatches: the same sums in another order)
 # by more than SHARDED_SHARE_SLACK.  On the card (NVIDIA H100 80GB HBM3,
 # 700.00 W) the share was 0.9572 against the control's 0.9838 (the
-# deepest layers' wq lowest), and the largest gradient leaf's distance
-# 0.0311 of its norm (the deepest q_norm, a sum over every token and
-# head)
+# deepest layers' wq lowest) while the row-parallel partials were summed
+# over the shards, 0.9837 with one product on the lead
+# (``modules.tp_site``), and the largest gradient leaf's distance 0.0311
+# of its norm (the deepest q_norm, a sum over every token and head)
 SHARDED_LOSS_REL = 1e-3
 SHARDED_GRAD_REL = 5e-2
 SHARDED_PARAM_LR = 2.02
@@ -4421,6 +4430,116 @@ def sharded_train_phase(device, first: dict) -> dict:
     if max(per_p.values()) >= single["params"] or \
             max(per_m.values()) >= single["moments"]:
         raise AssertionError("sharded train: a device holds the whole tree")
+    return out
+
+
+# (r): qwen3-1.7b at published widths and depth on a 1x1 mesh of the
+# card, each cell through ``specs.build_cell`` twice: counted with fake
+# tensors (``launch.dryrun``'s mode, a 1x1 mesh of ``meta:0``) and run on
+# the card under the same counter.  A decode cell of ``decode_32k``'s
+# depth at 8 of its 128 rows (a 30 GB bf16 cache) and a prefill cell of
+# ``prefill_32k``'s length at one row.  Gates: the counts equal op by op
+# (calls, FLOPs, bytes); the placed trees' bytes within ARG_REL of what
+# the allocator holds after placement; the counted peak within PEAK_BAND
+# of ``max_memory_allocated`` over the call: on the card (NVIDIA H100
+# 80GB HBM3, 700.00 W) the counted peak lay 0.09% (decode) and 0.008%
+# (prefill) under the allocator's, which rounds each block up to 512 bytes
+# and holds cuBLAS's workspace, neither of which the counter sees, and the
+# argument bytes 0.003% and 0.015% under it.  The median of a cell's timed
+# calls (the last entry of DRYRUN_CELLS; none for the 16 s prefill, whose
+# counted call is timed instead, the counter's host work over its 151,194
+# ops included) is printed beside ``max(compute_s, memory_s)`` at the
+# H100's peaks, not gated.
+DRYRUN_CELLS = (("decode", 32_768, 8, 3), ("prefill", 32_768, 1, 0))
+ARG_REL = 0.01
+PEAK_BAND = (0.98, 1.01)
+
+
+def dryrun_phase(device) -> dict:
+    """(r) the dry run held against the card (``DRYRUN_CELLS``)."""
+    import numpy as np
+    import torch
+    from repro_torch.device import fake_device
+    from repro_torch.launch import costs, dryrun, specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.config import ShapeConfig
+    out = {}
+    for kind, seq, rows, calls in DRYRUN_CELLS:
+        shape = ShapeConfig(f"{kind}_32k", kind, seq, rows)
+        t0 = time.perf_counter()
+        fmesh = Mesh(np.array([[fake_device(0)]], dtype=object))
+        with dryrun.fake_mode(), sh.mesh_context(fmesh):
+            frec, _ = dryrun.count_cell("qwen3-1.7b", shape, fmesh, {},
+                                        global_batch=rows)
+        count_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        mesh = Mesh(np.array([[device]], dtype=object))
+        with sh.mesh_context(mesh):
+            cell = specs.build_cell("qwen3-1.7b", shape, mesh,
+                                    global_batch=rows)
+            specs.fill(cell, torch.Generator(device=device).manual_seed(0))
+            torch.cuda.synchronize()
+            args = specs.arg_bytes(cell)
+            placed = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            counter = costs.CostCounter(args)
+            with counter:
+                t1 = time.perf_counter()
+                res = cell.fn()
+                torch.cuda.synchronize()
+                counted_ms = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+            logits = res[0]
+            finite = bool(torch.isfinite(logits).all())
+            shape_ok = tuple(logits.shape) == (rows, 1, cell.cfg.vocab_size)
+            del res, logits
+            ms = []
+            for _ in range(calls):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res = cell.fn()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t1) * 1e3)
+                del res
+        rrec = counter.record()
+        fops, rops = costs.by_op(frec), costs.by_op(rrec)
+        parted = {k: (fops.get(k), rops.get(k))
+                  for k in set(fops) | set(rops) if fops.get(k) != rops.get(k)}
+        roof = costs.roofline(frec, dryrun.H100)
+        est_peak = max(frec["peak"].values())
+        r = {"rows": rows, "seq": seq, "count_s": count_s,
+             "ops": sum(v[0] for v in fops.values()),
+             "flops": sum(v[1] for v in fops.values()),
+             "bytes": sum(v[2] for v in fops.values()),
+             "ops_parted": parted,
+             "argument_bytes": sum(args.values()), "placed_bytes": placed,
+             "estimated_peak_bytes": est_peak, "card_peak_bytes": peak,
+             "peak_ratio": est_peak / max(peak, 1),
+             "median_ms": float(np.median(ms)) if ms else counted_ms,
+             "ms": ms, "counted_ms": counted_ms,
+             "estimate_ms": max(roof["compute_s"], roof["memory_s"]) * 1e3,
+             "compute_ms": roof["compute_s"] * 1e3,
+             "memory_ms": roof["memory_s"] * 1e3, "finite": finite}
+        print(f"dry run (r) [qwen3-1.7b {kind}, 28 layers, {rows} x {seq}, "
+              "1x1 on the card]: " + json.dumps(r))
+        del cell, counter
+        torch.cuda.empty_cache()
+        if parted:
+            raise AssertionError(f"dry run (r) {kind}: the fake and the "
+                                 f"card's counts part: {parted}")
+        if abs(r["argument_bytes"] - placed) > ARG_REL * placed:
+            raise AssertionError(f"dry run (r) {kind}: argument bytes "
+                                 f"{r['argument_bytes']} vs {placed} placed")
+        if not PEAK_BAND[0] <= r["peak_ratio"] <= PEAK_BAND[1]:
+            raise AssertionError(f"dry run (r) {kind}: estimated peak "
+                                 f"{est_peak} vs the card's {peak}")
+        if not (finite and shape_ok):
+            raise AssertionError(f"dry run (r) {kind}: logits not finite "
+                                 "or of the wrong shape")
+        out[kind] = r
     return out
 
 
@@ -5132,6 +5251,9 @@ def card_phases(t_script: float, twins_run: dict) -> int:
     # (o) a checkpoint saved from a 2x2 mesh restored onto other meshes
     elastic = elastic_restore_phase(device)
     lap("(o) elastic restore")
+    # (r) the dry run's counts against the card's memory and time
+    dryrun_phase(device)
+    lap("(r) dry run on the card")
     twins = wait_cpu_twins(twins_run["proc"], twins_path)
     lap("10 wait for the CPU twins")
     tokens = {key: smoke_vs_cpu(device, twins, key)

@@ -114,6 +114,16 @@ def launch(fn, *args, on) -> int:
         return fn(*args, stream_of(on))
 
 
+def refuse_fake(what: str, *tensors) -> None:
+    """Raise where a fake tensor (the dry run's ``FakeTensorMode``)
+    reaches a kernel wrapper: the dry run launches no kernel, and the
+    plain version's route is for CPU tensors only."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError(f"{what}: a fake tensor reached the kernel "
+                           "wrapper; the dry run runs no kernel")
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if rc != 0:

@@ -66,6 +66,7 @@ def decode(sym: torch.Tensor, ofs: torch.Tensor, stored: torch.Tensor,
     a CUDA tensor launches the kernel or raises.  The launch is the call's
     only device work: a shared table row and int32 rows are read where they
     lie, and bool, uint8 or int32 stored flags as they are."""
+    _build.refuse_fake("decode", sym, ofs, stored, v_min, ol, cum)
     if not 1 <= bits <= 16:
         raise ValueError(f"decode: bits={bits} outside [1, 16]")
     if sym.device.type == "cpu":

@@ -34,6 +34,7 @@ def encode(values: torch.Tensor, v_min: torch.Tensor, ol: torch.Tensor,
     the u32 words in int32 tensors; ``Ws``/``Wo`` are
     ``ref.sym_capacity_words``/``ref.ofs_capacity_words``.  A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises."""
+    _build.refuse_fake("encode", values, v_min, ol, cum)
     if values.device.type == "cpu":
         return encode_plain(values, v_min, ol, cum, n_steps=n_steps,
                             bits=bits)

@@ -201,6 +201,7 @@ def compressed_matmul(x: torch.Tensor, cw: CompressedLinear, *,
     (CUDA only, for timing the kernel's parts) runs the kernel up to the
     copy of the planes into shared memory and returns an unwritten
     output; it is not counted as a launch."""
+    _build.refuse_fake("compressed_matmul", x, cw.sym_plane, cw.scale)
     if x.dim() != 2 or x.shape[1] != cw.k:
         raise ValueError(f"x shape {tuple(x.shape)}, expected [M, {cw.k}]")
     if x.device.type == "cpu":

@@ -254,6 +254,8 @@ def fused_page_attention(q: torch.Tensor, page_idx: torch.Tensor,
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises.  Past ``MAX_BLOCK_VALUES`` query-head values a page, the
     kernel splits the KV heads over blocks (``heads_per_block``)."""
+    _build.refuse_fake("fused_page_attention", q, page_idx, table_idx,
+                       meta, jobmeta, *planes.values())
     if q.device.type == "cpu":
         return fused_page_attention_plain(q, page_idx, table_idx, meta,
                                           jobmeta, planes, n_steps=n_steps,

@@ -132,6 +132,8 @@ def gather_decode(sym: torch.Tensor, ofs: torch.Tensor, stored: torch.Tensor,
     checked with one pull of their ranges, which waits for the card.  A CPU
     plane tensor takes the plain version; a CUDA one launches the kernel or
     raises."""
+    _build.refuse_fake("gather_decode", sym, ofs, stored, page_idx,
+                       table_idx, v_min, ol, cum)
     if not 1 <= bits <= 16:
         raise ValueError(f"gather_decode: bits={bits} outside [1, 16]")
     if v_min.dim() == 1:
@@ -184,6 +186,8 @@ def launch_gather_decode(sym: torch.Tensor, ofs: torch.Tensor,
     checks, on CUDA tensors only, with the ids already on the card and in
     range and the tables stacked [T, ...].  It issues no host sync, so a
     CUDA graph can capture it (``chip_smoke.py`` times it so)."""
+    _build.refuse_fake("launch_gather_decode", sym, ofs, stored,
+                       page_idx, table_idx, v_min, ol, cum)
     if sym.device.type != "cuda":
         raise ValueError(f"gather_decode: unsupported device {sym.device}")
     p, ws, s = sym.shape

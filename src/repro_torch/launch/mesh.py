@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.device import resolve
+from repro_torch.device import fake_device, resolve
 
 
 class Mesh:
@@ -104,13 +104,20 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
     return Mesh(np.full((n_data, n_model), resolve(device), dtype=object))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         fake: bool = False) -> Mesh:
     """The production mesh, 16 x 16 (2 x 16 x 16 with ``multi_pod``) over
     as many CUDA devices; raises where the host has fewer.  It never folds
-    shards onto fewer cards."""
+    shards onto fewer cards.  ``fake``: the dry run's mesh over as many
+    fake devices (``device.fake_device``), on any host: tensors made on
+    them under the dry run's fake tensor mode allocate nothing and keep
+    their device's index."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     need = int(np.prod(shape))
+    if fake:
+        return Mesh(np.array([fake_device(i) for i in range(need)],
+                             dtype=object).reshape(shape), axes)
     have = torch.cuda.device_count()
     if have < need:
         raise RuntimeError(f"the production mesh {shape} needs {need} CUDA "

@@ -143,3 +143,19 @@ class ModelConfig:
         inactive = (self.num_experts - self.num_experts_per_tok)
         per_expert = 3 * self.d_model * self.moe_d_ff
         return full - moe_layers * inactive * per_expert
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the dry run (``ShapeConfig`` :145)."""
+    name: str
+    kind: str                 # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)

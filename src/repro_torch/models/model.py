@@ -47,7 +47,9 @@ store split by batch, ``enable_device_pool``), ``build_sharded_step`` :750, ``de
 ``jax.jit(..., in_shardings=...)``): each data group's rows, each layer's
 weights gathered over fsdp where it runs (no remat), the TP sites over
 the model axis (``_layer_view``), the vocabulary-parallel head and loss
-(``vocab_parallel_sums``).
+(``vocab_parallel_sums``).  The reference's prefill and dense-cache decode
+cells on that mesh (``launch/specs.py:153-180``): ``sharded_prefill`` and
+``sharded_decode_step``, from the same pieces.
 """
 from __future__ import annotations
 
@@ -613,17 +615,22 @@ def _site(cfg: ModelConfig, site: str, p: dict, devs: list, lead):
     return m.ModelShards(parts, [sub] * n, devs, lead)
 
 
-def _layer_view(cfg: ModelConfig, kind: str, blk: dict, devs: list, lead):
-    """One layer's params for a data shard: the TP sites (attention heads,
-    RG-LRU width, dense FFN hidden) as ``ModelShards`` where the storage
-    splits them over the model axis; the norms, the MoE, mLSTM and sLSTM
-    layers whole on the data shard's lead device (item 1.10c)."""
+_ALL_SITES = frozenset(_TP_SITES)
+
+
+def _layer_view(cfg: ModelConfig, kind: str, blk: dict, devs: list, lead,
+                sites=_ALL_SITES):
+    """One layer's params for a data shard: the TP sites of ``sites``
+    (attention heads, RG-LRU width, dense FFN hidden) as ``ModelShards``
+    where the storage splits them over the model axis; the norms, the MoE,
+    mLSTM and sLSTM layers and any other site whole on the data shard's
+    lead device (item 1.10c)."""
     out = {}
     for key, sub in blk.items():
         site = ("attention" if key == "inner" and kind in ATTN_KINDS else
                 "recurrent" if key == "inner" and kind == "recurrent" else
                 "mlp" if key == "ffn" and "router" not in sub else None)
-        out[key] = (_whole(sub, lead) if site is None
+        out[key] = (_whole(sub, lead) if site not in sites
                     else _site(cfg, site, sub, devs, lead))
     return out
 
@@ -706,6 +713,295 @@ def sharded_loss(cfg: ModelConfig, params: dict, rows: list,
     denom = torch.clamp_min(count, 1.0)
     total = nll / denom + 1e-4 * z / denom
     return _with_aux(total, aux)
+
+
+# ------------------------------------- prefill and decode on a mesh
+def _groups(mesh) -> list:
+    """``(coords, devices)`` of each data group of a training mesh
+    (``train_grid``): its mesh coordinates and devices by model shard."""
+    from repro_torch.launch.mesh import train_grid
+    return [(row, [mesh.devices[c] for c in row]) for row in train_grid(mesh)]
+
+
+def _split_rows(leaf) -> bool:
+    """Whether a placed batch leaf's rows split over the data groups."""
+    return leaf.spec[0] is not None if leaf.spec else False
+
+
+def _group_rows(cfg: ModelConfig, mesh, batch: dict) -> list:
+    """``(coords, devices, rows)`` of each data group that runs: ``rows``
+    its block of each placed batch leaf (the batch's rows of the group,
+    every row where they do not split) on its lead device, and ``"rows"``
+    their ``(start, count)``.  An MoE config runs one group on every row,
+    gathered on its lead (``train_step.grads``)."""
+    groups = _groups(mesh)
+    if cfg.num_experts:
+        coords, devs = groups[0]
+        out = {k: v.gather(devs[0]) if v.ndim and _split_rows(v)
+               else v.blocks[coords[0]] for k, v in batch.items()}
+        n = next(v.shape[0] for v in batch.values() if v.ndim)
+        return [(coords, devs, {**out, "rows": (0, n)})]
+    out = []
+    for coords, devs in groups:
+        b = {k: v.blocks[coords[0]] for k, v in batch.items()}
+        first = next(k for k, v in batch.items() if v.ndim)
+        rows = batch[first].slices(coords[0])[0]
+        out.append((coords, devs, {**b, "rows": rows}))
+    return out
+
+
+def sharded_prefill(cfg: ModelConfig, params: dict, batch: dict, mesh):
+    """The reference's prefill cell (``prefill`` :844 under
+    ``jax.jit(..., in_shardings=param_shardings)``, ``specs.py:153-166``)
+    on a training mesh, one controller driving every shard: each data
+    group embeds its rows of ``batch`` (``batch_shardings``; every group
+    the whole batch where its rows do not split, as a replicated batch
+    runs; an MoE config one group on every row, ``_group_rows``), runs the layers as ``sharded_loss`` does (each layer's weights
+    gathered over fsdp where it runs, the TP sites over the model shards,
+    ``tp_site``), and takes the vocabulary-parallel head at the last
+    position.  Returns ``(logits [B, 1, V] f32`` on the mesh's first
+    device, ``caches)``: ``caches[g][layer]`` data group ``g``'s cache of
+    the layer where it was made, a dict on the group's lead device (a site
+    run whole) or the model shards' list of dicts (a split site: KV heads
+    or RG-LRU channels), kept there (``gather_prefill_caches``)."""
+    from .sharding import all_gather
+    logits, caches = [], []
+    for coords, devs, b in _group_rows(cfg, mesh, batch):
+        lead = devs[0]
+        h = embed_inputs(cfg, {"embed": params["embed"].gather(lead)},
+                         b.get("tokens"), patch_embeds=b.get("patch_embeds"),
+                         frame_embeds=b.get("frame_embeds"))
+        view = {"blocks": _LayerViews(cfg, params["blocks"], devs, lead)}
+        h, cache, _ = _layers(cfg, view, h, remat=False)
+        h = m.rms_norm(h[:, -1:], params["final_norm"].gather(lead),
+                       cfg.norm_eps)
+        logits.append(all_gather(_head_parts(params, h, devs), -1, lead))
+        caches.append(cache)
+    if not _split_rows(next(iter(batch.values()))) or cfg.num_experts:
+        logits = logits[:1]
+    return all_gather(logits, 0, mesh.devices.flat[0]), caches
+
+
+def gather_prefill_caches(caches: list, device, split: bool = True) -> list:
+    """``sharded_prefill``'s caches as one device's (``prefill``): each
+    layer's model shards joined along the KV heads or the RG-LRU channels
+    and the data groups along the batch (group 0's alone where the rows
+    do not split, ``split`` False), on ``device``."""
+    groups = caches if split and len(caches) > 1 else caches[:1]
+    out = []
+    for layer in range(len(groups[0])):
+        parts = []
+        for g in groups:
+            c = g[layer]
+            if isinstance(c, list):
+                c = {f: torch.cat([s[f].to(device) for s in c],
+                                  dim=-1 if f in ("h", "conv") else 2)
+                     for f in c[0]}
+            parts.append({f: t.to(device) for f, t in c.items()})
+        out.append({f: torch.cat([c[f] for c in parts], 0)
+                    for f in parts[0]})
+    return out
+
+
+def _rows_of(leaf, idx: tuple) -> tuple:
+    return leaf.slices(idx)[0]
+
+
+def _meets(span: tuple, rows: tuple) -> bool:
+    return span[0] < rows[0] + rows[1] and rows[0] < span[0] + span[1]
+
+
+def _group_whole(leaf, coords: list, lead, rows: tuple) -> torch.Tensor:
+    """A data group's rows ``rows`` = ``(start, count)`` of a placed cache
+    leaf, whole on ``lead``: the blocks that hold those rows, a replica on
+    the group's own devices where there is one, gathered there
+    (``all_gather``), and the rows cut out."""
+    from .sharding import _assemble, books
+    mine = {leaf.owner_of(c): c for c in reversed(coords)}
+    pieces = {}
+    for o in leaf.owners:
+        if _meets(_rows_of(leaf, o), rows):
+            pieces[tuple(s for s, _ in leaf.slices(o))] = \
+                leaf.blocks[mine.get(o, o)]
+    whole = books("all-gather")(_assemble)(pieces, lead)
+    r0 = min(s[0] for s in pieces)
+    if whole.shape[0] != rows[1]:
+        whole = whole.narrow(0, rows[0] - r0, rows[1])
+    return whole
+
+
+def _write_rows(leaf, new: torch.Tensor, rows: tuple) -> None:
+    """Write rows ``rows`` of a cache leaf (``new``: those rows, whole in
+    every other dimension) into every block that holds them, replicas
+    included, each its part (copies, ``scatter``); a block that is
+    ``new`` itself is left as it is."""
+    from .sharding import books
+
+    @books("scatter")
+    def write():
+        done = set()
+        for idx in np.ndindex(*leaf.mesh.devices.shape):
+            blk = leaf.blocks[idx]
+            sl = leaf.slices(idx)
+            if id(blk) in done or blk is new or not _meets(sl[0], rows):
+                continue
+            done.add(id(blk))
+            lo = max(sl[0][0], rows[0])
+            hi = min(sl[0][0] + sl[0][1], rows[0] + rows[1])
+            dst = blk.narrow(0, lo - sl[0][0], hi - lo)
+            src = new.narrow(0, lo - rows[0], hi - lo)
+            for d in range(1, new.dim()):
+                src = src.narrow(d, sl[d][0], sl[d][1])
+            dst.copy_(src)
+    write()
+
+
+def _split_k_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       cache: dict, coords: list, devs: list, lead,
+                       pos: torch.Tensor, local: bool) -> torch.Tensor:
+    """``attention_step`` over a cache whose positions split over the
+    model shards (``cache_shardings``' split-K layout): the projections on
+    the lead device, the new token's K/V written into the shard that holds
+    its slot, each shard's softmax partials (``max``, ``sum``, weighted V)
+    over its positions on its device, combined on the lead (``pmax``,
+    ``psum``), then the output projection.  x [b, 1, D], pos [b]."""
+    from .sharding import broadcast, pmax, psum
+    b = x.shape[0]
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = m._qkv(p, x, cfg, pos[:, None])
+    new = m.step_entries(k, v, cache)
+    sc = cache["k"].shape[1]
+    slot = pos % sc if local else pos
+    qs = broadcast(q[:, 0].reshape(b, hkv, h // hkv, dh).to(F32), devs)
+    parts = []
+    for j, dev in enumerate(devs):
+        blk = {f: c.blocks[coords[j]] for f, c in cache.items()}
+        off, ln = cache["k"].slices(coords[j])[1]
+        sj, pj = slot.to(dev), pos.to(dev)
+        inside = (sj >= off) & (sj < off + ln)
+        at = (sj - off).clamp(0, ln - 1)
+        rows = torch.arange(b, device=dev)
+        for f, val in new.items():
+            cur = blk[f][rows, at]
+            keep = inside.reshape(b, *([1] * (cur.dim() - 1)))
+            blk[f][rows, at] = torch.where(keep, val.to(dev).to(cur.dtype),
+                                           cur)
+        if "k_scale" in blk:
+            kc = m.kv_dequantize(blk["k"], blk["k_scale"])
+            vc = m.kv_dequantize(blk["v"], blk["v_scale"])
+        else:
+            kc, vc = blk["k"].to(F32), blk["v"].to(F32)
+        idx = (off + torch.arange(ln, device=dev))[None, :]
+        s = m.step_scores(cfg, qs[j], kc, m.step_valid(idx, pj, sc, local))
+        mx = s.amax(-1)
+        e = torch.exp(s - mx[..., None])
+        parts.append((mx, e.sum(-1), torch.einsum("bkgs,bskd->bkgd", e, vc)))
+    mx = pmax([pt[0] for pt in parts], lead)
+    w = [torch.exp(pt[0] - mx.to(pt[0].device)) for pt in parts]
+    den = psum([pt[1] * wj for pt, wj in zip(parts, w)], lead)
+    acc = psum([pt[2] * wj[..., None] for pt, wj in zip(parts, w)], lead)
+    out = acc / den[..., None]
+    return m.proj(out.reshape(b, 1, h, dh).to(x.dtype), p["wo"], 2)
+
+
+def _decode_layout(cache: dict, n: int) -> str:
+    """How a layer's placed decode cache splits over the ``n`` model
+    shards (``cache_shardings``): ``heads``, ``sequence`` (split-K) or
+    ``whole`` (neither, or a state)."""
+    k = cache.get("k")
+    if k is None or n == 1:
+        return "whole"
+    if _model_split(k, 2, n):
+        return "heads"
+    if _model_split(k, 1, n):
+        return "sequence"
+    return "whole"
+
+
+def sharded_decode_step(cfg: ModelConfig, params: dict, caches: list,
+                        tokens, pos, mesh):
+    """The reference's decode cell (``decode_step`` :380 under
+    ``jax.jit`` with ``param_shardings`` and ``cache_shardings``,
+    ``specs.py:168-180``) on a training mesh, one controller driving
+    every shard.  ``caches``: one dict a layer of ``Sharded`` leaves
+    placed by ``cache_shardings``; ``tokens`` [B, 1] placed by
+    ``batch_shardings``; ``pos`` a placed scalar (every row's position) or
+    [B] placed as the batch.  Each data group takes its rows (every group
+    the whole batch where they do not split) and runs the layers of
+    ``decode_step`` with each layer's weights gathered where it runs:
+
+    - an attention layer whose cache splits its KV heads over the model
+      shards runs ``attention_step`` once a shard on its heads and cache
+      block (``tp_site``);
+    - one whose cache splits its positions runs split-K
+      (``_split_k_attention``);
+    - any other layout, and every RG-LRU, mLSTM and sLSTM state, runs
+      whole on the group's lead device on the group's rows gathered there
+      (``_group_whole``), written back to every block that holds them
+      once every group has run (``_write_rows``: a group whose rows
+      another's replicate reads the state from before the step);
+    - the dense FFN over the model shards, the MoE whole on the lead; the
+      vocabulary-parallel head.
+
+    An MoE config runs every row in data group 0, as ``train_step``
+    does, so that its dispatch groups and capacity are the reference's.
+    The caches are written in place.  Returns ``(logits [B, 1, V] f32`` on
+    the mesh's first device, ``caches)``."""
+    from .sharding import all_gather
+    check_decoder(cfg)
+    kinds = layer_kinds(cfg)
+    logits, writes = [], []
+    for coords, devs, b_g in _group_rows(cfg, mesh,
+                                         {"tokens": tokens, "pos": pos}):
+        lead = devs[0]
+        tok = b_g["tokens"]
+        b = tok.shape[0]
+        rows = b_g["rows"]
+        p0 = b_g["pos"]
+        pos_g = p0.expand(b) if p0.dim() == 0 else p0
+        h = _embed_tokens(cfg, {"embed": params["embed"].gather(lead)}, tok)
+        hx = None
+        for layer, kind in enumerate(kinds):
+            cache = caches[layer]
+            # an MoE config's one group holds every row: its caches whole
+            layout = ("whole" if cfg.num_experts
+                      else _decode_layout(cache, len(devs)))
+            sites = {"mlp", "attention"} if layout == "heads" else {"mlp"}
+            p = _layer_view(cfg, kind, params["blocks"][layer], devs, lead,
+                            sites)
+            hn = _norm1(cfg, p, h, hx if reads_unrounded(cfg, layer)
+                        else None)
+            local = kind == "local"
+            if layout == "heads" and isinstance(p["inner"], m.ModelShards):
+                inner, _ = m.tp_site(
+                    m.attention_step, p["inner"], hn, cfg, local=local,
+                    shard_kw=[{"cache": {f: c.blocks[coords[j]]
+                                         for f, c in cache.items()},
+                               "pos": pos_g.to(devs[j])}
+                              for j in range(len(devs))])
+            elif layout == "sequence":
+                inner = _split_k_attention(cfg, p["inner"], hn, cache,
+                                           coords, devs, lead, pos_g, local)
+            else:
+                whole = {f: _group_whole(c, coords, lead, rows)
+                         for f, c in cache.items()}
+                if kind in ATTN_KINDS:
+                    inner, new = m.attention_step(p["inner"], hn, whole,
+                                                  pos_g, cfg, local=local)
+                else:
+                    step = {"recurrent": m.recurrent_step,
+                            "mlstm": m.mlstm_step,
+                            "slstm": m.slstm_step}[kind]
+                    inner, new = step(p["inner"], hn, whole, cfg)
+                writes += [(c, new[f], rows) for f, c in cache.items()]
+            h, hx, _ = _ffn_tail(cfg, p, h, inner, hn)
+        h = m.rms_norm(h, params["final_norm"].gather(lead), cfg.norm_eps)
+        logits.append(all_gather(_head_parts(params, h, devs), -1, lead))
+    for c, new, rows in writes:
+        _write_rows(c, new, rows)
+    if not _split_rows(tokens) or cfg.num_experts:
+        logits = logits[:1]
+    return all_gather(logits, 0, mesh.devices.flat[0]), caches
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

@@ -175,16 +175,16 @@ def packed_proj(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
     return y.reshape(*lead, *pw.shape[nc:]).to(x.dtype)
 
 
-def proj(x: torch.Tensor, w, n_contract: int = 1,
-         out_dtype=None) -> torch.Tensor:
+def proj(x: torch.Tensor, w, n_contract: int = 1) -> torch.Tensor:
     """Projection contracting x's last ``n_contract`` axes with w's leading
     ones (``proj`` :139): the fused APack path when the param tree holds a
-    ``PackedWeight`` at this site, else a dense product in x's dtype, or
-    in ``out_dtype`` (see ``matmul``; the weight is cast first, as the JAX
-    package's ``proj`` does; a weight already in x's dtype is not
-    copied)."""
+    ``PackedWeight`` at this site, else a dense product in x's dtype (the
+    weight is cast first, as the JAX package's ``proj`` does; a weight
+    already in x's dtype is not copied).  A model shard's column-parallel
+    weight in the sharded step (``ColumnShard``) takes the product its own
+    way."""
     if isinstance(w, ColumnShard):
-        return w.proj(x, n_contract, out_dtype)
+        return w.proj(x, n_contract)
     if isinstance(w, PackedWeight):
         if w.n_contract != n_contract:
             raise ValueError(f"packed weight contracts {w.n_contract} axes, "
@@ -195,23 +195,20 @@ def proj(x: torch.Tensor, w, n_contract: int = 1,
         k *= s
     out = w.shape[n_contract:]
     y = matmul(x.reshape(*x.shape[:x.dim() - n_contract], k),
-               w.reshape(k, -1), out_dtype)
+               w.reshape(k, -1))
     return y.reshape(*y.shape[:-1], *out)
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in a's dtype with f32 accumulation, b cast to a's dtype
     first as the reference casts each weight at its use.  On the card this is
     cuBLAS in bf16.  On the CPU the product runs in f32 and rounds once,
     which is how XLA's CPU backend evaluates the JAX package's bf16 dots;
     PyTorch's CPU bf16 GEMM rounds differently in the last bit, and that
-    bit changes int8 KV values downstream.  ``out_dtype=F32`` keeps the
-    f32 product unrounded (a row-parallel partial output, ``tp_site``)."""
+    bit changes int8 KV values downstream."""
     if isinstance(b, ColumnShard):
-        return b.matmul(a, out_dtype)
+        return b.matmul(a)
     b = b.to(a.dtype)
-    if out_dtype == F32:
-        return _F32Product.apply(a, b, None)
     if a.device.type == "cpu":
         return torch.matmul(a.to(F32), b.to(F32)).to(a.dtype)
     return torch.matmul(a, b)
@@ -226,46 +223,32 @@ def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b, out_dtype=F32)
 
 
-class _F32Product(torch.autograd.Function):
-    """``a @ b`` [..., K] x [K, N] of bf16 operands with one side in f32,
-    unrounded, saving the bf16 operands where autograd would keep f32
-    copies of the activations and weights (6.6 GB more peak at
-    qwen3-1.7b's 28 layers on a one-card 2 x 2 mesh, NVIDIA H100 80GB
-    HBM3).  The weight's gradient rounds once to b's dtype.
-
-    ``a32`` None (a row-parallel partial output, ``tp_site``): the
-    product comes back in f32 and a's gradient rounds once to a's dtype.
-    ``a32`` the f32 copy of ``a`` (a column-parallel projection,
-    ``ColumnShard``): the product is ``matmul``'s in a's dtype, and a's
-    gradient ``dy W^T`` goes to ``a32`` unrounded, since one device
-    contracts the whole output width and rounds it once, where a shard's
-    partial rounded before the shard-order sum would round it once a
-    shard (and once more a sum)."""
+class _ColumnProduct(torch.autograd.Function):
+    """``a @ b`` [..., K] x [K, N] of a column-parallel projection
+    (``ColumnShard``): the product is ``matmul``'s in a's dtype, saving
+    the bf16 operands where autograd would keep f32 copies of the
+    activations and weights (6.6 GB more peak at qwen3-1.7b's 28 layers on
+    a one-card 2 x 2 mesh, NVIDIA H100 80GB HBM3), and a's gradient
+    ``dy W^T`` goes to ``a32`` (the f32 copy of ``a``) unrounded, since one device contracts the whole
+    output width and rounds it once, where a shard's partial rounded
+    before the shard-order sum would round it once a shard (and once more
+    a sum).  The weight's gradient rounds once to b's dtype."""
 
     @staticmethod
     def forward(ctx, a, b, a32):
         ctx.save_for_backward(a, b)
-        ctx.column = a32 is not None
-        if ctx.column:
-            return matmul(a, b)
-        return torch.matmul(a.to(F32), b.to(F32))
+        return matmul(a, b)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
         a2, g2 = a.reshape(-1, a.shape[-1]), g.reshape(-1, g.shape[-1])
         ga = gb = None
-        if ctx.column:
-            if ctx.needs_input_grad[2]:
-                ga = _mm32(g2, b.t()).reshape(*g.shape[:-1], b.shape[0])
-            if ctx.needs_input_grad[1]:
-                gb = matmul(a2.t(), g2)
-            return None, gb, ga
-        if ctx.needs_input_grad[0]:
-            ga = torch.matmul(g, b.to(F32).t()).to(a.dtype)
+        if ctx.needs_input_grad[2]:
+            ga = _mm32(g2, b.t()).reshape(*g.shape[:-1], b.shape[0])
         if ctx.needs_input_grad[1]:
-            gb = torch.matmul(a2.to(F32).t(), g2).to(b.dtype)
-        return ga, gb, None
+            gb = matmul(a2.t(), g2)
+        return None, gb, ga
 
 
 class ColumnShard:
@@ -274,28 +257,23 @@ class ColumnShard:
     sharded train step, bound to the shard's copy of the site input: ``x``
     as the layer reads it and ``x32``, its f32 copy from
     ``sharding.broadcast``.  ``proj``/``matmul`` of ``x`` by it run
-    ``_F32Product`` on ``x32``, so the input's gradient reaches the
+    ``_ColumnProduct`` on ``x32``, so the input's gradient reaches the
     shard-order sum in f32 and rounds once, as one device's does.  Any
-    other input, contraction or output dtype is refused: the weight
-    belongs to that one input."""
+    other input or contraction is refused: the weight belongs to that one
+    input."""
 
     def __init__(self, w: torch.Tensor, x: torch.Tensor, x32: torch.Tensor):
         self.w, self.x, self.x32 = w, x, x32
 
-    def _check(self, a, n_contract: int, out_dtype) -> None:
-        if a is not self.x or n_contract != 1 or out_dtype is not None:
+    def matmul(self, a: torch.Tensor) -> torch.Tensor:
+        return self.proj(a, 1)
+
+    def proj(self, x: torch.Tensor, n_contract: int = 1) -> torch.Tensor:
+        if x is not self.x or n_contract != 1:
             raise ValueError("a column shard multiplies the site input it "
-                             "was bound to, contracting one axis, in its "
-                             "dtype")
-
-    def matmul(self, a: torch.Tensor, out_dtype=None) -> torch.Tensor:
-        return self.proj(a, 1, out_dtype)
-
-    def proj(self, x: torch.Tensor, n_contract: int = 1,
-             out_dtype=None) -> torch.Tensor:
-        self._check(x, n_contract, out_dtype)
+                             "was bound to, contracting one axis")
         w2 = self.w.reshape(self.w.shape[0], -1).to(x.dtype)
-        y = _F32Product.apply(x, w2, self.x32)
+        y = _ColumnProduct.apply(x, w2, self.x32)
         return y.reshape(*y.shape[:-1], *self.w.shape[1:])
 
 
@@ -327,31 +305,40 @@ class ModelShards:
             parts, cfgs, devices, lead
 
 
-def tp_site(fn, p, x: torch.Tensor, cfg: ModelConfig, **kw):
-    """``fn(p, x, cfg, **kw)`` (``attention_full``, ``recurrent_full`` or
-    ``mlp``).  With ``ModelShards`` params it runs once a model shard on
-    its block, and the row-parallel partial outputs, kept in f32, are
-    summed in shard order on the lead device (``psum``) and rounded once
-    to x's dtype, as the single-device product rounds once, so the
-    residual is whole there; the layer's decode cache is dropped
-    (training keeps none).  x reaches the shards through
-    ``column_inputs``, its column-parallel projections through
-    ``ColumnShard``: its gradient, too, is the shards' f32 sum in shard
-    order, rounded once.  Partials rounded to bf16 before the sum (as
-    a bf16 all-reduce would) move the residual by a bf16 ulp here and
-    there, enough to flip an MoE routing choice downstream."""
+def tp_site(fn, p, x: torch.Tensor, cfg: ModelConfig, *,
+            shard_kw: list | None = None, **kw):
+    """``fn(p, x, cfg, **kw)``, a site function of ``ROW_SITES``
+    (``attention_full``, ``attention_step``, ``recurrent_full`` or
+    ``mlp``).  With ``ModelShards`` params its body (the site up to its
+    row-parallel output projection) runs once a model shard on its block,
+    with ``shard_kw[j]`` besides (e.g. the shard's cache); the shards'
+    body outputs are gathered in shard order onto the lead device
+    (``all_gather``) and multiplied there by the whole row-parallel
+    weight, one product as on one device, so the residual is whole there.
+    Partial products summed over the shards, even in f32, round otherwise
+    than one device's product: on the card they held the 2 x 2 mesh's
+    first step at a share of 0.9574 of qwen3-1.7b's params within lr / 100
+    of one device's, against the one-device control's 0.9838, and the one
+    product at 0.9837.  A layer's cache comes back as the shards' list.
+    x reaches the shards through ``column_inputs``, its column-parallel
+    projections through ``ColumnShard``: its gradient is the shards' f32
+    sum in shard order, rounded once."""
     if not isinstance(p, ModelShards):
         return fn(p, x, cfg, **kw)
-    from .sharding import psum
+    from .sharding import all_gather
+    body, key, nc = ROW_SITES[fn]
     outs = []
-    for pj, cj, (xj, x32) in zip(p.parts, p.cfgs,
-                                 column_inputs(x, p.devices)):
+    for j, (pj, cj, (xj, x32)) in enumerate(zip(
+            p.parts, p.cfgs, column_inputs(x, p.devices))):
         pj = {k: ColumnShard(w, xj, x32) if k in COLUMN_KEYS else w
               for k, w in pj.items()}
-        outs.append(fn(pj, xj, cj, out_dtype=F32, **kw))
-    if isinstance(outs[0], tuple):
-        return psum([o[0] for o in outs], p.lead).to(x.dtype), None
-    return psum(outs, p.lead).to(x.dtype)
+        outs.append(body(pj, xj, cj, **kw, **(shard_kw[j] if shard_kw
+                                              else {})))
+    pair = isinstance(outs[0], tuple)
+    hs = [o[0] for o in outs] if pair else outs
+    y = proj(all_gather(hs, hs[0].dim() - nc, p.lead),
+             all_gather([pj[key] for pj in p.parts], 0, p.lead), nc)
+    return (y, [o[1] for o in outs]) if pair else y
 
 
 # --------------------------------------------------------------- attention
@@ -379,8 +366,7 @@ def _ring_cache(arr: torch.Tensor, w: int, t: int) -> torch.Tensor:
 
 
 def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                   local: bool = False, true_len: int | None = None,
-                   out_dtype=None):
+                   local: bool = False, true_len: int | None = None):
     """Prefill attention of a global or rolling (``local``) layer, chunked
     over queries (``attention_full`` :175, mask ``_mask`` :166).  Returns
     ``(y [B, S, D], cache)``: every position for a global layer, the
@@ -388,6 +374,14 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     sequence end when None) for a local one.  The cache is int8 ``{k, v,
     k_scale, v_scale}`` when ``cfg.kv_int8``, else the unquantized
     ``{k, v}``."""
+    out, cache = attention_heads(p, x, cfg, local=local, true_len=true_len)
+    return proj(out, p["wo"], 2), cache
+
+
+def attention_heads(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    local: bool = False, true_len: int | None = None):
+    """``attention_full`` up to its output projection: ``(the heads'
+    outputs [B, S, H, dh], cache)``."""
     b, s, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hkv
@@ -413,16 +407,15 @@ def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         w = torch.softmax(scores, dim=-1)
         outs.append(torch.einsum("bkgcs,bskd->bckgd", w, vf).to(x.dtype))
     out = torch.cat(outs, dim=1).reshape(b, s, h, dh)
-    y = proj(out, p["wo"], 2, out_dtype)
     if local:
         t = s if true_len is None else int(true_len)
         k = _ring_cache(k, cfg.window_size, t)
         v = _ring_cache(v, cfg.window_size, t)
     if not cfg.kv_int8:
-        return y, {"k": k, "v": v}
+        return out, {"k": k, "v": v}
     qk, sk = kv_quantize(k)
     qv, sv = kv_quantize(v)
-    return y, {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    return out, {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
 
 
 def attention_step(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -438,41 +431,72 @@ def attention_step(p: dict, x: torch.Tensor, cache: dict, pos: torch.Tensor,
     JAX function returns an updated copy; the port writes the cache's
     tensors in place, so a step holds one cache, and returns the same
     dict."""
+    out, cache = attention_step_heads(p, x, cfg, cache=cache, pos=pos,
+                                      local=local)
+    return proj(out, p["wo"], 2), cache
+
+
+def attention_step_heads(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                         cache: dict, pos: torch.Tensor,
+                         local: bool = False):
+    """``attention_step`` up to its output projection, the config third
+    as ``tp_site`` calls a site's body: ``(the heads' outputs [B, 1, H,
+    dh], cache)``."""
     b = x.shape[0]
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    g = h // hkv
     q, k, v = _qkv(p, x, cfg, pos[:, None])
     rows = torch.arange(b, device=x.device)
     sc = cache["k"].shape[1]
     slot = pos % sc if local else pos
+    for f, val in step_entries(k, v, cache).items():
+        cache[f][rows, slot] = val.to(cache[f].dtype)
     if "k_scale" in cache:
-        qk, sk = kv_quantize(k[:, 0])
-        qv, sv = kv_quantize(v[:, 0])
-        for f, val in (("k", qk), ("v", qv), ("k_scale", sk),
-                       ("v_scale", sv)):
-            cache[f][rows, slot] = val
         kc = kv_dequantize(cache["k"], cache["k_scale"])
         vc = kv_dequantize(cache["v"], cache["v_scale"])
     else:
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
         kc, vc = cache["k"], cache["v"]
     idx = torch.arange(sc, device=x.device)[None, :]
+    valid = step_valid(idx, pos, sc, local)
+    scores = step_scores(cfg, q.reshape(b, hkv, h // hkv, dh).to(F32),
+                         kc.to(F32), valid)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", w, vc.to(F32))
+    return out.reshape(b, 1, h, dh).to(x.dtype), cache
+
+
+def step_entries(k: torch.Tensor, v: torch.Tensor, cache: dict) -> dict:
+    """The new token's cache entries from its K/V [B, 1, Hkv, dh]: int8
+    with their scales when the cache holds ``k_scale``, else as they
+    are."""
+    if "k_scale" in cache:
+        qk, sk = kv_quantize(k[:, 0])
+        qv, sv = kv_quantize(v[:, 0])
+        return {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    return {"k": k[:, 0], "v": v[:, 0]}
+
+
+def step_valid(idx: torch.Tensor, pos: torch.Tensor, sc: int,
+               local: bool) -> torch.Tensor:
+    """Which cache slots ``idx`` [1, n] a decode step at ``pos`` [B]
+    reads: ``index <= pos`` for a global layer; for a rolling one of
+    ``sc`` slots those whose absolute position ``pos - ((pos - j) mod
+    sc)`` is in ``[0, pos]``."""
     if local:
         abs_pos = pos[:, None] - torch.remainder(pos[:, None] - idx, sc)
-        valid = (abs_pos >= 0) & (abs_pos <= pos[:, None])
-    else:
-        valid = idx <= pos[:, None]
-    scores = torch.einsum("bkgd,bskd->bkgs",
-                          q.reshape(b, hkv, g, dh).to(F32), kc.to(F32)) \
-        * (dh ** -0.5)
+        return (abs_pos >= 0) & (abs_pos <= pos[:, None])
+    return idx <= pos[:, None]
+
+
+def step_scores(cfg: ModelConfig, q: torch.Tensor, kc: torch.Tensor,
+                valid: torch.Tensor) -> torch.Tensor:
+    """A decode step's f32 scores [B, Hkv, G, n] of q [B, Hkv, G, dh]
+    against cache keys kc [B, n, Hkv, dh], masked by ``valid`` [B, n] and
+    soft-capped."""
+    scores = torch.einsum("bkgd,bskd->bkgs", q, kc) * (cfg.head_dim ** -0.5)
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     if cfg.logit_softcap > 0:
         scores = cfg.logit_softcap * torch.tanh(scores / cfg.logit_softcap)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", w, vc.to(F32))
-    y = proj(out.reshape(b, h, dh).to(x.dtype), p["wo"], 2)[:, None, :]
-    return y, cache
+    return scores
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -603,11 +627,15 @@ def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return gate * (1.0 / (1.0 + torch.exp(-gate))) * up
 
 
-def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-        out_dtype=None) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The FFN (``mlp`` :461): gated swiglu or geglu, or ungated ``gelu``
     (gelu of the up projection) or ``relu2`` (squared ReLU, op by op in
     the activations' bf16), then the down projection."""
+    return proj(mlp_hidden(p, x, cfg), p["w_down"])
+
+
+def mlp_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``mlp`` up to its down projection: the hidden activations."""
     up = proj(x, p["w_up"])
     if cfg.mlp_variant == "swiglu":
         hid = _silu_mul(proj(x, p["w_gate"]), up)
@@ -619,7 +647,7 @@ def mlp(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         hid = torch.square(torch.relu(up))
     else:
         raise ValueError(cfg.mlp_variant)
-    return proj(hid, p["w_down"], out_dtype=out_dtype)
+    return hid
 
 
 def init_mlp(cfg: ModelConfig, normal, d_ff: int | None = None) -> dict:
@@ -839,12 +867,22 @@ def _conv(hist: torch.Tensor, conv_w: torch.Tensor, s: int) -> torch.Tensor:
 
 def recurrent_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                    pad_mask: torch.Tensor | None = None,
-                   true_len: int | None = None, out_dtype=None):
+                   true_len: int | None = None):
     """Griffin recurrent block over a full sequence (``recurrent_full``
     :582).  ``pad_mask`` ([S] bool, True past ``true_len``) makes pad steps
     inert (a = 1, input 0), so the final state is the unpadded one, and
     the conv history is the three inputs before ``true_len``.  Returns
     ``(y [B, S, D], {"h": f32 [B, W], "conv": f32 [B, 3, W]})``."""
+    hid, cache = recurrent_hidden(p, x, cfg, pad_mask=pad_mask,
+                                  true_len=true_len)
+    return matmul(hid, p["w_out"]), cache
+
+
+def recurrent_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                     pad_mask: torch.Tensor | None = None,
+                     true_len: int | None = None):
+    """``recurrent_full`` up to its output projection: ``(the gated scan
+    [B, S, W], cache)``."""
     b, s, _ = x.shape
     xw = matmul(x, p["w_x"])                                    # [B, S, W]
     gate = gelu(matmul(x, p["w_gate"]))
@@ -855,9 +893,17 @@ def recurrent_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         a = torch.where(pad3, 1.0, a)
         bx = torch.where(pad3, 0.0, bx)
     _, h = linear_scan(a, bx)
-    y = matmul(h.to(x.dtype) * gate, p["w_out"], out_dtype)
+    hid = h.to(x.dtype) * gate
     t = s if true_len is None else int(true_len)
-    return y, {"h": h[:, -1].to(F32), "conv": xp[:, t:t + 3].to(F32)}
+    return hid, {"h": h[:, -1].to(F32), "conv": xp[:, t:t + 3].to(F32)}
+
+
+# each TP site function's body up to its row-parallel output projection,
+# that projection's weight and how many axes it contracts (``tp_site``)
+ROW_SITES = {attention_full: (attention_heads, "wo", 2),
+             attention_step: (attention_step_heads, "wo", 2),
+             mlp: (mlp_hidden, "w_down", 1),
+             recurrent_full: (recurrent_hidden, "w_out", 1)}
 
 
 def recurrent_step(p: dict, x: torch.Tensor, cache: dict,

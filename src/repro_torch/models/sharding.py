@@ -3,9 +3,12 @@
 Port of ``repro/models/sharding.py``.  Training: ``fsdp_axes`` :17,
 ``dp_axes`` :41, ``_param_spec`` :45 (with its ``moe_ep`` variant),
 ``_path_str`` :110, ``param_shardings`` :122, ``cache_shardings`` :138,
-``batch_shardings`` :172, ``activation_constraint`` :185,
-``logits_sharding`` :194 and the model-code context ``_CTX``/
-``set_mesh_context``/``mesh_context``/``constrain`` :289-344.  Serving:
+``batch_shardings`` :172, ``logits_sharding`` :194 and the model-code
+context ``_CTX``/``set_mesh_context``/``mesh_context`` :289-315 (its
+``moe_ep`` option).  The reference's ``activation_constraint`` :185,
+``constrain`` :319 and ``seq_shard`` option have no counterpart: the
+port's sharded step keeps each data group's residual whole on its lead
+device, so it has no sequence-parallel layout to give.  Serving:
 ``fit_spec`` :31, the pool plane rules ``_PLANE_RULES``/``plane_pspec``/
 ``plane_pspecs`` :209-253, the packed-weight leaf rules
 ``PACKED_LEAF_KINDS``/``packed_leaf_pspecs`` :256-272 and the placement
@@ -20,12 +23,45 @@ collectives that GSPMD and ``shard_map`` insert are explicit functions
 over the per-shard tensors, in shard-index order: ``all_gather``
 (concatenation), ``psum`` (a sum) and ``pmax``, each onto one device.  A
 tensor placed on a mesh is a ``Sharded``: its blocks by mesh coordinate,
-each on its device, a replicated block once a device.
+each on its device, a replicated block once a device.  Each collective
+names its kind while it runs (``collective_kind``), so that the dry run's
+cost counter (``launch.costs``) books every copy between devices to the
+collective that made it.
 """
 from __future__ import annotations
 
+import functools
+import threading
+
 import numpy as np
 import torch
+
+# the kinds of the collectives running on this thread, innermost last
+# (``books``; autograd runs a card's backward on a thread of its own)
+_LOCAL = threading.local()
+
+
+def collective_kind() -> str | None:
+    """The kind of the innermost collective running (``all-gather``,
+    ``all-reduce``, ``broadcast``, ``scatter``), None outside one."""
+    kinds = getattr(_LOCAL, "kinds", None)
+    return kinds[-1] if kinds else None
+
+
+def books(kind: str):
+    """Decorate a collective: ``collective_kind`` is ``kind`` while it
+    runs."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            kinds = _LOCAL.__dict__.setdefault("kinds", [])
+            kinds.append(kind)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                kinds.pop()
+        return run
+    return wrap
 
 
 def _axes_size(mesh, entry) -> int:
@@ -132,6 +168,7 @@ def local_shape(spec: tuple, shape: tuple, mesh) -> tuple:
 
 
 # ------------------------------------------------------------ collectives
+@books("all-gather")
 def all_gather(parts: list, dim: int, device) -> torch.Tensor:
     """The shards' tensors concatenated along ``dim`` in shard order, on
     ``device`` (``all_gather(..., tiled=True)``)."""
@@ -140,6 +177,7 @@ def all_gather(parts: list, dim: int, device) -> torch.Tensor:
     return torch.cat([p.to(device) for p in parts], dim=dim)
 
 
+@books("all-reduce")
 def psum(parts: list, device) -> torch.Tensor:
     """The shards' tensors summed in shard order, on ``device``."""
     out = parts[0].to(device)
@@ -156,6 +194,7 @@ class _Broadcast(torch.autograd.Function):
     arrive in an order that varies from run to run."""
 
     @staticmethod
+    @books("broadcast")
     def forward(ctx, x, *devices):
         ctx.device = x.device
         return tuple(x.to(d, copy=True) for d in devices)
@@ -167,6 +206,7 @@ class _Broadcast(torch.autograd.Function):
                 *([None] * len(grads)))
 
 
+@books("broadcast")
 def broadcast(x: torch.Tensor, devices: list) -> list:
     """``x`` on each of ``devices`` (a copy each, also on ``x``'s own),
     its gradient the shard-order sum of the copies' (``psum``)."""
@@ -175,6 +215,7 @@ def broadcast(x: torch.Tensor, devices: list) -> list:
     return list(_Broadcast.apply(x, *devices))
 
 
+@books("all-reduce")
 def pmax(parts: list, device) -> torch.Tensor:
     """The shards' tensors' elementwise maximum, on ``device``."""
     out = parts[0].to(device)
@@ -349,15 +390,6 @@ def batch_shardings(mesh, batch):
     return _map_with_path(one, batch)
 
 
-def activation_constraint(mesh, h, *, seq_shard: bool = False) -> tuple:
-    """The residual stream's spec between blocks (``activation_constraint``
-    :185): the batch over dp and, with ``seq_shard``, the sequence over
-    ``model``.  The port places activations explicitly (one controller),
-    so this gives the spec and leaves ``h`` where it is."""
-    dp = dp_axes(mesh)
-    return canonical((dp, "model", None) if seq_shard else (dp, None, None))
-
-
 def logits_sharding(mesh) -> NamedSharding:
     """Logits [B, S, V]: batch over dp, vocabulary over ``model``
     (``logits_sharding`` :194)."""
@@ -365,77 +397,31 @@ def logits_sharding(mesh) -> NamedSharding:
 
 
 # ------------------------------------------------ model-code context
-# The reference's model code calls ``constrain(x, kind)``, a no-op unless
-# the launcher installed a mesh (``_CTX`` :289).  The port's sharded step
-# (``model.sharded_loss``) splits its sites explicitly, so ``constrain``
-# leaves a tensor as it is and ``constraint_spec`` says what the
-# reference constrains it to.
-_CTX: dict = {"mesh": None, "seq_shard": False, "moe_ep": False}
+# The reference's model code reads the installed mesh and its options
+# (``_CTX`` :289); the port's training rules read ``moe_ep``
+# (``_param_spec``).
+_CTX: dict = {"mesh": None, "moe_ep": False}
 
 
-def set_mesh_context(mesh, *, seq_shard: bool = False,
-                     moe_ep: bool = False) -> None:
+def set_mesh_context(mesh, *, moe_ep: bool = False) -> None:
     _CTX["mesh"] = mesh
-    _CTX["seq_shard"] = seq_shard
     _CTX["moe_ep"] = moe_ep
 
 
 class mesh_context:
-    """``with mesh_context(mesh):`` installs ``mesh`` (and the
-    ``seq_shard``/``moe_ep`` options) for the code inside, as
-    ``mesh_context`` :305 does."""
+    """``with mesh_context(mesh):`` installs ``mesh`` (and the ``moe_ep``
+    option) for the code inside, as ``mesh_context`` :305 does."""
 
-    def __init__(self, mesh, *, seq_shard: bool = False,
-                 moe_ep: bool = False):
-        self.mesh, self.seq_shard, self.moe_ep = mesh, seq_shard, moe_ep
+    def __init__(self, mesh, *, moe_ep: bool = False):
+        self.mesh, self.moe_ep = mesh, moe_ep
 
     def __enter__(self):
         self.prev = dict(_CTX)
-        set_mesh_context(self.mesh, seq_shard=self.seq_shard,
-                         moe_ep=self.moe_ep)
+        set_mesh_context(self.mesh, moe_ep=self.moe_ep)
         return self
 
     def __exit__(self, *exc):
         _CTX.update(self.prev)
-
-
-def constraint_spec(shape: tuple, kind: str) -> tuple | None:
-    """The spec ``constrain`` :319 gives a tensor of ``shape`` under the
-    installed mesh (None without one): kind ``residual`` [B, S, D],
-    ``logits`` [B, S, V], ``heads`` [B, S, H, dh], ``ffn_hidden``
-    [B, S, F], ``experts`` [E, C, ...], ``kv_cache`` [B, S, Hkv, dh], any
-    other the batch over dp.  Only the batch dimension is fitted."""
-    mesh = _CTX["mesh"]
-    if mesh is None:
-        return None
-    dp = dp_axes(mesh)
-    nd = len(shape)
-    if kind == "residual":
-        spec = (dp, "model", None) if _CTX["seq_shard"] else (dp, None, None)
-    elif kind == "logits":
-        spec = (dp, None, "model")
-    elif kind == "heads":
-        spec = (dp, None, "model", None)
-    elif kind == "ffn_hidden":
-        spec = (dp, None, "model")
-    elif kind == "experts":
-        spec = (dp if _CTX.get("moe_ep") else "model",) + (None,) * (nd - 1)
-    elif kind == "kv_cache":
-        spec = ((dp, None, "model", None)
-                if shape[2] % _axes_size(mesh, "model") == 0
-                else (dp, "model", None, None))
-    else:
-        spec = (dp,) + (None,) * (nd - 1)
-    if shape[0] % _axes_size(mesh, spec[0]) != 0:
-        spec = (None,) + spec[1:]
-    return canonical(spec)
-
-
-def constrain(x, kind: str):
-    """``x`` itself (``constrain`` :319): without a mesh as in the
-    reference; with one, because the port's sharded step places each
-    site's blocks explicitly (``constraint_spec`` gives the layout)."""
-    return x
 
 
 # ------------------------------------------------- tensors on a mesh
@@ -501,6 +487,7 @@ class Sharded:
                      for a, i in zip(self.mesh.axis_names, idx))
 
     @classmethod
+    @books("scatter")
     def place(cls, x: torch.Tensor, sharding: NamedSharding) -> "Sharded":
         """``x`` split by ``sharding`` (``jax.device_put``): each device
         its block, a copy (a block of ``x`` on its own device shares no
@@ -523,6 +510,27 @@ class Sharded:
         return cls(sharding, tuple(x.shape), blocks)
 
     @classmethod
+    def empty(cls, shape: tuple, dtype, sharding: NamedSharding
+              ) -> "Sharded":
+        """A tensor of ``shape`` laid out by ``sharding`` with each block
+        made by ``torch.empty`` on its device (one tensor a block and
+        device, as ``place`` makes them), from no whole tensor: under the
+        dry run's fake tensor mode a placed tree that allocates nothing."""
+        mesh = sharding.mesh
+        spec = fit_spec(sharding.spec, tuple(shape), mesh)
+        sharding = NamedSharding(mesh, spec)
+        blocks, made = {}, {}
+        for idx in np.ndindex(*mesh.devices.shape):
+            sl = block_slices(spec, tuple(shape), mesh, idx)
+            key = (sl, mesh.devices[idx])
+            if key not in made:
+                made[key] = torch.empty([n for _, n in sl], dtype=dtype,
+                                        device=mesh.devices[idx])
+            blocks[idx] = made[key]
+        return cls(sharding, tuple(shape), blocks)
+
+    @classmethod
+    @books("broadcast")
     def from_owners(cls, like: "Sharded", owned: dict) -> "Sharded":
         """A tensor of ``like``'s layout from new owner blocks ``owned``
         (by owner coordinate): each replica takes its owner's block on its
@@ -539,6 +547,7 @@ class Sharded:
         return self.assemble(self.mesh.devices.flat[0] if device is None
                              else device, self.owners)
 
+    @books("all-gather")
     def assemble(self, device, owners: list) -> torch.Tensor:
         """The blocks of ``owners`` (owner coordinates forming a box of
         blocks, e.g. one model shard's) concatenated on ``device``."""

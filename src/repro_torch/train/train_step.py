@@ -31,7 +31,7 @@ import torch
 from repro_torch import tree
 from repro_torch.launch.mesh import train_grid
 from repro_torch.models import model as M
-from repro_torch.models.sharding import Sharded, _assemble, psum
+from repro_torch.models.sharding import Sharded, _assemble, books, psum
 from repro_torch.models.config import ModelConfig
 
 from . import optimizer as opt
@@ -76,6 +76,7 @@ class _Reads(Sharded):
                          {i: like.blocks[i].detach() for i in like.owners})
         self.reads: list = []
 
+    @books("all-gather")
     def assemble(self, device, owners: list) -> torch.Tensor:
         pieces = {}
         for idx in owners:

@@ -391,7 +391,11 @@ def test_watchdog_preempts_hung_slot_and_recovers(qwen):
         for _ in range(9):
             eng.step()
         if inj is not None:
-            inj.delay_steps(1.5, n=3)      # the CPU step is ~0.1 s
+            # a stall far past the watchdog's ratio of the trailing median
+            # step, whatever the host's load (a CPU step is ~0.1 s alone)
+            wd = eng.watchdog
+            inj.delay_steps(max(1.5, 2 * wd.ratio * float(
+                np.median(wd.step_times[-8:]))), n=3)
         eng.run_until_drained(max_steps=300)
         return reqs, eng
 

@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
 port's examples import neither JAX (nor ``ml_dtypes``, which comes with
 it) nor anything of the JAX package ``repro`` — not even its JAX-free
-modules — and the chip script refuses to run outside a checkout."""
+modules — nor ``zstandard`` (the JAX dry run's codec; the port's writes
+``gzip``), and the chip script refuses to run outside a checkout."""
 import ast
 import pathlib
 import subprocess
@@ -30,7 +31,8 @@ def test_no_jax_or_repro_imports_in_the_source():
     assert len(files) > 15
     bad = [(f.relative_to(ROOT), name) for f in files
            for name in _imports(f)
-           if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro")]
+           if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro",
+                                     "zstandard")]
     assert not bad, bad
 
 
@@ -42,7 +44,7 @@ def test_importing_the_port_loads_no_jax():
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
+            "('jax', 'jaxlib', 'ml_dtypes', 'repro', 'zstandard'))\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code],

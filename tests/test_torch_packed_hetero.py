@@ -63,8 +63,11 @@ def arch(request):
     params = _jax_params(cj)
     tp = params_from_numpy(cp, jax.tree.map(np.array, params), "cpu")
     eng = ServeEngine(cp, tp, device="cpu", **KW)
+    # the JAX engine packs with ``pack_weights(cfg, params, min_size)``:
+    # its planes and stats are the JAX package's packing, done once
+    je = JEngine(cj, params, kv_backend="ref", **KW)
     return dict(name=request.param, cj=cj, cp=cp, params=params, tp=tp,
-                eng=eng, jpacked=JM.pack_weights(cj, params, min_size=1024),
+                eng=eng, je=je, jpacked=(je.params, je._weight_stats),
                 ppacked=(eng.params, eng._weight_stats))
 
 
@@ -117,8 +120,7 @@ def test_pack_weights_by_kind_matches_jax(arch):
 def test_weight_stats_equal_the_jax_engines(arch):
     """``weight_stats()`` of the port's packed engine (before it serves)
     equals the JAX engine's."""
-    je = JEngine(arch["cj"], arch["params"], kv_backend="ref", **KW)
-    assert arch["eng"].weight_stats() == je.weight_stats()
+    assert arch["eng"].weight_stats() == arch["je"].weight_stats()
 
 
 def test_packed_engine_teacher_forced_against_jax(arch):
@@ -138,10 +140,18 @@ def test_packed_engine_teacher_forced_against_jax(arch):
     assert all(r.done and len(r.tokens) == 6 for r in reqs)
     fwd = jax.jit(lambda p, t: JM.forward(arch["cj"], p, {"tokens": t},
                                           remat=False)[0])
+    seqs = [np.concatenate([r.prompt, np.asarray(r.tokens[:-1])])
+            for r in reqs]
+    # one JAX forward over the three sequences, each padded at its end
+    # (causal: a position's logits do not read the pad after it)
+    width = max(len(q) for q in seqs)
+    batch = np.zeros((len(seqs), width), np.int32)
+    for i, q in enumerate(seqs):
+        batch[i, :len(q)] = q
+    wants = np.asarray(fwd(jp, jnp.asarray(batch)))
     agree = total = 0
-    for r in reqs:
-        seq = np.concatenate([r.prompt, np.asarray(r.tokens[:-1])])
-        want = np.asarray(fwd(jp, jnp.asarray(seq[None], jnp.int32)))[0]
+    for r, seq, want in zip(reqs, seqs, wants):
+        want = want[:len(seq)]
         got = PM.forward(cfg, eng.params,
                          torch.as_tensor(seq[None]))[0][0].numpy()
         np.testing.assert_allclose(got, want, atol=0.05)
